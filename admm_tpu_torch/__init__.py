@@ -4,14 +4,17 @@ A second package beside ``admm_tpu``, which stays the reference.  Module
 names mirror ``admm_tpu``'s so each counterpart is easy to find.  The port
 imports ``torch`` and never ``jax``.
 
-Ported so far (ROADMAP.md, queue 1, slice 1): the alg-0 engine, the serial
-LASSO with all four x-prox branches, and the fused soft-threshold /
-dual-update pass as a Triton kernel for Hopper GPUs.
+Ported so far (ROADMAP.md, queue 1, slices 1 and 6): the alg-0 engine, the
+serial LASSO with all four x-prox branches and the fused soft-threshold /
+dual-update pass as a Triton kernel for Hopper GPUs; 1-D total variation
+with its dense and cyclic-reduction x-updates, the cyclic-reduction solve
+as a CUDA C++ kernel for Hopper; and 2-D total variation.
 """
 
 from .config import ADMMConfig
 from .engine import Hooks, admm
-from .models import lasso
+from .models import lasso, totalvariation, totalvariation2d
 from .results import ADMMResults
 
-__all__ = ["ADMMConfig", "ADMMResults", "Hooks", "admm", "lasso"]
+__all__ = ["ADMMConfig", "ADMMResults", "Hooks", "admm", "lasso", "totalvariation",
+           "totalvariation2d"]

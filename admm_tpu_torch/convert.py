@@ -1,16 +1,26 @@
 """Problem state carried across from ``admm_tpu`` to the port.
 
-``admm_tpu``'s LASSO setup leaves its operands in a ``data`` dict of JAX
-arrays and solver objects.  ``numpy_state`` flattens such a dict into
-plain numpy arrays (duck-typed: it never imports JAX), and
-``lasso_data`` rebuilds the port's ``data`` dict from them on a given
-device.  Feeding the same numbers to both packages this way isolates the
-iteration from differences in the setup-time linear algebra (eigh,
-solve), which is what the parity tests need.
+``admm_tpu``'s solver setups leave their operands in a ``data`` dict of
+JAX arrays and solver objects.  ``numpy_state`` flattens such a dict into
+plain numpy arrays (duck-typed: it never imports JAX), and ``lasso_data``,
+``tv_data`` and ``tv2d_data`` rebuild the port's ``data`` dicts from them
+on a given device.  Feeding the same numbers to both packages this way
+isolates the iteration from differences in the setup-time linear algebra
+(eigh, solve, inverse), which is what the parity tests need.
 
-Flat keys: ``D``, ``s``, ``Dts``, ``lam``; the static-rho solver, as
-``fat.D``/``fat.E``/``fat.rho0`` (``FatShiftSolver``, fat D) or ``Minv``
-(skinny D); and optionally the warm start ``x0``, ``z0``, ``u0``.
+Flat keys:
+- LASSO: ``D``, ``s``, ``Dts``, ``lam``; the static-rho solver, as
+  ``fat.D``/``fat.E``/``fat.rho0`` (``FatShiftSolver``, fat D) or ``Minv``
+  (skinny D);
+- 1-D TV: ``s``, ``lam``; ``Minv`` (dense x-update) or the
+  cyclic-reduction solver as ``cr.alphas``, ``cr.betas``, ``cr.a_lv``,
+  ``cr.c_lv``, ``cr.d_lv``, ``cr.masks_f``, ``cr.masks_b``, ``cr.n``,
+  ``cr.cut_stride`` and, with a hybrid dense tail, ``cr.Tinv``;
+- 2-D TV: ``S``, ``lam``, ``Ur``, ``wr``, ``Uc``, ``wc``;
+- optionally the warm start ``x0``, ``z0``, ``u0``.
+
+Matrix-free operators (TV's ``D``, 2-D TV's ``A``) hold no numbers; they
+are rebuilt from the shapes.
 """
 
 from __future__ import annotations
@@ -18,27 +28,60 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .linop import DiffOp
+from .models.totalvariation2d import TV2DOp
 from .ops.solve import FatShiftSolver
+from .ops.tridiag import CyclicReductionSolver
 
-_ARRAYS = ("D", "s", "Dts", "lam", "Minv")
+_ARRAYS = ("D", "s", "Dts", "lam", "Minv", "S", "Ur", "wr", "Uc", "wc")
 _FAT_FIELDS = ("D", "E", "rho0")
+_CR_STACKS = ("alphas", "betas", "a_lv", "c_lv", "d_lv")
+_CR_MASKS = ("masks_f", "masks_b")
 
 
 def numpy_state(data: dict, **warm) -> dict:
-    """Flatten a static-rho LASSO ``data`` dict (of either package) plus
-    optional ``x0``/``z0``/``u0`` arrays into ``{flat key: numpy array}``."""
+    """Flatten a static-rho LASSO or TV ``data`` dict (of either package)
+    plus optional ``x0``/``z0``/``u0`` arrays into ``{flat key: numpy
+    array}``."""
     state = {}
     for key, val in data.items():
         if key == "fat":
             state.update({f"fat.{f}": _np(getattr(val, f)) for f in _FAT_FIELDS})
+        elif key == "cr":
+            if not hasattr(val, "masks_f"):
+                raise ValueError(
+                    "numpy_state: only the masked cyclic-reduction solver is "
+                    f"carried across, not {type(val).__name__}")
+            state.update({f"cr.{f}": _np(getattr(val, f))
+                          for f in _CR_STACKS + _CR_MASKS})
+            state["cr.n"] = np.array(val.n)
+            state["cr.cut_stride"] = np.array(val.cut_stride)
+            if val.Tinv is not None:
+                state["cr.Tinv"] = _np(val.Tinv)
+        elif hasattr(val, "mv") and hasattr(val, "rmv"):
+            continue  # a matrix-free operator: rebuilt from the shapes
         elif key in _ARRAYS:
             state[key] = _np(val)
         else:
             raise ValueError(
                 f"numpy_state: no conversion for data[{key!r}]; only the "
-                "static-rho LASSO state is carried across")
+                "static-rho LASSO and TV state is carried across")
     state.update({k: _np(v) for k, v in warm.items() if v is not None})
     return state
+
+
+def _maker(state, lead, device, dtype):
+    """``(t, warm)``: ``t(key)`` puts ``state[key]`` on ``device`` in
+    ``dtype`` (default: the dtype of ``state[lead]``), and ``warm`` holds
+    the warm-start tensors present in the state."""
+    device = torch.device(device)
+    if dtype is None:
+        dtype = torch.from_numpy(np.zeros(0, state[lead].dtype)).dtype
+
+    def t(key, dt=dtype):
+        return torch.tensor(state[key], dtype=dt, device=device)
+
+    return t, {k: t(k) for k in ("x0", "z0", "u0") if k in state}
 
 
 def lasso_data(state: dict, *, device="cpu", dtype=None):
@@ -46,17 +89,37 @@ def lasso_data(state: dict, *, device="cpu", dtype=None):
     ``data`` is the dict the port's LASSO proxes take and ``warm`` holds
     the warm-start tensors ``x0``/``z0``/``u0`` present in the state.
     Every tensor lands on ``device`` in ``dtype`` (default: D's dtype)."""
-    device = torch.device(device)
-    if dtype is None:
-        dtype = torch.from_numpy(np.zeros(0, state["D"].dtype)).dtype
-
-    def t(key):
-        return torch.tensor(state[key], dtype=dtype, device=device)
-
+    t, warm = _maker(state, "D", device, dtype)
     data = {k: t(k) for k in _ARRAYS if k in state}
     if "fat.E" in state:
         data["fat"] = FatShiftSolver(*(t(f"fat.{f}") for f in _FAT_FIELDS))
-    warm = {k: t(k) for k in ("x0", "z0", "u0") if k in state}
+    return data, warm
+
+
+def tv_data(state: dict, *, device="cpu", dtype=None):
+    """``(data, warm)`` for the port's 1-D TV proxes
+    (``models/totalvariation.py``), as ``lasso_data`` builds them for
+    LASSO; the default dtype is s's."""
+    t, warm = _maker(state, "s", device, dtype)
+    data = {"s": t("s"), "lam": t("lam"), "D": DiffOp(state["s"].shape[0])}
+    if "Minv" in state:
+        data["Minv"] = t("Minv")
+    if "cr.alphas" in state:
+        data["cr"] = CyclicReductionSolver(
+            *(t(f"cr.{f}") for f in _CR_STACKS),
+            *(t(f"cr.{f}", torch.bool) for f in _CR_MASKS),
+            int(state["cr.n"]),
+            Tinv=t("cr.Tinv") if "cr.Tinv" in state else None,
+            cut_stride=int(state["cr.cut_stride"]))
+    return data, warm
+
+
+def tv2d_data(state: dict, *, device="cpu", dtype=None):
+    """``(data, warm)`` for the port's 2-D TV proxes
+    (``models/totalvariation2d.py``); the default dtype is S's."""
+    t, warm = _maker(state, "S", device, dtype)
+    data = {k: t(k) for k in ("S", "lam", "Ur", "wr", "Uc", "wc")}
+    data["A"] = TV2DOp(*state["S"].shape)
     return data, warm
 
 

@@ -1,5 +1,6 @@
 """Linear-operator protocol for the ADMM constraint A x + B z = c (port of
-``admm_tpu/linop.py``: ``ScaledIdentityOp``, ``DenseOp`` and ``as_linop``).
+``admm_tpu/linop.py``: ``ScaledIdentityOp``, ``DenseOp``, ``DiffOp`` and
+``as_linop``).
 
 Every operator provides:
   - ``mv(v)``   : A @ v
@@ -52,6 +53,37 @@ class DenseOp:
 
     def __repr__(self):
         return f"DenseOp{tuple(self.M.shape)}"
+
+
+class DiffOp:
+    """The total-variation difference operator.
+
+    Matches the reference's D = spdiags([1, -1], 0:1, n, n)
+    (solvers/totalvariation.m:127): upper-bidiagonal with D[i,i] = 1,
+    D[i,i+1] = -1, and last row [0 ... 0 1], i.e.
+    (Dx)_i = x_i - x_{i+1} for i < n, (Dx)_n = x_n.
+    Applied matrix-free: O(n) instead of an O(n^2) matmul.
+    """
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def mv(self, v):
+        return v - torch.cat((v[1:], v.new_zeros(1)))
+
+    def rmv(self, v):
+        # D^T v: (D^T v)_i = v_i - v_{i-1}; (D^T v)_1 = v_1.
+        return v - torch.cat((v.new_zeros(1), v[:-1]))
+
+    def out_shape(self, in_shape):
+        return in_shape
+
+    def dense(self, dtype=torch.float64, device=None):
+        eye = torch.eye(self.n, dtype=dtype, device=device)
+        return eye - torch.diag(torch.ones(self.n - 1, dtype=dtype, device=device), 1)
+
+    def __repr__(self):
+        return f"DiffOp({self.n})"
 
 
 def as_linop(A, *, device=None, dtype=None) -> object:

@@ -3,16 +3,21 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-It builds the port's GPU kernel from the sources in this checkout, checks
-it against its plain PyTorch version, then drives the port's main path
-(the headline fat LASSO, 1500 x 5000 in float32) through ``lasso`` with
-the fused kernel and without it, and checks what comes out:
+It builds the port's GPU kernels from the sources in this checkout, checks
+each against its plain PyTorch version, then drives the port's main paths
+through the functions a user calls and checks what comes out:
 
   1. device: nvidia-smi's name and power limit, torch's device name;
-  2. kernel: the Triton z/u kernel against ``_fused_torch`` at several
-     sizes in f32 and f64 (bar: bit-for-bit equal), and its time against
-     the plain version's at n = 5000 (CUDA events);
-  3. slice:
+  2. K1: the Triton z/u kernel against ``_fused_torch`` at several sizes
+     in f32 and f64 (bar: bit-for-bit equal), and its time against the
+     plain version's at n = 5000 (CUDA events);
+  3. K4: the CUDA C++ cyclic-reduction kernel (``cr_solve``) against
+     ``_cr_solve_torch`` in f32 and f64 on the TV system and on a random
+     diagonally dominant one, pure masked and with the hybrid dense tail
+     (bar: bit-for-bit equal; the tail is the same torch.matmul call on
+     the same contiguous operand in both), and its time per solve against
+     the plain version's at (B, n) = (1, 8192), (1, 65536), (128, 8192);
+  4. the LASSO slice (the headline fat LASSO, 1500 x 5000 in float32):
      (a) 16384 steps under domaxiters, unroll 64, fused kernel: steps ==
          16384, the kernel launched >= 16384 times in this run, finite
          xopt of shape (5000,);
@@ -22,7 +27,20 @@ the fused kernel and without it, and checks what comes out:
          sequence;
      (d) a converging run (maxiters 2000, unroll 16): steps < 2000 and
          equal with and without the kernel;
-     (e) iter/s of (a) and (b), best of 3 each, taken in turns.
+     (e) iter/s of (a) and (b), best of 3 each, taken in turns;
+  5. the TV slice (1-D staircase signal + 0.5 noise, lambda 0.5, float32):
+     (f) n = 65536, solver 'auto' (the hybrid cyclic reduction),
+         maxiters 2000, standard stop: K4 launched at least once per
+         step, finite xopt of shape (65536,), steps equal within one to
+         a NumPy float64 run of the same update sequence;
+     (g) the same run with the b-phase in the plain PyTorch version on
+         the card: equal steps, max|xopt_f - xopt_g| <= 1e-6 ||xopt||_inf;
+     (h) n = 8192, pure masked cyclic reduction: as (f) and (g), with
+         xopt bit for bit equal between the two;
+     (i) iter/s of (f) and (g), best of 3 each, taken in turns over
+         2000 steps under domaxiters ((f) itself stops within ~50);
+     (j) 2-D TV of a 512 x 512 blocky image: converges before maxiters,
+         finite, and lowers the objective below the noisy image's.
 
 Every failed check raises, so the script exits non-zero.  It prints, on
 lines before the last, the card's name and power limit and one JSON line
@@ -30,7 +48,7 @@ lines before the last, the card's name and power limit and one JSON line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero, printing no result, when no CUDA device is visible.
 The Triton build cache goes to build/triton/ in the checkout unless
-TRITON_CACHE_DIR is set.
+TRITON_CACHE_DIR is set; the CUDA kernels build into build/kernels/.
 """
 
 import json
@@ -45,6 +63,15 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 KERNEL_SIZES = (64, 1000, 5000, 8192, 70000, 2**20)
 HEADLINE_STEPS = 16384
+# K4 cases: (lanes, n, dense_cutoff).
+K4_CASES = ([(1, n, None) for n in (1, 2, 3, 7, 64, 255, 1000, 8192)]
+            + [(8, 8192, None), (128, 8192, None), (1, 5000, 63), (1, 65536, 1023)])
+# Timed K4 shapes: TV (h)'s pure masked solve, TV (f)'s hybrid solve (the
+# one the JSON line reports), and the batched TV lanes' hybrid solve.
+K4_TIMED = ((1, 8192, None), (1, 65536, 1023), (128, 8192, 1023))
+TV_MAXITERS = 2000
+TV_TIMED_STEPS = 2000
+TV_LAM = 0.5
 
 
 def check(ok, what):
@@ -184,6 +211,205 @@ def slice_phase(dev):
     return launches
 
 
+def _tv_system(n):
+    """I + rho D^T D of the 1-D TV model at rho = 1, as (dl, d, du)."""
+    from admm_tpu_torch.models.totalvariation import tv_system
+
+    return tv_system(n, 1.0)
+
+
+def _random_system(n, seed=9):
+    """A random diagonally dominant tridiagonal (tests/test_tridiag.py)."""
+    rng = np.random.default_rng(seed)
+    return (np.r_[0.0, rng.standard_normal(n - 1)], 4.0 + np.abs(rng.standard_normal(n)),
+            np.r_[rng.standard_normal(n - 1), 0.0])
+
+
+def k4_phase(dev):
+    """K4 (CUDA C++) against its plain version; returns (max_abs_err, ms,
+    plain_ms), the times at TV (f)'s shape (1, 65536) with the hybrid tail."""
+    import torch
+
+    from admm_tpu_torch.ops import _cuda
+    from admm_tpu_torch.ops.tridiag import CyclicReductionSolver, _cr_solve_torch, cr_solve
+
+    t0 = time.perf_counter()
+    _cuda.library()
+    print(f"kernel: cr_solve (CUDA C++) vs _cr_solve_torch; nvcc build/load "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    def problem(lanes, n, cutoff, system, dtype):
+        sol = CyclicReductionSolver.from_tridiag(*system(n), dense_cutoff=cutoff,
+                                                 device=dev, dtype=dtype)
+        N = sol.alphas.shape[1]
+        rng = np.random.default_rng(lanes * n)
+        bb = torch.zeros((lanes, N), dtype=dtype, device=dev)
+        bb[:, :n] = torch.from_numpy(rng.standard_normal((lanes, n))).to(dev, dtype)
+        return sol, bb
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for system in (_tv_system, _random_system):
+            for lanes, n, cutoff in K4_CASES:
+                sol, bb = problem(lanes, n, cutoff, system, dtype)
+                x_k = cr_solve(bb, sol)
+                torch.cuda.synchronize()
+                x_p = _cr_solve_torch(bb, sol)
+                diff = float(torch.max(torch.abs(x_k - x_p)))
+                print(f"  {str(dtype):14s} {system.__name__:14s} B={lanes:3d} n={n:6d} "
+                      f"cutoff={cutoff}  max_abs_diff {diff:.3e}")
+                check(torch.equal(x_k, x_p) and bool(torch.isfinite(x_k).all()),
+                      f"K4 == plain bit for bit ({dtype}, {system.__name__}, "
+                      f"B={lanes}, n={n}, cutoff={cutoff})")
+                worst = max(worst, diff)
+
+    times = {}
+    for lanes, n, cutoff in K4_TIMED:
+        sol, bb = problem(lanes, n, cutoff, _tv_system, torch.float32)
+        ks, ps = [], []
+        for kernel in (True, False, False, True):
+            fn = (lambda: cr_solve(bb, sol)) if kernel else (lambda: _cr_solve_torch(bb, sol))
+            (ks if kernel else ps).append(time_ms(fn, 200))
+        times[(lanes, n)] = (min(ks), min(ps))
+        print(f"  B={lanes} n={n} cutoff={cutoff} f32 per solve: kernel "
+              f"{ks[0]:.5f} / {ks[1]:.5f} ms, plain {ps[0]:.5f} / {ps[1]:.5f} ms "
+              "(CUDA events, 200 calls each)")
+    return worst, *times[(1, 65536)]
+
+
+def staircase(n, seed=0):
+    """admm_tpu/benchmarks/matrix.py's TV signal: blocks of 64 plus noise
+    of standard deviation 0.5, in float32."""
+    rng = np.random.default_rng(seed)
+    stair = np.repeat(rng.standard_normal(max(n // 64, 1)), 64)[:n]
+    return (stair + 0.5 * rng.standard_normal(n)).astype(np.float32)
+
+
+def numpy_tv_steps(sig, lam, cfg):
+    """Steps to the standard stop of the TV iteration in NumPy float64,
+    with the update sequence and Boyd rule of admm_tpu_torch's engine
+    (A = D, B = -1, c = 0) and the x-update by scipy's banded solve."""
+    from scipy.linalg import solve_banded
+
+    s = np.asarray(sig, np.float64)
+    n, rho, t = s.size, cfg.rho, lam / cfg.rho
+    ab = np.zeros((3, n))
+    ab[0, 1:] = -rho
+    ab[1] = 1.0 + rho * np.r_[1.0, 2.0 * np.ones(n - 1)]
+    ab[2, :-1] = -rho
+
+    def dmv(v):
+        return v - np.r_[v[1:], 0.0]
+
+    def drmv(v):
+        return v - np.r_[0.0, v[:-1]]
+
+    x, z, u = np.zeros(n), np.zeros(n), np.zeros(n)
+    sqn_abstol = np.sqrt(n) * cfg.abstol
+    for k in range(1, cfg.maxiters + 1):
+        zprev = z
+        x = solve_banded((1, 1), ab, s + rho * drmv(z - u))
+        dx = dmv(x)
+        v = u + dx
+        z = np.sign(v) * np.maximum(np.abs(v) - t, 0.0)
+        u = u + dx - z
+        pnorm = np.linalg.norm(dx - z)
+        dnorm = np.linalg.norm(rho * drmv(z - zprev))
+        perr = sqn_abstol + cfg.reltol * max(np.linalg.norm(dx), np.linalg.norm(z))
+        derr = sqn_abstol + cfg.reltol * np.linalg.norm(rho * drmv(u))
+        if pnorm < perr and dnorm < derr:
+            return k
+    return cfg.maxiters
+
+
+def tv_phase(dev):
+    """The TV main path; returns K4's launch count in run (f)."""
+    import torch
+
+    from admm_tpu_torch import ADMMConfig, totalvariation, totalvariation2d
+    from admm_tpu_torch.models.totalvariation import make_prox_ops
+    from admm_tpu_torch.ops.tridiag import cr_solve
+
+    cfg = ADMMConfig(maxiters=TV_MAXITERS, unroll="auto")
+    launches = None
+    signals = {}
+    for n, tag, bar in ((65536, "(f)/(g)", 1e-6), (8192, "(h)", 0.0)):
+        sig = staircase(n)
+        *_, data, _ = make_prox_ops(torch.from_numpy(sig), TV_LAM, cfg)
+        hybrid = data["cr"].Tinv is not None
+        print(f"slice: totalvariation n={n} f32, lam={TV_LAM}, auto -> cr "
+              f"({'hybrid, cut stride %d' % data['cr'].cut_stride if hybrid else 'masked'}), "
+              f"maxiters {cfg.maxiters}")
+        check(hybrid == (n > 16384), f"{tag} auto resolves to the "
+              f"{'hybrid' if n > 16384 else 'pure masked'} cyclic reduction")
+
+        cr_solve.launches = 0
+        k = totalvariation(sig, TV_LAM, cfg, device=dev)
+        torch.cuda.synchronize()
+        count = cr_solve.launches
+        if launches is None:
+            launches = count  # run (f): the main path
+        print(f"  {tag} kernel: steps={k.steps} launches={count} runtime={k.runtime:.4f}s "
+              f"iter/s {k.steps / k.runtime:.1f}")
+        check(count >= k.steps, f"{tag} K4 launches {count} >= steps {k.steps}")
+        check(k.xopt.device.type == "cuda" and tuple(k.xopt.shape) == (n,),
+              f"{tag} xopt on the card with shape ({n},)")
+        check(bool(torch.isfinite(k.xopt).all()) and not k.diverged, f"{tag} xopt finite")
+        check(k.steps < cfg.maxiters, f"{tag} converges before {cfg.maxiters}")
+        steps_np = numpy_tv_steps(sig, TV_LAM, cfg)
+        print(f"  {tag} steps: port f32 {k.steps}, NumPy f64 {steps_np}")
+        check(abs(k.steps - steps_np) <= 1, f"{tag} steps equal NumPy f64 within one")
+
+        p = totalvariation(sig, TV_LAM, cfg, device=dev, _plain_cr=True)
+        diff = float(torch.max(torch.abs(k.xopt - p.xopt)))
+        xinf = float(torch.max(torch.abs(k.xopt)))
+        print(f"  {tag} plain: steps={p.steps} runtime={p.runtime:.4f}s iter/s "
+              f"{p.steps / p.runtime:.1f}; max|xopt_kernel - xopt_plain| = {diff:.3e}, "
+              f"||xopt||_inf = {xinf:.6g}")
+        check(p.steps == k.steps, f"{tag} equal steps kernel and plain")
+        check(diff <= bar * xinf, f"{tag} max|xopt_kernel - xopt_plain| <= {bar} ||xopt||_inf")
+        signals[n] = sig
+
+    # (i) iter/s of (f) and (g), best of 3 each, in turns.  (f) stops
+    # after a few dozen steps, too few to time, so the rate is taken over
+    # TV_TIMED_STEPS steps of the same path under domaxiters.
+    sig = signals[65536]
+    cfg_i = ADMMConfig(maxiters=TV_TIMED_STEPS, domaxiters=True, unroll="auto")
+    kernel_t, plain_t = [], []
+    for plain in (False, True, True, False, False, True):
+        r = totalvariation(sig, TV_LAM, cfg_i, device=dev, _plain_cr=plain)
+        check(r.steps == TV_TIMED_STEPS and bool(torch.isfinite(r.xopt).all()),
+              f"(i) {TV_TIMED_STEPS} steps, finite ({'plain' if plain else 'kernel'})")
+        (plain_t if plain else kernel_t).append(r.runtime)
+    print(f"  (i) {TV_TIMED_STEPS}-step runtimes s: kernel {['%.4f' % t for t in kernel_t]}, "
+          f"plain {['%.4f' % t for t in plain_t]}")
+    print(f"  (i) iter/s best of 3: kernel {TV_TIMED_STEPS / min(kernel_t):.1f}, "
+          f"plain {TV_TIMED_STEPS / min(plain_t):.1f}")
+
+    # (j) 2-D TV of a blocky image.
+    m = 512
+    rng = np.random.default_rng(2)
+    truth = np.ones((m, m))
+    truth[m // 8: m // 2, m // 4: 3 * m // 4] = 5.0
+    truth[5 * m // 8: 7 * m // 8, m // 8: m // 2] = 3.0
+    S = torch.from_numpy((truth + rng.standard_normal((m, m))).astype(np.float32)).to(dev)
+    cfg2 = ADMMConfig(maxiters=3000, unroll="auto")
+    r = totalvariation2d(S, 1.0, cfg2)
+
+    def objective(X):
+        tv = torch.sum(torch.abs(torch.diff(X, dim=0))) + torch.sum(torch.abs(torch.diff(X, dim=1)))
+        return float(0.5 * torch.sum((X - S) ** 2) + tv)
+
+    print(f"  (j) totalvariation2d {m}x{m} f32: steps={r.steps} runtime={r.runtime:.4f}s "
+          f"iter/s {r.steps / r.runtime:.1f}; objective {objective(r.xopt):.6g} "
+          f"(noisy image {objective(S):.6g})")
+    check(r.steps < cfg2.maxiters and not r.diverged, f"(j) converges before {cfg2.maxiters}")
+    check(tuple(r.xopt.shape) == (m, m) and bool(torch.isfinite(r.xopt).all()),
+          "(j) xopt finite with shape (512, 512)")
+    check(objective(r.xopt) < objective(S), "(j) objective below the noisy image's")
+    return launches
+
+
 def main():
     import torch
 
@@ -201,8 +427,10 @@ def main():
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    max_err, ms, plain_ms = kernel_phase(dev)
-    launches = slice_phase(dev)
+    k1_err, k1_ms, k1_plain_ms = kernel_phase(dev)
+    k4_err, k4_ms, k4_plain_ms = k4_phase(dev)
+    k1_launches = slice_phase(dev)
+    k4_launches = tv_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     print(json.dumps({"kernels": [{
@@ -210,10 +438,19 @@ def main():
         "route": "triton",
         "source": "admm_tpu_torch/ops/triton_fused_zu.py",
         "replaces": "admm_tpu/ops/kernels.py:48",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "launches": k1_launches,
+        "max_abs_err": k1_err,
+        "ms": k1_ms,
+        "plain_ms": k1_plain_ms,
+    }, {
+        "name": "cr_solve",
+        "route": "cuda",
+        "source": "admm_tpu_torch/csrc/cr_solve.cu",
+        "replaces": "experiments/pallas_cr_kernel.py:103",
+        "launches": k4_launches,
+        "max_abs_err": k4_err,
+        "ms": k4_ms,
+        "plain_ms": k4_plain_ms,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
