@@ -4,17 +4,22 @@ A second package beside ``admm_tpu``, which stays the reference.  Module
 names mirror ``admm_tpu``'s so each counterpart is easy to find.  The port
 imports ``torch`` and never ``jax``.
 
-Ported so far (ROADMAP.md, queue 1, slices 1 and 6): the alg-0 engine, the
-serial LASSO with all four x-prox branches and the fused soft-threshold /
-dual-update pass as a Triton kernel for Hopper GPUs; 1-D total variation
-with its dense and cyclic-reduction x-updates, the cyclic-reduction solve
-as a CUDA C++ kernel for Hopper; and 2-D total variation.
+Ported so far (ROADMAP.md, queue 1, slices 1 and 6, and part of 3): the
+alg-0 engine, the serial LASSO with all four x-prox branches and the fused
+soft-threshold / dual-update pass as a Triton kernel for Hopper GPUs;
+elastic net, NNLS and group lasso on the same x-update; the bf16-stream
+x-update of all four, whose GEMV pair is a CUDA C++ kernel for Hopper;
+1-D total variation with its dense and cyclic-reduction x-updates, the
+cyclic-reduction solve as a CUDA C++ kernel for Hopper; and 2-D total
+variation.  ``admm_tpu_torch.experiments`` holds the two probes of
+``experiments/`` whose TPU kernels run the GEMV pair and the whole
+fat-LASSO iteration in one launch.
 """
 
 from .config import ADMMConfig
 from .engine import Hooks, admm
-from .models import lasso, totalvariation, totalvariation2d
+from .models import elasticnet, grouplasso, lasso, nnls, totalvariation, totalvariation2d
 from .results import ADMMResults
 
-__all__ = ["ADMMConfig", "ADMMResults", "Hooks", "admm", "lasso", "totalvariation",
-           "totalvariation2d"]
+__all__ = ["ADMMConfig", "ADMMResults", "Hooks", "admm", "elasticnet", "grouplasso",
+           "lasso", "nnls", "totalvariation", "totalvariation2d"]

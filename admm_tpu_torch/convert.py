@@ -10,8 +10,9 @@ isolates the iteration from differences in the setup-time linear algebra
 
 Flat keys:
 - LASSO: ``D``, ``s``, ``Dts``, ``lam``; the static-rho solver, as
-  ``fat.D``/``fat.E``/``fat.rho0`` (``FatShiftSolver``, fat D) or ``Minv``
-  (skinny D);
+  ``fat.D``/``fat.E``/``fat.rho0`` (``FatShiftSolver``, fat D; ``fat.D``
+  and ``fat.E`` are ``ml_dtypes.bfloat16`` arrays in the bf16-stream
+  mode, carried bit for bit) or ``Minv`` (skinny D);
 - 1-D TV: ``s``, ``lam``; ``Minv`` (dense x-update) or the
   cyclic-reduction solver as ``cr.alphas``, ``cr.betas``, ``cr.a_lv``,
   ``cr.c_lv``, ``cr.d_lv``, ``cr.masks_f``, ``cr.masks_b``, ``cr.n``,
@@ -72,14 +73,19 @@ def numpy_state(data: dict, **warm) -> dict:
 
 def _maker(state, lead, device, dtype):
     """``(t, warm)``: ``t(key)`` puts ``state[key]`` on ``device`` in
-    ``dtype`` (default: the dtype of ``state[lead]``), and ``warm`` holds
+    ``dtype`` (default: the dtype of ``state[lead]``), bf16 arrays (the
+    bf16-stream ``fat.D``/``fat.E``) in bf16 bit for bit; ``warm`` holds
     the warm-start tensors present in the state."""
     device = torch.device(device)
     if dtype is None:
         dtype = torch.from_numpy(np.zeros(0, state[lead].dtype)).dtype
 
     def t(key, dt=dtype):
-        return torch.tensor(state[key], dtype=dt, device=device)
+        arr = state[key]
+        if arr.dtype.name == "bfloat16":  # ml_dtypes: torch takes its bits
+            bits = np.ascontiguousarray(arr).view(np.uint16)
+            return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+        return torch.tensor(arr, dtype=dt, device=device)
 
     return t, {k: t(k) for k in ("x0", "z0", "u0") if k in state}
 
@@ -88,7 +94,8 @@ def lasso_data(state: dict, *, device="cpu", dtype=None):
     """Build ``(data, warm)`` for the port from a flat numpy ``state``:
     ``data`` is the dict the port's LASSO proxes take and ``warm`` holds
     the warm-start tensors ``x0``/``z0``/``u0`` present in the state.
-    Every tensor lands on ``device`` in ``dtype`` (default: D's dtype)."""
+    Every tensor lands on ``device`` in ``dtype`` (default: D's dtype),
+    except bf16 stream arrays, which stay bf16."""
     t, warm = _maker(state, "D", device, dtype)
     data = {k: t(k) for k in _ARRAYS if k in state}
     if "fat.E" in state:
@@ -125,5 +132,10 @@ def tv2d_data(state: dict, *, device="cpu", dtype=None):
 
 def _np(v):
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:  # numpy has no bf16: ml_dtypes's, by its bits
+            import ml_dtypes
+
+            return v.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return v.numpy()
     return np.array(v)

@@ -1,5 +1,6 @@
 """Shared solver-wrapper plumbing (port of ``admm_tpu/models/_common.py``:
-``merge_config``, ``check_data_vector`` and ``timed_solver``)."""
+``merge_config``, ``check_data_vector`` and ``timed_solver``; the port's
+own ``place_data``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import time
 from functools import wraps
 
 import numpy as np
+import torch
 
 from ..config import ADMMConfig, matmul_precision, resolve_unroll
 
@@ -36,6 +38,20 @@ def check_data_vector(D, s, Dname="D", sname="s"):
             f"{sname} must be a vector of length {Dsh[0]} (rows of {Dname}), "
             f"got shape {ssh}"
         )
+
+
+def place_data(D, s, device=None):
+    """``(D, s, device)`` for a regression-style solve: the device is
+    ``device``, else D's when D is a tensor, else the CPU; D (numpy array
+    or tensor) keeps its dtype and s takes D's."""
+    if device is None:
+        device = D.device if isinstance(D, torch.Tensor) else torch.device("cpu")
+
+    def tensor(v):
+        return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+    D = tensor(D).to(device)
+    return D, tensor(s).to(device=device, dtype=D.dtype), device
 
 
 def timed_solver(fn):

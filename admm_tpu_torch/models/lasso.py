@@ -18,7 +18,6 @@ tensors on the solve's device.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..config import ADMMConfig
@@ -27,7 +26,7 @@ from ..ops.kernels import fused_soft_threshold_dual
 from ..ops.prox import soft_threshold
 from ..ops.solve import FatShiftSolver, SymShiftSolver, WoodburySolver
 from ..results import ADMMResults
-from ._common import check_data_vector, merge_config, timed_solver
+from ._common import check_data_vector, merge_config, place_data, timed_solver
 
 
 def _prox_f_static(x, z, u, rho, d):
@@ -61,11 +60,6 @@ def _fused_zu(x, u, rho, d):
     return fused_soft_threshold_dual(x, u, d["lam"] / rho)
 
 
-def _to_device(v, device, dtype=None):
-    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-    return t.to(device=device, dtype=dtype)
-
-
 def make_ls_xprox(D, s, config: ADMMConfig, stream_dtype=None):
     """Shared least-squares x-prox: ``argmin 0.5||Dx-s||^2 +
     rho/2||x-(z-u)||^2`` with the rho-shift folded analytically.
@@ -74,7 +68,9 @@ def make_ls_xprox(D, s, config: ADMMConfig, stream_dtype=None):
     ``(prox_f, data)`` where ``data`` carries D, s, D^T s and the
     shape-appropriate solver: skinny/square works in the n-by-n Gram, fat
     (m < n) goes through Woodbury; static rho materializes one GEMV
-    stream, dynamic rho keeps the eigenbasis.
+    stream, dynamic rho keeps the eigenbasis.  ``stream_dtype`` reaches
+    only the fat static-rho branch (``FatShiftSolver``).  Used by lasso,
+    elastic net, NNLS and group lasso: they differ only in the z-prox.
     """
     m, n = D.shape
     data = {"D": D, "s": s, "Dts": D.T @ s}
@@ -122,7 +118,10 @@ def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
 
     ``D`` and ``s`` are numpy arrays or tensors; the solve runs in D's
     dtype on ``device``, or on D's device when D is a tensor, or on the
-    CPU.  ``stream_dtype`` (ROADMAP K-ext-1), ``parallel=True`` (slice 10)
+    CPU.  ``stream_dtype=torch.bfloat16`` stores the fat static-rho
+    branch's two stream matrices in bf16 with f32 accumulation
+    (``FatShiftSolver``; the K2 kernel on a CUDA device); the other
+    branches ignore it, as in ``admm_tpu``.  ``parallel=True`` (slice 10)
     and the zero-argument demo mode (slice 11) are not ported yet and
     raise ``NotImplementedError``.
     """
@@ -136,10 +135,7 @@ def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
             "queue 1, slice 10, which is not ported yet")
     check_data_vector(D, s)
     config = merge_config(config, overrides, body="gemv")
-    if device is None:
-        device = D.device if isinstance(D, torch.Tensor) else torch.device("cpu")
-    D = _to_device(D, device)
-    s = _to_device(s, device, D.dtype)
+    D, s, device = place_data(D, s, device)
     n = D.shape[1]
     prox_f, prox_g, obj, data = make_prox_ops(D, s, lam, config, stream_dtype)
     hooks = Hooks(obj=obj, fused_zu=_fused_zu if use_fused_kernel else None)

@@ -1,17 +1,19 @@
 """Build and bind the port's CUDA C++ kernels (``admm_tpu_torch/csrc``).
 
 At first use the ``.cu`` sources of the package are compiled with nvcc for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-under ``build/kernels/`` at the root of the checkout, named by a hash of
-the sources and flags, so a changed source builds anew and an unchanged
-one is loaded as it is.  The library is loaded with ``ctypes``.  nvcc is
+Hopper (``sm_90a``), one nvcc process per source, all started together,
+and linked into one shared library with a plain C interface, under
+``build/kernels/`` at the root of the checkout, named by a hash of the
+sources and flags, so a changed source builds anew and an unchanged one
+is loaded as it is.  The library is loaded with ``ctypes``.  nvcc is
 looked for only when a build is needed, so this module imports where there
 is none.
 
 Kernels launch on PyTorch's current stream, allocate nothing and do not
 synchronise; each C function returns ``cudaGetLastError()`` after its
-launch, and a nonzero code raises here.  The callers (``ops/tridiag.py``)
-check device, dtype, shape and contiguity before they get here.
+launch, and a nonzero code raises here.  The callers (``ops/tridiag.py``,
+``ops/gemv_pair.py``) check device, dtype, shape and contiguity before
+they get here.
 """
 
 from __future__ import annotations
@@ -28,15 +30,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("cr_solve.cu",)
+SOURCES = ("cr_solve.cu", "gemv_pair.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # name: (restype, argtypes) of each C function of the library.
 _SIGNATURES = {
     "admm_cr_solve": (_I, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I64, _I, _I, _P)),
+    "admm_gemv_pair": (_I, (_I, _P, _P, _I64, _P, _I64, _P, _P, _I, _I, _I, _P)),
+    "admm_resident_lasso_blocks": (_I, (_I, _I, ctypes.POINTER(_I))),
+    "admm_resident_lasso": (_I, (_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P,
+                                 ctypes.c_float, ctypes.c_float, _I, _I, _I, _P)),
     "admm_cuda_error_string": (ctypes.c_char_p, (_I,)),
 }
 
@@ -53,6 +59,18 @@ def _nvcc() -> str:
         "it is needed to build the CUDA kernels")
 
 
+def _run_all(cmds):
+    """Run the commands at once and wait for all of them; raise with the
+    output of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {p.returncode}: "
+                               f"{' '.join(cmd)}\n{out}")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
@@ -64,13 +82,18 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libadmm_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}: "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+        stem = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{stem}.{p.stem}.o" for p in paths]
+        nvcc = _nvcc()
+        try:
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                      for p, o in zip(paths, objs)])
+            tmp = so.with_name(f"{stem}.tmp")
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+            os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -95,6 +118,50 @@ def cr_solve(b, work, xs, y, x, stacks, levels):
         int(work.dtype == torch.float64), _ptr(b), _ptr(work), _ptr(xs),
         _ptr(y), _ptr(x), *(_ptr(t) for t in stacks), B, N, levels,
         torch.cuda.current_stream(work.device).cuda_stream)
+    _check(lib, err, "cr_solve")
+
+
+def _check(lib, err, what):
     if err != 0:
-        raise RuntimeError(f"cr_solve kernel launch failed: CUDA error {err} "
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
                            f"({lib.admm_cuda_error_string(err).decode()})")
+
+
+def gemv_pair(b, E, Dt, t, x, K):
+    """Launch K2 (``csrc/gemv_pair.cu``) on the current stream: K steps of
+    ``x = Dt (E b)``.  ``b`` ``(n,)``, ``E`` ``(m, n)`` and ``Dt``
+    ``(n, m)`` are of one stream dtype (float32 or bfloat16) with unit
+    column stride; ``t`` ``(m,)`` and ``x`` ``(n,)`` are contiguous
+    float32.  All on one CUDA device."""
+    lib = library()
+    m, n = E.shape
+    err = lib.admm_gemv_pair(
+        int(E.dtype == torch.bfloat16), b.data_ptr(), E.data_ptr(), E.stride(0),
+        Dt.data_ptr(), Dt.stride(0), t.data_ptr(), x.data_ptr(), m, n, K,
+        torch.cuda.current_stream(b.device).cuda_stream)
+    _check(lib, err, "gemv_pair")
+
+
+def resident_lasso_blocks(m, n):
+    """The number of blocks K3 launches for an (m, n) problem on the
+    current device (its ``partial`` scratch holds two floats per block)."""
+    lib = library()
+    blocks = ctypes.c_int(0)
+    _check(lib, lib.admm_resident_lasso_blocks(m, n, ctypes.byref(blocks)),
+           "resident_lasso")
+    return blocks.value
+
+
+def resident_lasso(z, u, Dts, E, Dt, t, partial, hist, rho, kappa, K):
+    """Launch K3 (``csrc/gemv_pair.cu``) on the current stream: K fat-LASSO
+    steps, ``z`` and ``u`` updated in place, ``hist`` ``(K, 2)`` written.
+    Every tensor is float32 on one CUDA device; ``E`` ``(m, n)`` and ``Dt``
+    ``(n, m)`` have unit column stride, the rest is contiguous."""
+    lib = library()
+    m, n = E.shape
+    err = lib.admm_resident_lasso(
+        z.data_ptr(), u.data_ptr(), Dts.data_ptr(), E.data_ptr(), E.stride(0),
+        Dt.data_ptr(), Dt.stride(0), t.data_ptr(), partial.data_ptr(),
+        hist.data_ptr(), rho, kappa, m, n, K,
+        torch.cuda.current_stream(z.device).cuda_stream)
+    _check(lib, err, "resident_lasso")

@@ -9,7 +9,8 @@ is folded analytically instead:
 
 with the symmetric eigendecomposition computed once at setup, so each
 application is two dense GEMVs plus an elementwise scale.  All three
-solvers take float32 or float64 operands and keep them on their device.
+solvers take float32 or float64 operands and keep them on their device;
+``FatShiftSolver`` also streams bf16 (through the K2 kernel on the card).
 The setup algebra runs under the caller's precision pin
 (``models._common.timed_solver``).
 """
@@ -17,6 +18,8 @@ The setup algebra runs under the caller's precision pin
 from __future__ import annotations
 
 import torch
+
+from .gemv_pair import aligned_rows, gemv_pair
 
 
 class SymShiftSolver:
@@ -85,31 +88,44 @@ class FatShiftSolver:
     i.e. exactly two m-by-n GEMV streams per iteration.  Valid only for
     the fixed rho0 captured at construction (a 0-d tensor of D's dtype).
 
-    ``stream_dtype=torch.bfloat16`` is not ported: ``admm_tpu`` keeps the
-    second GEMV's output in f32 (``preferred_element_type``) where
-    ``torch.matmul`` on bf16 operands rounds it to bf16.  That needs a
-    bf16-in/f32-out GEMV kernel (ROADMAP item K-ext-1).
+    ``stream_dtype=torch.bfloat16`` stores D and E in bf16 (half the
+    bytes), as ``admm_tpu``'s bf16-stream mode does: b is rounded to bf16,
+    both products accumulate in f32, E b is rounded to bf16 before the
+    second product, and D^T (E b) stays f32.  ``torch.matmul`` on bf16
+    operands would round that output to bf16, so the pair runs through
+    ``ops/gemv_pair.gemv_pair`` at K = 1: the CUDA C++ kernel K2 on the
+    card, or its plain version on the CPU.  The kernel reads E and D^T as
+    row-major rows, so bf16 keeps ``Dt``, a row-major copy of D^T, and E
+    in row-major form (``torch.linalg.solve`` returns it column-major).
+    f32 and f64 streams stay ``torch.matmul``.
     """
 
     def __init__(self, D, E, rho0):
         self.D = D
         self.E = E
         self.rho0 = rho0
+        if D.dtype == torch.bfloat16:
+            self.E = aligned_rows(E)
+            self.Dt = aligned_rows(D.T)
 
     @classmethod
     def from_matrix(cls, D, rho0, stream_dtype=None) -> "FatShiftSolver":
-        if stream_dtype is not None and stream_dtype != D.dtype:
-            raise NotImplementedError(
-                f"FatShiftSolver stream_dtype={stream_dtype} needs the "
-                "bf16-in/f32-out GEMV kernel of ROADMAP item K-ext-1, which "
-                "is not ported yet")
+        if stream_dtype not in (None, D.dtype, torch.bfloat16):
+            raise ValueError(
+                f"FatShiftSolver: stream_dtype must be None, D's dtype or "
+                f"torch.bfloat16, got {stream_dtype}")
         rho0_arr = torch.as_tensor(rho0, dtype=D.dtype, device=D.device)
         G = D @ D.T / rho0 + torch.eye(D.shape[0], dtype=D.dtype, device=D.device)
         E = torch.linalg.solve(0.5 * (G + G.T), D)
+        if stream_dtype is not None:
+            D = D.to(stream_dtype)
+            E = E.to(stream_dtype)
         return cls(D, E, rho0_arr)
 
     def solve(self, b, rho=None):
-        Eb = self.E @ b
-        DtEb = self.D.T @ Eb
         rho0 = self.rho0
+        if self.D.dtype == torch.bfloat16:
+            DtEb = gemv_pair(b.to(torch.bfloat16), self.E, self.Dt).to(b.dtype)
+        else:
+            DtEb = self.D.T @ (self.E @ b)
         return b / rho0 - DtEb / (rho0 * rho0)

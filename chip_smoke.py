@@ -40,7 +40,39 @@ through the functions a user calls and checks what comes out:
      (i) iter/s of (f) and (g), best of 3 each, taken in turns over
          2000 steps under domaxiters ((f) itself stops within ~50);
      (j) 2-D TV of a 512 x 512 blocky image: converges before maxiters,
-         finite, and lowers the objective below the noisy image's.
+         finite, and lowers the objective below the noisy image's;
+  6. K2: the CUDA C++ GEMV-pair kernel (``gemv_pair``) against
+     ``_gemv_pair_torch`` at (m, n) in {(1, 1), (7, 33), (48, 160),
+     (1500, 5000), (5000, 1500)}, K in {1, 64}, f32 and bf16 streams, on
+     the GEMV-pair probe's draws (for K = 64 with D^T = E^T / lambda_max,
+     a chain that contracts onto one direction; ``k2_operands``) (bars:
+     K = 1 max|dx| <= 1e-5 ||x||_inf in f32 and 1e-3 in bf16; K = 64
+     ||dx|| / ||x|| <= 1e-4 in f32 and 2e-2 in bf16), and its time
+     against the plain version's (CUDA events) at K = 1 bf16
+     (1500, 5000), the solve's, and K = 64;
+  7. K3: the resident fat-LASSO kernel (``resident_lasso``) through the
+     prototype's entry point (``experiments/resident_iter_proto.run``:
+     the headline problem, K = 64, then 8 chained launches): z and u
+     against a NumPy f64 run and against ``_resident_lasso_torch`` on the
+     card (bar: max|dz| <= 1e-4 ||z||_inf, same for u); its history
+     against run (a)'s first 64 pnorm^2 (relative 1e-3 where pnorm^2 >=
+     1e-7 pnorm^2[0], and |sqrt(pn2) - pnorm| <= 1e-3 pnorm + 1e-6 ||xopt||
+     at every step); µs per step of K3 and of the plain loop;
+  8. the bf16-stream slice (the headline problem with
+     ``stream_dtype=torch.bfloat16``):
+     (k) 16384 steps under domaxiters, unroll 64: steps == 16384, K2
+         launched >= 16384 times, finite xopt of shape (5000,) on the card,
+         ||xopt_k - xopt_a|| <= 2e-2 ||xopt_a||;
+     (l) iter/s, best of 3 over 4096 steps, bf16 and f32 taken in turns;
+     (m) elasticnet (alpha 0.5), nnls and grouplasso (50 equal groups),
+         maxiters 2000, the standard stop, in f32 and with bf16 streams:
+         the f32 run converges before maxiters; the bf16 run is finite,
+         launches K2 at least once per step, and its objective is within
+         2e-2 of the f32 run's (relative to the f32 objective; for NNLS,
+         whose optimum on a fat D is ~0, relative to the objective at
+         z = 0).  The bf16 run's steps are printed, not held to the stop:
+         the default tolerances lie below bf16's noise floor, as
+         admm_tpu's own bf16 runs show.
 
 Every failed check raises, so the script exits non-zero.  It prints, on
 lines before the last, the card's name and power limit and one JSON line
@@ -72,6 +104,10 @@ K4_TIMED = ((1, 8192, None), (1, 65536, 1023), (128, 8192, 1023))
 TV_MAXITERS = 2000
 TV_TIMED_STEPS = 2000
 TV_LAM = 0.5
+K2_SHAPES = ((1, 1), (7, 33), (48, 160), (1500, 5000), (5000, 1500))
+K2_DEEP = 64
+BF16_TIMED_STEPS = 4096
+FAMILY_MAXITERS = 2000
 
 
 def check(ok, what):
@@ -143,7 +179,8 @@ def kernel_phase(dev):
 
 
 def slice_phase(dev):
-    """The main path; returns the kernel's launch count in run (a)."""
+    """The main path; returns the kernel's launch count in run (a) and run
+    (a) itself."""
     import torch
 
     from admm_tpu_torch import ADMMConfig, lasso
@@ -208,6 +245,224 @@ def slice_phase(dev):
           f"plain {['%.4f' % t for t in plain_t]}")
     print(f"  (e) iter/s best of 3: fused {HEADLINE_STEPS / min(fused_t):.1f}, "
           f"plain {HEADLINE_STEPS / min(plain_t):.1f}")
+    return launches, a
+
+
+def k2_operands(m, n, dev, dtype, K):
+    """The GEMV-pair probe's draws at (m, n).  For a chain (K > 1) D^T is
+    E^T / lambda, lambda the top eigenvalue of E^T E (a NumPy f64 power
+    iteration): the chain then contracts onto one direction at a steady
+    norm.  The probe's independent E and D^T make a chain that amplifies
+    one flipped bf16 rounding of b or t some 700-fold over 64 steps, so a
+    bar there would measure that chain's conditioning, not the kernel."""
+    import torch
+
+    from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
+    from admm_tpu_torch.ops.gemv_pair import aligned_rows
+
+    b, E, Dt = make_operands(m, n, torch.device("cpu"), torch.float32)
+    if K > 1:
+        E64 = E.double().numpy()
+        v = b.double().numpy()
+        for _ in range(100):
+            w = E64.T @ (E64 @ v)
+            lam = np.linalg.norm(w) / np.linalg.norm(v)
+            v = w / np.linalg.norm(w)
+        Dt = torch.from_numpy((E64.T / lam).astype(np.float32))
+    return (b.to(dev, dtype), aligned_rows(E.to(dev, dtype)),
+            aligned_rows(Dt.to(dev, dtype)))
+
+
+def k2_phase(dev):
+    """K2 (CUDA C++) against its plain version; returns (max_abs_err, ms,
+    plain_ms), the times of one K = 1 bf16 call at (1500, 5000)."""
+    import torch
+
+    from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
+    from admm_tpu_torch.ops.gemv_pair import _gemv_pair_torch, gemv_pair
+
+    print("kernel: gemv_pair (CUDA C++) vs _gemv_pair_torch")
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, n in K2_SHAPES:
+            for K in (1, K2_DEEP):
+                b, E, Dt = k2_operands(m, n, dev, dtype, K)
+                x = gemv_pair(b, E, Dt, K)
+                torch.cuda.synchronize()
+                ref = _gemv_pair_torch(b, E, Dt, K)
+                dmax = float(torch.max(torch.abs(x - ref)))
+                xinf = float(torch.max(torch.abs(ref)))
+                rel = float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+                print(f"  {str(dtype):14s} m={m:5d} n={n:5d} K={K:2d}  max_abs_diff "
+                      f"{dmax:.3e} (||x||_inf {xinf:.4g}), rel norm {rel:.3e}")
+                check(bool(torch.isfinite(x).all()), f"K2 finite ({dtype}, {m}x{n}, K={K})")
+                if K == 1:
+                    bar = 1e-5 if dtype == torch.float32 else 1e-3
+                    check(dmax <= bar * xinf, f"K2 max|dx| <= {bar} ||x||_inf "
+                          f"({dtype}, {m}x{n}, K=1)")
+                else:
+                    bar = 1e-4 if dtype == torch.float32 else 2e-2
+                    check(rel <= bar, f"K2 ||dx||/||x|| <= {bar} ({dtype}, {m}x{n}, K={K})")
+                worst = max(worst, dmax)
+
+    times = {}
+    for dtype, K, reps in ((torch.bfloat16, 1, 200), (torch.float32, K2_DEEP, 20),
+                           (torch.bfloat16, K2_DEEP, 20)):
+        b, E, Dt = make_operands(1500, 5000, dev, dtype)
+        ks, ps = [], []
+        for kernel in (True, False, False, True):
+            fn = ((lambda: gemv_pair(b, E, Dt, K)) if kernel
+                  else (lambda: _gemv_pair_torch(b, E, Dt, K)))
+            (ks if kernel else ps).append(time_ms(fn, reps))
+        times[(dtype, K)] = (min(ks), min(ps))
+        print(f"  (1500, 5000) {str(dtype):14s} K={K:2d} per call: kernel {ks[0]:.5f} / "
+              f"{ks[1]:.5f} ms, plain {ps[0]:.5f} / {ps[1]:.5f} ms (CUDA events, {reps} "
+              f"calls each); kernel {min(ks) * 1e3 / K:.2f} us per step")
+    return worst, *times[(torch.bfloat16, 1)]
+
+
+def k3_phase(dev, a):
+    """K3 (CUDA C++) through the prototype's entry point, against its plain
+    version, NumPy f64 and run (a)'s history; returns (launches,
+    max_abs_err, ms, plain_ms) with the times per launch of K steps."""
+    import torch
+
+    from admm_tpu_torch.experiments import resident_iter_proto as proto
+    from admm_tpu_torch.ops.gemv_pair import _resident_lasso_torch, resident_lasso
+
+    K = proto.K
+    print(f"kernel: resident_lasso (CUDA C++), the headline problem, K={K}, "
+          f"{proto.CALLS} chained launches")
+    resident_lasso.launches = 0
+    r = proto.run(dev)
+    torch.cuda.synchronize()
+    launches = resident_lasso.launches
+    print(f"  launches {launches}; z err vs NumPy f64 {r['z_err']:.3e}, u err "
+          f"{r['u_err']:.3e}, pn2 rel err at step {K} {r['pn2_err']:.3e}; "
+          f"{r['us_per_iter']:.2f} us/iter, {r['iters_per_sec']:.0f} iter/s (host clock)")
+    check(launches >= 1 + proto.CALLS, f"K3 launched {launches} >= {1 + proto.CALLS} times")
+    check(r["z_err"] <= 1e-4 and r["u_err"] <= 1e-4,
+          "K3 z, u vs NumPy f64: max|d| <= 1e-4 ||.||_inf")
+
+    op = proto.setup(dev)
+    args = (op["Dts"], op["E"], op["Dt"], op["rho"], op["kappa"], K)
+    n = op["Dts"].numel()
+    zp = torch.zeros(n, dtype=torch.float32, device=dev)
+    up = torch.zeros_like(zp)
+    _resident_lasso_torch(zp, up, *args)
+    dz = float(torch.max(torch.abs(r["z"] - zp)))
+    du = float(torch.max(torch.abs(r["u"] - up)))
+    print(f"  vs _resident_lasso_torch on the card: max|dz| {dz:.3e}, max|du| {du:.3e}")
+    check(dz <= 1e-4 * float(torch.max(torch.abs(zp)))
+          and du <= 1e-4 * float(torch.max(torch.abs(up))),
+          "K3 z, u vs plain: max|d| <= 1e-4 ||.||_inf")
+
+    pn2 = r["hist"][:, 0].double().cpu().numpy()
+    pnorm = np.asarray(a.pnorm[:K], np.float64)
+    ref = pnorm**2
+    big = ref >= 1e-7 * ref[0]
+    rel = np.abs(pn2 - ref) / ref
+    xnorm = float(torch.linalg.norm(a.xopt))
+    gap = np.abs(np.sqrt(pn2) - pnorm) - 1e-3 * pnorm
+    print(f"  history vs run (a): max rel pn2 {rel[big].max():.3e} over the {big.sum()} "
+          f"steps with pnorm^2 >= 1e-7 pnorm^2[0]; max over all {K} steps of "
+          f"|sqrt(pn2) - pnorm| - 1e-3 pnorm: {gap.max():.3e} (bar 1e-6 ||xopt|| = "
+          f"{1e-6 * xnorm:.3e})")
+    check(bool(np.all(rel[big] <= 1e-3)) and big.sum() >= 20,
+          "K3 history pn2 within 1e-3 of run (a)'s pnorm^2 where pnorm^2 >= 1e-7 pnorm^2[0]")
+    check(bool(np.all(gap <= 1e-6 * xnorm)),
+          "K3 |sqrt(pn2) - pnorm| <= 1e-3 pnorm + 1e-6 ||xopt|| at every step")
+
+    zc, uc = torch.zeros_like(zp), torch.zeros_like(up)
+    ks = [time_ms(lambda: resident_lasso(zc, uc, *args), 20)]
+    ps = [time_ms(lambda: _resident_lasso_torch(zc, uc, *args), 2)]
+    ps.append(time_ms(lambda: _resident_lasso_torch(zc, uc, *args), 2))
+    ks.append(time_ms(lambda: resident_lasso(zc, uc, *args), 20))
+    print(f"  per launch of {K} steps: kernel {ks[0]:.5f} / {ks[1]:.5f} ms, plain loop "
+          f"{ps[0]:.5f} / {ps[1]:.5f} ms (CUDA events); per step kernel "
+          f"{min(ks) * 1e3 / K:.2f} us, plain {min(ps) * 1e3 / K:.2f} us")
+    return launches, max(dz, du), min(ks), min(ps)
+
+
+def _family_objective(family, D, s, lam, z):
+    """The objective at z in NumPy f64 (each model's own formula)."""
+    z = z.double().cpu().numpy()
+    fit = 0.5 * np.sum((D @ z - s) ** 2)
+    if family == "elasticnet":
+        return fit + lam * (0.5 * np.sum(np.abs(z)) + 0.25 * np.sum(z**2))
+    if family == "grouplasso":
+        return fit + lam * np.sum(np.sqrt(np.sum(z.reshape(50, -1) ** 2, axis=1)))
+    return fit
+
+
+def bf16_phase(dev, a):
+    """The bf16-stream slice (k)-(m); returns K2's launch count in run (k)."""
+    import torch
+
+    from admm_tpu_torch import ADMMConfig, elasticnet, grouplasso, lasso, nnls
+    from admm_tpu_torch.benchmarks.headline import make_problem
+    from admm_tpu_torch.ops.gemv_pair import gemv_pair
+
+    D, s, lam = make_problem()
+    n = D.shape[1]
+    bf16 = torch.bfloat16
+    cfg = ADMMConfig(maxiters=HEADLINE_STEPS, domaxiters=True, unroll=64)
+    print(f"slice: lasso {D.shape[0]}x{n} with bf16 streams, {cfg.maxiters} steps, "
+          f"unroll {cfg.unroll}, fused z/u kernel")
+
+    # (k) the main path of this slice, counted.
+    gemv_pair.launches = 0
+    k = lasso(D, s, lam, cfg, use_fused_kernel=True, stream_dtype=bf16, device=dev)
+    torch.cuda.synchronize()
+    launches = gemv_pair.launches
+    rel = float(torch.linalg.norm(k.xopt - a.xopt) / torch.linalg.norm(a.xopt))
+    print(f"  (k) bf16: steps={k.steps} K2 launches={launches} runtime={k.runtime:.4f}s; "
+          f"||xopt_k - xopt_a|| / ||xopt_a|| = {rel:.3e}")
+    check(k.steps == HEADLINE_STEPS, f"(k) steps == {HEADLINE_STEPS}")
+    check(launches >= HEADLINE_STEPS, f"(k) K2 launches {launches} >= {HEADLINE_STEPS}")
+    check(k.xopt.device.type == "cuda" and tuple(k.xopt.shape) == (n,),
+          "(k) xopt on the card with shape (5000,)")
+    check(bool(torch.isfinite(k.xopt).all()) and not k.diverged, "(k) xopt finite")
+    check(rel <= 2e-2, "(k) ||xopt_bf16 - xopt_a|| <= 2e-2 ||xopt_a||")
+
+    # (l) iter/s, best of 3 each, in turns.
+    cfg_l = ADMMConfig(maxiters=BF16_TIMED_STEPS, domaxiters=True, unroll=64)
+    times = {bf16: [], None: []}
+    for sd in (bf16, None, None, bf16, bf16, None):
+        r = lasso(D, s, lam, cfg_l, use_fused_kernel=True, stream_dtype=sd, device=dev)
+        check(r.steps == BF16_TIMED_STEPS, f"(l) {BF16_TIMED_STEPS} steps")
+        times[sd].append(r.runtime)
+    print(f"  (l) {BF16_TIMED_STEPS}-step runtimes s: bf16 "
+          f"{['%.4f' % t for t in times[bf16]]}, f32 {['%.4f' % t for t in times[None]]}")
+    print(f"  (l) iter/s best of 3: bf16 {BF16_TIMED_STEPS / min(times[bf16]):.1f}, "
+          f"f32 {BF16_TIMED_STEPS / min(times[None]):.1f}")
+
+    # (m) the other three families on the same D.
+    D64, s64 = D.astype(np.float64), s.astype(np.float64)
+    cfg_m = ADMMConfig(maxiters=FAMILY_MAXITERS)
+    solvers = {
+        "elasticnet": lambda **kw: elasticnet(D, s, lam, 0.5, cfg_m, device=dev, **kw),
+        "nnls": lambda **kw: nnls(D, s, cfg_m, device=dev, **kw),
+        "grouplasso": lambda **kw: grouplasso(D, s, lam, 50, None, cfg_m, device=dev, **kw),
+    }
+    for family, solve in solvers.items():
+        f32 = solve()
+        gemv_pair.launches = 0
+        r = solve(stream_dtype=bf16)
+        torch.cuda.synchronize()
+        count = gemv_pair.launches
+        f_32 = _family_objective(family, D64, s64, lam, f32.zopt)
+        f_16 = _family_objective(family, D64, s64, lam, r.zopt)
+        scale = 0.5 * np.sum(s64**2) if family == "nnls" else abs(f_32)
+        rel = abs(f_16 - f_32) / scale
+        print(f"  (m) {family}: f32 steps={f32.steps} objective {f_32:.8g}; bf16 "
+              f"steps={r.steps} K2 launches={count} objective {f_16:.8g}; "
+              f"|df| / {'(1/2)||s||^2' if family == 'nnls' else '|f_f32|'} = {rel:.3e}")
+        check(f32.steps < FAMILY_MAXITERS and not f32.diverged,
+              f"(m) {family} f32 converges before {FAMILY_MAXITERS}")
+        check(bool(torch.isfinite(r.zopt).all()) and not r.diverged, f"(m) {family} bf16 finite")
+        check(count >= r.steps, f"(m) {family} K2 launches {count} >= steps {r.steps}")
+        check(rel <= 2e-2, f"(m) {family} bf16 objective within 2e-2 of f32")
     return launches
 
 
@@ -429,7 +684,10 @@ def main():
     t0 = time.perf_counter()
     k1_err, k1_ms, k1_plain_ms = kernel_phase(dev)
     k4_err, k4_ms, k4_plain_ms = k4_phase(dev)
-    k1_launches = slice_phase(dev)
+    k2_err, k2_ms, k2_plain_ms = k2_phase(dev)
+    k1_launches, a = slice_phase(dev)
+    k3_launches, k3_err, k3_ms, k3_plain_ms = k3_phase(dev, a)
+    k2_launches = bf16_phase(dev, a)
     k4_launches = tv_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
@@ -451,6 +709,24 @@ def main():
         "max_abs_err": k4_err,
         "ms": k4_ms,
         "plain_ms": k4_plain_ms,
+    }, {
+        "name": "gemv_pair",
+        "route": "cuda",
+        "source": "admm_tpu_torch/csrc/gemv_pair.cu",
+        "replaces": "experiments/pallas_probe.py:52",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+    }, {
+        "name": "resident_lasso",
+        "route": "cuda",
+        "source": "admm_tpu_torch/csrc/gemv_pair.cu",
+        "replaces": "experiments/resident_iter_proto.py:77",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

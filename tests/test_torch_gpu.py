@@ -1,6 +1,7 @@
 """The port on a CUDA device: the Triton z/u kernel and the CUDA C++
-cyclic-reduction kernel against their plain PyTorch versions, and the
-LASSO and TV slices going through them.
+cyclic-reduction, GEMV-pair and resident-LASSO kernels against their
+plain PyTorch versions, and the LASSO, group-lasso and TV slices going
+through them.
 
 Every case needs a CUDA device and skips without one.  This file imports
 no JAX, so it also runs where JAX is not installed; skip the repo's
@@ -13,9 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from admm_tpu_torch import ADMMConfig, lasso, totalvariation
+from admm_tpu_torch import ADMMConfig, grouplasso, lasso, totalvariation
+from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
 from admm_tpu_torch.models.totalvariation import tv_system
+from admm_tpu_torch.ops.gemv_pair import (
+    _gemv_pair_torch, _resident_lasso_torch, aligned_rows, gemv_pair, resident_lasso)
 from admm_tpu_torch.ops.kernels import _fused_torch, fused_soft_threshold_dual
+from admm_tpu_torch.ops.solve import FatShiftSolver
 from admm_tpu_torch.ops.tridiag import CyclicReductionSolver, _cr_solve_torch, cr_solve
 
 torch.set_num_threads(1)
@@ -192,3 +197,124 @@ def test_totalvariation_on_gpu_goes_through_the_kernel(cuda, cr_launches, n, sol
     # and the dense tail sum in other orders.
     np.testing.assert_allclose(res.xopt.cpu().numpy(), cpu.xopt.numpy(),
                                rtol=1e-9, atol=1e-10)
+
+
+@pytest.fixture
+def k2_launches(monkeypatch):
+    monkeypatch.setattr(gemv_pair, "launches", 0)
+    return lambda: gemv_pair.launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("m,n,aligned", [
+    (1, 1, True), (7, 33, True), (7, 33, False), (33, 7, True), (48, 160, True),
+    (129, 1000, False), (1000, 129, True), (20, 9000, True), (9000, 20, True),
+])
+def test_gemv_pair_kernel_matches_plain(cuda, k2_launches, dtype, K, m, n, aligned):
+    b, E, Dt = make_operands(m, n, cuda, dtype)
+    if not aligned:  # rows off 16-byte boundaries: the scalar loads
+        E, Dt = E.contiguous(), Dt.contiguous()
+    x = gemv_pair(b, E, Dt, K)
+    torch.cuda.synchronize()
+    assert k2_launches() == 1 and x.dtype == torch.float32 and x.shape == (n,)
+    ref = _gemv_pair_torch(b, E, Dt, K)
+    assert torch.isfinite(x).all()
+    # f32 sums in another order; in bf16 that can also move one rounding of
+    # b or t to the neighbouring bf16 value (2^-8 relative), which K > 1
+    # carries on.
+    if K == 1:
+        bar = 1e-5 if dtype == torch.float32 else 1e-3
+        assert torch.max(torch.abs(x - ref)) <= bar * torch.max(torch.abs(ref))
+    else:
+        bar = 1e-4 if dtype == torch.float32 else 2e-2
+        assert torch.linalg.norm(x - ref) <= bar * torch.linalg.norm(ref)
+
+
+def _lasso_operands(m, n, device, seed=4):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((m, n))
+    D = torch.from_numpy(D / np.sqrt(np.sum(D**2, axis=0, keepdims=True))).float().to(device)
+    s = torch.from_numpy(rng.standard_normal(m)).float().to(device)
+    fat = FatShiftSolver.from_matrix(D, 1.0)  # E comes column-major from the solve
+    Dts = D.T @ s
+    kappa = 0.1 * float(torch.max(torch.abs(Dts)))
+    return aligned_rows(fat.E), aligned_rows(D.T), Dts, kappa
+
+
+@pytest.mark.parametrize("m,n", [(1, 3), (37, 101), (300, 1000), (20, 9000)])
+def test_resident_lasso_kernel_matches_plain(cuda, monkeypatch, m, n):
+    monkeypatch.setattr(resident_lasso, "launches", 0)
+    E, Dt, Dts, kappa = _lasso_operands(m, n, cuda)
+    K = 16
+    z, u = torch.zeros(n, device=cuda), torch.zeros(n, device=cuda)
+    hist = resident_lasso(z, u, Dts, E, Dt, 1.0, kappa, K)
+    torch.cuda.synchronize()
+    assert resident_lasso.launches == 1 and hist.shape == (K, 2)
+    zp, up = torch.zeros_like(z), torch.zeros_like(u)
+    hp = _resident_lasso_torch(zp, up, Dts, E, Dt, 1.0, kappa, K)
+    # f32 sums in another order: a few ulps per step, carried 16 steps.
+    for got, ref in ((z, zp), (u, up)):
+        assert torch.max(torch.abs(got - ref)) <= 1e-4 * torch.max(torch.abs(ref)) + 1e-30
+    # Each norm where it is well above the f32 noise of x and z (the two
+    # runs differ by about eps_f32 ||x||): 1e-7 of its largest value.
+    for col in (0, 1):
+        big = hp[:, col] >= 1e-7 * hp[:, col].max()
+        assert torch.allclose(hist[big, col], hp[big, col], rtol=1e-3, atol=0), (
+            col, hist[:, col], hp[:, col])
+    # Fixed reduction order: the same launch gives the same bits.
+    z2, u2 = torch.zeros_like(z), torch.zeros_like(u)
+    assert torch.equal(resident_lasso(z2, u2, Dts, E, Dt, 1.0, kappa, K), hist)
+    assert torch.equal(z2, z) and torch.equal(u2, u)
+
+
+def test_gemv_pair_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    b, E, Dt = make_operands(8, 24, cuda, torch.float32)
+    with pytest.raises(ValueError, match="on"):
+        gemv_pair(b.cpu(), E, Dt)  # a CPU tensor handed to the launcher
+    with pytest.raises(TypeError, match="stream dtype"):
+        gemv_pair(b.double(), E.double(), Dt.double())
+    with pytest.raises(ValueError, match="row-major"):
+        gemv_pair(b, Dt.T, Dt)  # unit row stride, not column
+    with pytest.raises(ValueError, match="K must be"):
+        gemv_pair(b, E, Dt, 0)
+    z = torch.zeros(24, device=cuda)
+    with pytest.raises(ValueError, match="on"):
+        resident_lasso(z.cpu(), z, b, E, Dt, 1.0, 0.1, 4)
+    with pytest.raises(TypeError, match="float32"):
+        resident_lasso(z.double(), z.double(), b.double(), E.double(), Dt.double(),
+                       1.0, 0.1, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        resident_lasso(torch.zeros(48, device=cuda)[::2], z, b, E, Dt, 1.0, 0.1, 4)
+    with pytest.raises(ValueError, match="K must be"):
+        resident_lasso(z, z.clone(), b, E, Dt, 1.0, 0.1, 0)
+
+
+def _fat_instance(seed=5, m=64, n=200):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((m, n))
+    D = (D / np.sqrt(np.sum(D**2, axis=0, keepdims=True))).astype(np.float32)
+    s = (D @ (rng.standard_normal(n) * (rng.random(n) < 0.2))).astype(np.float32)
+    return D, s, float(0.1 * np.max(np.abs(D.T @ s)))
+
+
+@pytest.mark.parametrize("solver", ["lasso", "grouplasso"])
+def test_bf16_streams_on_gpu_go_through_the_kernel(cuda, k2_launches, solver):
+    D, s, lam = _fat_instance()
+    cfg = ADMMConfig(maxiters=47, domaxiters=True, unroll=4)
+
+    def solve(device):
+        if solver == "lasso":
+            return lasso(D, s, lam, cfg, stream_dtype=torch.bfloat16, device=device)
+        return grouplasso(D, s, lam, 20, None, cfg, stream_dtype=torch.bfloat16,
+                          device=device)
+
+    res = solve(cuda)
+    assert res.steps == 47 and res.xopt.device.type == "cuda"
+    assert k2_launches() == 48  # 12 chunks of 4 sub-steps, frozen ones too
+    cpu = solve("cpu")
+    assert k2_launches() == 48
+    # The same bf16 rounding points on both devices; a different summation
+    # order can move a rounding of b or E b by one bf16 ulp.
+    ref = cpu.xopt.numpy()
+    assert np.linalg.norm(res.xopt.cpu().numpy() - ref) <= 2e-2 * np.linalg.norm(ref)

@@ -125,7 +125,6 @@ def test_precision_pin_restores_callers_setting():
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(parallel=True), NotImplementedError, "slice 10"),
-    (dict(stream_dtype=torch.bfloat16), NotImplementedError, "K-ext-1"),
     (dict(adaptive=True, convtest=True), NotImplementedError, "slice 2"),
     (dict(rbadaptive=True), NotImplementedError, "slice 2"),
 ])

@@ -77,11 +77,36 @@ def test_fat_shift_solver_f32_stays_f32():
     assert np.linalg.norm(x.numpy() - direct) / np.linalg.norm(direct) < 1e-5
 
 
-def test_bf16_stream_raises_naming_kext1():
+def test_convert_round_trips_bf16_stream_state():
+    # admm_tpu's bf16-stream state: fat.D and fat.E are ml_dtypes bf16
+    # arrays, the rest f32.  They cross bit for bit through a uint16 view.
     D, _ = _operands(4, 16, 48)
-    with pytest.raises(NotImplementedError, match="K-ext-1"):
+    D = D.astype(np.float32)
+    s = np.random.default_rng(8).standard_normal(16).astype(np.float32)
+    _, _, _, jdata = jax_make_prox_ops(jnp.asarray(D), jnp.asarray(s), 0.2, JaxConfig(),
+                                       stream_dtype=jnp.bfloat16)
+    state = numpy_state(jdata)
+    assert state["fat.E"].dtype.name == "bfloat16" and state["D"].dtype == np.float32
+    data, _ = lasso_data(state, device="cpu")
+    fat = data["fat"]
+    assert fat.D.dtype == fat.E.dtype == torch.bfloat16
+    assert data["D"].dtype == data["lam"].dtype == fat.rho0.dtype == torch.float32
+    for f in ("D", "E"):
+        np.testing.assert_array_equal(getattr(fat, f).view(torch.int16).numpy(),
+                                      state[f"fat.{f}"].view(np.int16))
+    back = numpy_state(data)
+    assert set(back) == set(state)
+    for key in state:
+        assert back[key].dtype == state[key].dtype
+        np.testing.assert_array_equal(back[key].reshape(-1).view(np.uint8),
+                                      state[key].reshape(-1).view(np.uint8))
+
+
+def test_fat_shift_solver_refuses_other_stream_dtypes():
+    D, _ = _operands(4, 16, 48)
+    with pytest.raises(ValueError, match="stream_dtype"):
         tsolve.FatShiftSolver.from_matrix(torch.from_numpy(D), 1.0,
-                                          stream_dtype=torch.bfloat16)
+                                          stream_dtype=torch.float16)
 
 
 @pytest.mark.parametrize("shape", [(48, 160), (96, 48)])  # fat, skinny
