@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .config import ADMMConfig, matmul_precision, resolve_unroll
+from .device import resolve_device
 from .linop import ScaledIdentityOp, as_linop
 from .results import ADMMResults
 
@@ -94,22 +95,6 @@ def _check_ported(config: ADMMConfig, hooks: Hooks, parallel) -> None:
                 f"(ROADMAP.md queue 1, {where})")
 
 
-def _tensors(*objs):
-    for o in objs:
-        if isinstance(o, dict):
-            yield from _tensors(*o.values())
-        elif isinstance(o, torch.Tensor):
-            yield o
-
-
-def _resolve_device(device, *candidates):
-    """``device`` if given, else that of the first tensor among the
-    candidates (dict values included), else the CPU."""
-    if device is not None:
-        return torch.device(device)
-    return next((t.device for t in _tensors(*candidates)), torch.device("cpu"))
-
-
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -147,14 +132,15 @@ def admm(
     argument, as in ``admm_tpu``.
 
     The solve runs on ``device``, or on the device of the first tensor
-    among x0, z0, u0, c, A, B and ``data``'s values, or on the CPU.  The
+    among x0, z0, u0, c, A, B and ``data``'s values, or on the CUDA device
+    (``device.resolve_device``: without one it raises).  The
     dtype is ``dtype``, or that of the first of x0, z0, u0, c that has
     one, or torch's default.  ``parallel=`` is not ported yet
     (ROADMAP slice 10) and raises.
     """
     _check_ported(config, hooks, parallel)
     config = resolve_unroll(config, "default")
-    device = _resolve_device(device, x0, z0, u0, c, A, B, data)
+    device = resolve_device(device, x0, z0, u0, c, A, B, data)
 
     if dtype is None:
         dtype = next((_as_tensor(cand).dtype for cand in (x0, z0, u0, c)

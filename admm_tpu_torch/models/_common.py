@@ -1,6 +1,6 @@
 """Shared solver-wrapper plumbing (port of ``admm_tpu/models/_common.py``:
 ``merge_config``, ``check_data_vector`` and ``timed_solver``; the port's
-own ``place_data``)."""
+own ``as_tensor`` and ``place_data``)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..config import ADMMConfig, matmul_precision, resolve_unroll
+from ..device import resolve_device
 
 
 def merge_config(config: ADMMConfig, overrides: dict,
@@ -40,18 +41,18 @@ def check_data_vector(D, s, Dname="D", sname="s"):
         )
 
 
+def as_tensor(v):
+    """``v`` itself if it is a tensor, else a CPU tensor of its numbers."""
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+
 def place_data(D, s, device=None):
-    """``(D, s, device)`` for a regression-style solve: the device is
-    ``device``, else D's when D is a tensor, else the CPU; D (numpy array
-    or tensor) keeps its dtype and s takes D's."""
-    if device is None:
-        device = D.device if isinstance(D, torch.Tensor) else torch.device("cpu")
-
-    def tensor(v):
-        return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-
-    D = tensor(D).to(device)
-    return D, tensor(s).to(device=device, dtype=D.dtype), device
+    """``(D, s, device)`` for a regression-style solve, the device chosen
+    by ``resolve_device``; D (numpy array or tensor) keeps its dtype and
+    s takes D's."""
+    device = resolve_device(device, D, s)
+    D = as_tensor(D).to(device)
+    return D, as_tensor(s).to(device=device, dtype=D.dtype), device
 
 
 def timed_solver(fn):

@@ -118,7 +118,7 @@ def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
 
     ``D`` and ``s`` are numpy arrays or tensors; the solve runs in D's
     dtype on ``device``, or on D's device when D is a tensor, or on the
-    CPU.  ``stream_dtype=torch.bfloat16`` stores the fat static-rho
+    CUDA device (``device.resolve_device``).  ``stream_dtype=torch.bfloat16`` stores the fat static-rho
     branch's two stream matrices in bf16 with f32 accumulation
     (``FatShiftSolver``; the K2 kernel on a CUDA device); the other
     branches ignore it, as in ``admm_tpu``.  ``parallel=True`` (slice 10)

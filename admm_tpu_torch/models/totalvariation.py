@@ -26,12 +26,13 @@ import numpy as np
 import torch
 
 from ..config import ADMMConfig
+from ..device import resolve_device
 from ..engine import Hooks, admm
 from ..linop import DiffOp
 from ..ops.prox import soft_threshold
 from ..ops.tridiag import CyclicReductionSolver
 from ..results import ADMMResults
-from ._common import merge_config, timed_solver
+from ._common import as_tensor, merge_config, timed_solver
 
 
 def _prox_f_static(x, z, u, rho, d):
@@ -147,7 +148,8 @@ def totalvariation(s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
 
     Constraint wiring matches totalvariation.m:151-156: A = D, B = -1, c = 0.
     ``s`` is a numpy array or a tensor; the solve runs in its dtype on
-    ``device``, or on s's device when s is a tensor, or on the CPU.
+    ``device``, or on s's device when s is a tensor, or on the CUDA device
+    (``device.resolve_device``).
 
     ``_plain_cr`` is for tests only: it runs the cyclic-reduction b-phase
     through the plain PyTorch version even on a CUDA device, so that a
@@ -158,9 +160,8 @@ def totalvariation(s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
         raise NotImplementedError(
             "totalvariation() demo mode needs the testers of ROADMAP.md "
             "queue 1, slice 11, which are not ported yet")
-    if device is None:
-        device = s.device if isinstance(s, torch.Tensor) else torch.device("cpu")
-    s = (s if isinstance(s, torch.Tensor) else torch.as_tensor(np.asarray(s))).to(device)
+    device = resolve_device(device, s)
+    s = as_tensor(s).to(device)
     n = s.shape[0]
     # Apply overrides BEFORE resolving the solve path: an override like
     # adaptive=True flips dynamic_rho, which flips the auto dense/cr

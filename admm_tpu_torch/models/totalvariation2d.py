@@ -20,14 +20,14 @@ slice has no kernel of its own.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..config import ADMMConfig
+from ..device import resolve_device
 from ..engine import Hooks, admm
 from ..ops.prox import soft_threshold
 from ..results import ADMMResults
-from ._common import merge_config, timed_solver
+from ._common import as_tensor, merge_config, timed_solver
 
 
 def _d(v, axis):
@@ -118,11 +118,11 @@ def totalvariation2d(S, lam, config: ADMMConfig = ADMMConfig(), *,
     """Denoise an image by anisotropic 2-D TV.
 
     ``S`` is a numpy array or a tensor; the solve runs in its dtype on
-    ``device``, or on S's device when S is a tensor, or on the CPU."""
+    ``device``, or on S's device when S is a tensor, or on the CUDA device
+    (``device.resolve_device``)."""
     config = merge_config(config, overrides, body="gemv")
-    if device is None:
-        device = S.device if isinstance(S, torch.Tensor) else torch.device("cpu")
-    S = (S if isinstance(S, torch.Tensor) else torch.as_tensor(np.asarray(S))).to(device)
+    device = resolve_device(device, S)
+    S = as_tensor(S).to(device)
     m, n = S.shape
     prox_f, prox_g, obj, data, A = make_prox_ops(S, lam, config)
     return admm(

@@ -38,8 +38,8 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # name: (restype, argtypes) of each C function of the library.
 _SIGNATURES = {
     "admm_cr_solve": (_I, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I64, _I, _I, _P)),
-    "admm_gemv_pair": (_I, (_I, _P, _P, _I64, _P, _I64, _P, _P, _I, _I, _I, _P)),
+                           _I64, _I, _I, _I, _I, _I, _I, _I, _P, _P)),
+    "admm_gemv_pair": (_I, (_I, _P, _I, _P, _I64, _P, _I64, _P, _P, _I, _I, _I, _P)),
     "admm_resident_lasso_blocks": (_I, (_I, _I, ctypes.POINTER(_I))),
     "admm_resident_lasso": (_I, (_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P,
                                  ctypes.c_float, ctypes.c_float, _I, _I, _I, _P)),
@@ -106,18 +106,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def cr_solve(b, work, xs, y, x, stacks, levels):
-    """Launch K4 (``csrc/cr_solve.cu``) on the current stream.  ``b``,
-    ``work`` and ``x`` are ``(B, N)``, ``xs`` and ``y`` ``(B, M)``, any of
-    b/xs/y/x may be None to skip its phase; ``stacks`` is (alphas, betas,
-    a_lv, c_lv, d_lv), each ``(levels, N)``.  All tensors are contiguous,
-    of one float dtype, on one CUDA device."""
+def cr_solve(b, work, xs, y, x, stacks, n, levels, plan, scratch):
+    """Launch K4 (``csrc/cr_solve.cu``) on the current stream, on the tiles
+    of ``plan`` (``ops/tridiag.TilePlan``).  ``b``, ``work`` and ``x`` are
+    ``(B, N)``, ``xs`` and ``y`` ``(B, M)``; b/xs/y/x/work are None where
+    the phase does not use them.  ``stacks`` is ``compact_stacks``'s
+    (alphas, betas, a_lv, c_lv, d_lv); ``n`` the unpadded size;
+    ``scratch`` None (shared memory) or ``B * tiles * rows`` elements.
+    All tensors are contiguous, of one float dtype, on one CUDA device."""
     lib = library()
-    B, N = work.shape
+    out = x if x is not None else work
+    B, N = out.shape
     err = lib.admm_cr_solve(
-        int(work.dtype == torch.float64), _ptr(b), _ptr(work), _ptr(xs),
-        _ptr(y), _ptr(x), *(_ptr(t) for t in stacks), B, N, levels,
-        torch.cuda.current_stream(work.device).cuda_stream)
+        int(out.dtype == torch.float64), _ptr(b), _ptr(work), _ptr(xs),
+        _ptr(y), _ptr(x), *(_ptr(t) for t in stacks), B, N, n, levels, plan.C,
+        plan.R, plan.tiles, plan.threads, _ptr(scratch),
+        torch.cuda.current_stream(out.device).cuda_stream)
     _check(lib, err, "cr_solve")
 
 
@@ -129,16 +133,16 @@ def _check(lib, err, what):
 
 def gemv_pair(b, E, Dt, t, x, K):
     """Launch K2 (``csrc/gemv_pair.cu``) on the current stream: K steps of
-    ``x = Dt (E b)``.  ``b`` ``(n,)``, ``E`` ``(m, n)`` and ``Dt``
-    ``(n, m)`` are of one stream dtype (float32 or bfloat16) with unit
-    column stride; ``t`` ``(m,)`` and ``x`` ``(n,)`` are contiguous
-    float32.  All on one CUDA device."""
+    ``x = Dt (E b)``.  ``E`` ``(m, n)`` and ``Dt`` ``(n, m)`` are of one
+    stream dtype (float32 or bfloat16) with unit column stride; ``b``
+    ``(n,)`` is contiguous, in the stream dtype or float32; ``t`` ``(m,)``
+    and ``x`` ``(n,)`` are contiguous float32.  All on one CUDA device."""
     lib = library()
     m, n = E.shape
     err = lib.admm_gemv_pair(
-        int(E.dtype == torch.bfloat16), b.data_ptr(), E.data_ptr(), E.stride(0),
-        Dt.data_ptr(), Dt.stride(0), t.data_ptr(), x.data_ptr(), m, n, K,
-        torch.cuda.current_stream(b.device).cuda_stream)
+        int(E.dtype == torch.bfloat16), b.data_ptr(), int(b.dtype == torch.float32),
+        E.data_ptr(), E.stride(0), Dt.data_ptr(), Dt.stride(0), t.data_ptr(),
+        x.data_ptr(), m, n, K, torch.cuda.current_stream(b.device).cuda_stream)
     _check(lib, err, "gemv_pair")
 
 

@@ -54,7 +54,8 @@ def aligned_rows(A):
 
 def _gemv_pair_torch(b, E, Dt, K=1):
     """Plain version: upcast the stream-typed operands to f32, multiply
-    with ``torch.matmul``, round b and t with ``.to(stream dtype)``."""
+    with ``torch.matmul``, round b (stream-typed or f32) and t with
+    ``.to(stream dtype)``."""
     dt = E.dtype
     Ef, Dtf = E.float(), Dt.float()
     x = b
@@ -74,20 +75,23 @@ def _check_rows(name, A):
 def gemv_pair(b, E, Dt, K=1):
     """K steps of ``x = Dt (E b)``; returns the f32 ``(n,)`` x of the last.
 
-    ``b`` ``(n,)``, ``E`` ``(m, n)`` and ``Dt`` ``(n, m)`` share one
-    stream dtype (float32 or bfloat16) and one device; ``K >= 1``.  On a
-    CUDA device E and Dt need unit column stride (any row stride; rows on
-    16-byte boundaries, as ``aligned_rows`` makes them, take the vector
-    loads) and b must be contiguous.
+    ``E`` ``(m, n)`` and ``Dt`` ``(n, m)`` share one stream dtype (float32
+    or bfloat16) and one device with ``b`` ``(n,)``, which is in the stream
+    dtype or in float32 (then rounded to the stream dtype as it is read,
+    the bits of ``b.to(stream dtype)``); ``K >= 1``.  On a CUDA device E
+    and Dt need unit column stride (any row stride; rows on 16-byte
+    boundaries, as ``aligned_rows`` makes them, take the vector loads) and
+    b must be contiguous.
     """
     if E.ndim != 2 or Dt.shape != E.shape[::-1] or b.shape != E.shape[1:]:
         raise ValueError(
             f"gemv_pair: need b (n,), E (m, n), Dt (n, m); got "
             f"{tuple(b.shape)}, {tuple(E.shape)}, {tuple(Dt.shape)}")
-    if E.dtype not in STREAM_DTYPES or not b.dtype == Dt.dtype == E.dtype:
+    if (E.dtype not in STREAM_DTYPES or Dt.dtype != E.dtype
+            or b.dtype not in (E.dtype, torch.float32)):
         raise TypeError(
-            f"gemv_pair: b, E, Dt must share a stream dtype of {STREAM_DTYPES}; "
-            f"got {b.dtype}, {E.dtype}, {Dt.dtype}")
+            f"gemv_pair: E, Dt must share a stream dtype of {STREAM_DTYPES} and b "
+            f"be in it or in float32; got {b.dtype}, {E.dtype}, {Dt.dtype}")
     if not b.device == E.device == Dt.device:
         raise ValueError(f"gemv_pair: b, E, Dt on {b.device}, {E.device}, {Dt.device}")
     if not isinstance(K, int) or K < 1:

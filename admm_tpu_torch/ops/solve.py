@@ -125,7 +125,9 @@ class FatShiftSolver:
     def solve(self, b, rho=None):
         rho0 = self.rho0
         if self.D.dtype == torch.bfloat16:
-            DtEb = gemv_pair(b.to(torch.bfloat16), self.E, self.Dt).to(b.dtype)
+            # K2 rounds an f32 b to bf16 itself; other dtypes round once here.
+            bs = b if b.dtype == torch.float32 else b.to(torch.bfloat16)
+            DtEb = gemv_pair(bs, self.E, self.Dt).to(b.dtype)
         else:
             DtEb = self.D.T @ (self.E @ b)
         return b / rho0 - DtEb / (rho0 * rho0)

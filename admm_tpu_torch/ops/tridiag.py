@@ -16,7 +16,10 @@ only the b-phase over the system padded to N = 2^L - 1 with identity rows:
 sides.  On a CPU tensor it runs the plain PyTorch version
 ``_cr_solve_torch``; on a CUDA tensor it launches the hand-written CUDA
 C++ kernel of ``csrc/cr_solve.cu`` (built by ``ops/_cuda.py``) or raises.
-The two round identically, so on the card they agree bit for bit.
+The two round identically, so on the card they agree bit for bit.  The
+kernel's tile plan (``tile_plan``) and compacted coefficient stacks
+(``compact_stacks``) are built here, in Python, so the CPU tests reach
+them.
 
 ``admm_tpu``'s ``PackedCyclicReductionSolver`` is not ported: it is the
 reference's measured negative result (``admm_tpu/ops/tridiag.py:45-56``),
@@ -24,6 +27,8 @@ and the TV model refuses ``solver='cr_packed'``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,6 +71,7 @@ class CyclicReductionSolver:
         self.n = n              # true (unpadded) size
         self.Tinv = Tinv        # (M, M) inverse of the level-k system, or None
         self.cut_stride = cut_stride  # 2^k; 1 = pure masked CR
+        self._compact = None    # the kernel's stacks (compact_stacks)
 
     @classmethod
     def from_tridiag(cls, dl, d, du, dense_cutoff=None, *, device="cpu",
@@ -220,6 +226,81 @@ def _cr_solve_torch(bb, sol):
     return x
 
 
+def level_offsets(N, levels):
+    """Where each level starts in the compacted stacks (the kernel computes
+    the same sums itself): ``(f_off, b_off)``, each ``levels + 1`` ints.
+    Forward level l has the ``(N+1) / 2^(l+1) - 1`` active rows
+    ``i = (j+1) 2^(l+1) - 1``; back-substitution level l the
+    ``(N+1) / 2^(l+1)`` rows ``i = j 2^(l+1) + 2^l - 1``."""
+    f_off, b_off = [0], [0]
+    for l in range(levels):
+        f_off.append(f_off[-1] + ((N + 1) >> (l + 1)) - 1)
+        b_off.append(b_off[-1] + ((N + 1) >> (l + 1)))
+    return f_off, b_off
+
+
+def compact_stacks(sol):
+    """The kernel's coefficient stacks: only the active rows of each level,
+    contiguous, level after level (``level_offsets``), as ``(alphas,
+    betas, a_lv, c_lv, d_lv)``.  Built at the first kernel solve and kept
+    on the solver; the plain version and the parity tests keep the full
+    stacks."""
+    if sol._compact is None:
+        k = sol.alphas.shape[0]
+
+        def pick(stack, forward):  # rows 2s-1 :: 2s forward, s-1 :: 2s back
+            rows = [stack[l, (2 ** (l + 1) if forward else 2**l) - 1 :: 2 ** (l + 1)]
+                    for l in range(k)]
+            return torch.cat(rows) if rows else stack.new_zeros(0)
+
+        sol._compact = (pick(sol.alphas, True), pick(sol.betas, True),
+                        pick(sol.a_lv, False), pick(sol.c_lv, False), pick(sol.d_lv, False))
+    return sol._compact
+
+
+# The hybrid form's tiles: at least TILE_ROWS rows, and long enough that a
+# launch has about TARGET_TILES tiles over all lanes: on an H100, 256-512
+# tiles a launch did best at the TV shapes (experiments/cr_tile_sweep.py;
+# PERF.md).  Shorter tiles redo more halo rows, more tiles take more waves.
+TILE_ROWS = 512
+TARGET_TILES = 512
+SHARED_BYTES = 227 * 1024  # dynamic shared memory a block may use on Hopper
+
+
+class TilePlan(NamedTuple):
+    """How K4 cuts a ``(B, N)`` solve: ``tiles`` tiles per lane, tile t
+    writing rows ``[t C, t C + C)`` and loading ``R`` more on each side
+    (``rows = min(C + 2R, N)`` in all), with ``threads`` threads, its rows
+    in shared memory when ``shared``."""
+    C: int
+    R: int
+    tiles: int
+    rows: int
+    threads: int
+    shared: bool
+
+
+def tile_plan(N, levels, hybrid, itemsize, lanes=1):
+    """K4's tile plan for ``lanes`` lanes of ``N`` rows.  The hybrid form
+    (k = ``levels`` masked levels, then the dense tail) has radius
+    ``R = 2^k - 1``: tiles of ``C`` rows as described at ``TILE_ROWS``, a
+    multiple of 2^k, no longer than shared memory holds.  The pure masked
+    form has the whole lane as radius: one tile of ``C = N`` rows,
+    ``R = 0``."""
+    if hybrid:
+        st = 2**levels
+        R = st - 1
+        C = st * -(-max(TILE_ROWS, -(-lanes * N // TARGET_TILES)) // st)
+        fit = (SHARED_BYTES // itemsize - 2 * R) // st * st
+        if fit >= st:
+            C = min(C, fit)
+        threads = 256
+    else:
+        R, C, threads = 0, N, 1024
+    rows = min(C + 2 * R, N)
+    return TilePlan(C, R, -(-N // C), rows, threads, rows * itemsize <= SHARED_BYTES)
+
+
 def cr_solve(bb, sol):
     """The b-phase of ``sol`` on a ``(B, N)`` batch of padded right-hand
     sides ``bb`` (N = 2^L - 1, the solver's padded size); returns a new
@@ -228,9 +309,10 @@ def cr_solve(bb, sol):
     ``bb`` must have the dtype and device of the solver's stacks.  On the
     CPU this is ``_cr_solve_torch``.  On a CUDA device it launches the
     kernel of ``csrc/cr_solve.cu`` (float32 or float64, contiguous
-    ``bb``): one launch for the pure masked form; for the hybrid form, a
-    forward launch, the dense tail as one ``torch.matmul``, and a
-    back-substitution launch.  Anything the kernel does not take raises.
+    ``bb``, at most 65535 lanes) on the tiles of ``tile_plan``: one launch
+    for the pure masked form; for the hybrid form, a forward launch, the
+    dense tail as one ``torch.matmul``, and a back-substitution launch.
+    Anything the kernel does not take raises.
     """
     N = sol.alphas.shape[1]
     if bb.ndim != 2 or bb.shape[1] != N:
@@ -247,20 +329,27 @@ def cr_solve(bb, sol):
         raise ValueError(f"cr_solve: unsupported device {bb.device}")
     if bb.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"cr_solve: unsupported dtype {bb.dtype}")
-    stacks = (sol.alphas, sol.betas, sol.a_lv, sol.c_lv, sol.d_lv)
-    if not (bb.is_contiguous() and all(t.is_contiguous() for t in stacks)):
-        raise ValueError("cr_solve: the kernel needs contiguous right-hand "
-                         "sides and coefficient stacks")
-
+    if not bb.is_contiguous():
+        raise ValueError("cr_solve: the kernel needs contiguous right-hand sides")
     B, k = bb.shape[0], sol.alphas.shape[0]
-    work = torch.empty_like(bb)
+    if B > 65535:
+        raise ValueError(f"cr_solve: the kernel takes at most 65535 lanes, got {B}")
+
+    stacks = compact_stacks(sol)
+    hybrid = sol.Tinv is not None
+    plan = tile_plan(N, k, hybrid, bb.element_size(), B)
     x = torch.empty_like(bb)
-    if sol.Tinv is None:
-        _cuda.cr_solve(bb, work, None, None, x, stacks, k)
+    if not hybrid:
+        # Without shared memory the lane runs in its row of x.
+        _cuda.cr_solve(bb, None, None, None, x, stacks, sol.n, k, plan,
+                       None if plan.shared else x)
     else:
+        scratch = None if plan.shared else bb.new_empty(B * plan.tiles * plan.rows)
+        work = torch.empty_like(bb)
         y = bb.new_empty((B, sol.Tinv.shape[0]))
-        _cuda.cr_solve(bb, work, None, y, None, stacks, k)
-        _cuda.cr_solve(None, work, _tail(sol, y), None, x, stacks, k)
+        _cuda.cr_solve(bb, work, None, y, None, stacks, sol.n, k, plan, scratch)
+        _cuda.cr_solve(None, work, _tail(sol, y), None, x, stacks, sol.n, k, plan,
+                       scratch)
     cr_solve.launches += 1
     return x
 

@@ -15,8 +15,9 @@ through the functions a user calls and checks what comes out:
      ``_cr_solve_torch`` in f32 and f64 on the TV system and on a random
      diagonally dominant one, pure masked and with the hybrid dense tail
      (bar: bit-for-bit equal; the tail is the same torch.matmul call on
-     the same contiguous operand in both), and its time per solve against
-     the plain version's at (B, n) = (1, 8192), (1, 65536), (128, 8192);
+     the same contiguous operand in both), at the tile boundaries of the
+     hybrid form too, and its time per solve against the plain version's
+     at (B, n) = (1, 8192), (1, 65536), (128, 8192);
   4. the LASSO slice (the headline fat LASSO, 1500 x 5000 in float32):
      (a) 16384 steps under domaxiters, unroll 64, fused kernel: steps ==
          16384, the kernel launched >= 16384 times in this run, finite
@@ -47,14 +48,19 @@ through the functions a user calls and checks what comes out:
      the GEMV-pair probe's draws (for K = 64 with D^T = E^T / lambda_max,
      a chain that contracts onto one direction; ``k2_operands``) (bars:
      K = 1 max|dx| <= 1e-5 ||x||_inf in f32 and 1e-3 in bf16; K = 64
-     ||dx|| / ||x|| <= 1e-4 in f32 and 2e-2 in bf16), and its time
-     against the plain version's (CUDA events) at K = 1 bf16
-     (1500, 5000), the solve's, and K = 64;
+     ||dx|| / ||x|| <= 1e-4 in f32 and 2e-2 in bf16); at (1500, 5000) the
+     same bits from three launches (K = 1 and 64, f32 and bf16) and, with
+     bf16 streams, from an f32 b and from b rounded to bf16 beforehand;
+     its time against the plain version's (CUDA events) at (1500, 5000)
+     for K = 1 and K = 64 in f32 and bf16, and against
+     ``torch.linalg.multi_dot([Dt, E, b])`` in f32, the one library call
+     for the pair (timed as a yardstick; the port never calls it);
   7. K3: the resident fat-LASSO kernel (``resident_lasso``) through the
      prototype's entry point (``experiments/resident_iter_proto.run``:
      the headline problem, K = 64, then 8 chained launches): z and u
      against a NumPy f64 run and against ``_resident_lasso_torch`` on the
-     card (bar: max|dz| <= 1e-4 ||z||_inf, same for u); its history
+     card (bar: max|dz| <= 1e-4 ||z||_inf, same for u), and a relaunch
+     from the same state giving the same bits; its history
      against run (a)'s first 64 pnorm^2 (relative 1e-3 where pnorm^2 >=
      1e-7 pnorm^2[0], and |sqrt(pn2) - pnorm| <= 1e-3 pnorm + 1e-6 ||xopt||
      at every step); µs per step of K3 and of the plain loop;
@@ -74,9 +80,18 @@ through the functions a user calls and checks what comes out:
          the default tolerances lie below bf16's noise floor, as
          admm_tpu's own bf16 runs show.
 
-Every failed check raises, so the script exits non-zero.  It prints, on
+Kernel times are device times: CUDA events around replays of a CUDA
+graph that holds several calls (``graph_ms``), so that the host's time per
+call, which the short calls would otherwise show, drops out; the
+host-issued times are printed beside them.  Every failed check raises, so
+the script exits non-zero.  It prints, on
 lines before the last, the card's name and power limit and one JSON line
-``{"kernels": [...]}``; the last line is
+``{"kernels": [...]}`` with each kernel's launches on its main path, its
+error against its plain version, its time, the plain version's, the
+library call's where there is one, and its bound: the larger of the bytes
+it must move (each input read once, each output written once) over
+3.35 TB/s and its operations over 67 TFLOP/s (f32 outside the tensor
+cores), the H100 SXM's data-sheet peaks; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero, printing no result, when no CUDA device is visible.
 The Triton build cache goes to build/triton/ in the checkout unless
@@ -97,7 +112,12 @@ KERNEL_SIZES = (64, 1000, 5000, 8192, 70000, 2**20)
 HEADLINE_STEPS = 16384
 # K4 cases: (lanes, n, dense_cutoff).
 K4_CASES = ([(1, n, None) for n in (1, 2, 3, 7, 64, 255, 1000, 8192)]
-            + [(8, 8192, None), (128, 8192, None), (1, 5000, 63), (1, 65536, 1023)])
+            + [(8, 8192, None), (128, 8192, None), (1, 5000, 63), (1, 65536, 1023)]
+            # The tile boundaries of the hybrid form (tiles of 512 rows or
+            # more, halo 2^k - 1), the batched lanes, and one lane too long
+            # for shared memory in f64.
+            + [(1, 3077, 63), (3, 3072, 63), (1, 2049, 7), (3, 65537, 1023),
+               (128, 8192, 1023), (3, 20000, None)])
 # Timed K4 shapes: TV (h)'s pure masked solve, TV (f)'s hybrid solve (the
 # one the JSON line reports), and the batched TV lanes' hybrid solve.
 K4_TIMED = ((1, 8192, None), (1, 65536, 1023), (128, 8192, 1023))
@@ -108,6 +128,17 @@ K2_SHAPES = ((1, 1), (7, 33), (48, 160), (1500, 5000), (5000, 1500))
 K2_DEEP = 64
 BF16_TIMED_STEPS = 4096
 FAMILY_MAXITERS = 2000
+# H100 SXM peaks from NVIDIA's data sheet.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def bound(nbytes, flops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    to move ``nbytes`` and do ``flops`` f32 operations, whichever is
+    longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check(ok, what):
@@ -141,9 +172,11 @@ def time_ms(fn, reps):
 
 
 def kernel_phase(dev):
-    """K1 (Triton) against its plain version; returns (max_abs_err, ms, plain_ms)."""
+    """K1 (Triton) against its plain version; returns (max_abs_err, ms,
+    plain_ms, (bound_ms, bound_by))."""
     import torch
 
+    from admm_tpu_torch.benchmarks.timing import graph_ms
     from admm_tpu_torch.ops.kernels import _fused_torch, fused_soft_threshold_dual
 
     print("kernel: fused_soft_threshold_dual (Triton) vs _fused_torch")
@@ -169,13 +202,17 @@ def kernel_phase(dev):
     x = torch.from_numpy(rng.standard_normal(n)).to(dev, torch.float32)
     u = torch.from_numpy(rng.standard_normal(n)).to(dev, torch.float32)
     t = torch.tensor(0.37, dtype=torch.float32, device=dev)
-    ms = time_ms(lambda: fused_soft_threshold_dual(x, u, t), 2000)
-    plain_ms = time_ms(lambda: _fused_torch(x, u, t), 2000)
-    ms2 = time_ms(lambda: fused_soft_threshold_dual(x, u, t), 2000)
-    plain_ms2 = time_ms(lambda: _fused_torch(x, u, t), 2000)
-    print(f"  n=5000 f32 per call: kernel {ms:.5f} / {ms2:.5f} ms, "
-          f"plain {plain_ms:.5f} / {plain_ms2:.5f} ms (CUDA events, 2000 calls each)")
-    return worst, min(ms, ms2), min(plain_ms, plain_ms2)
+    kernel = lambda: fused_soft_threshold_dual(x, u, t)  # noqa: E731
+    plain = lambda: _fused_torch(x, u, t)  # noqa: E731
+    host = [time_ms(f, 2000) for f in (kernel, plain, plain, kernel)]
+    dev_t = [graph_ms(f, 2000) for f in (kernel, plain, plain, kernel)]
+    # x, u and t in, z and u out; |v| - t, max, sign, product, two adds.
+    bound_ms = bound(4 * n * 4 + 4, 6 * n)
+    print(f"  n=5000 f32 per call, device (graph replay): kernel {dev_t[0]:.6f} / "
+          f"{dev_t[3]:.6f} ms, plain {dev_t[1]:.6f} / {dev_t[2]:.6f} ms; host-issued: "
+          f"kernel {host[0]:.5f} / {host[3]:.5f} ms, plain {host[1]:.5f} / {host[2]:.5f} ms "
+          f"(CUDA events, 2000 calls each); bound {bound_ms[0]:.6f} ms ({bound_ms[1]})")
+    return worst, min(dev_t[0], dev_t[3]), min(dev_t[1], dev_t[2]), bound_ms
 
 
 def slice_phase(dev):
@@ -275,11 +312,13 @@ def k2_operands(m, n, dev, dtype, K):
 
 def k2_phase(dev):
     """K2 (CUDA C++) against its plain version; returns (max_abs_err, ms,
-    plain_ms), the times of one K = 1 bf16 call at (1500, 5000)."""
+    plain_ms, library_ms, (bound_ms, bound_by)) of one K = 1 f32 call at
+    (1500, 5000), the library call being ``torch.linalg.multi_dot``."""
     import torch
 
+    from admm_tpu_torch.benchmarks.timing import graph_ms
     from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
-    from admm_tpu_torch.ops.gemv_pair import _gemv_pair_torch, gemv_pair
+    from admm_tpu_torch.ops.gemv_pair import _gemv_pair_torch, aligned_rows, gemv_pair
 
     print("kernel: gemv_pair (CUDA C++) vs _gemv_pair_torch")
     worst = 0.0
@@ -305,28 +344,65 @@ def k2_phase(dev):
                     check(rel <= bar, f"K2 ||dx||/||x|| <= {bar} ({dtype}, {m}x{n}, K={K})")
                 worst = max(worst, dmax)
 
+    # The same bits from every launch, and an f32 b with bf16 streams
+    # rounded as b.to(bf16) rounds it.
+    for dtype in (torch.float32, torch.bfloat16):
+        for K in (1, K2_DEEP):
+            b, E, Dt = k2_operands(1500, 5000, dev, dtype, K)
+            first = gemv_pair(b, E, Dt, K)
+            same = all(torch.equal(gemv_pair(b, E, Dt, K), first) for _ in range(2))
+            check(same, f"K2 gives the same bits on three launches ({dtype}, K={K})")
+    b, E, Dt = k2_operands(1500, 5000, dev, torch.bfloat16, 1)
+    b32 = torch.from_numpy(np.random.default_rng(3).standard_normal(E.shape[1]))
+    b32 = b32.to(dev, torch.float32)
+    check(torch.equal(gemv_pair(b32, E, Dt), gemv_pair(b32.to(torch.bfloat16), E, Dt)),
+          "K2 with bf16 streams: an f32 b gives the bits of b.to(bf16)")
+
+    # Times at (1500, 5000) in the solver's layout (rows on 16-byte
+    # boundaries), kernel and plain version and, in f32, multi_dot in turns.
     times = {}
-    for dtype, K, reps in ((torch.bfloat16, 1, 200), (torch.float32, K2_DEEP, 20),
-                           (torch.bfloat16, K2_DEEP, 20)):
+    for dtype, K, reps in ((torch.float32, 1, 200), (torch.bfloat16, 1, 200),
+                           (torch.float32, K2_DEEP, 20), (torch.bfloat16, K2_DEEP, 20)):
         b, E, Dt = make_operands(1500, 5000, dev, dtype)
-        ks, ps = [], []
-        for kernel in (True, False, False, True):
-            fn = ((lambda: gemv_pair(b, E, Dt, K)) if kernel
-                  else (lambda: _gemv_pair_torch(b, E, Dt, K)))
-            (ks if kernel else ps).append(time_ms(fn, reps))
-        times[(dtype, K)] = (min(ks), min(ps))
-        print(f"  (1500, 5000) {str(dtype):14s} K={K:2d} per call: kernel {ks[0]:.5f} / "
-              f"{ks[1]:.5f} ms, plain {ps[0]:.5f} / {ps[1]:.5f} ms (CUDA events, {reps} "
-              f"calls each); kernel {min(ks) * 1e3 / K:.2f} us per step")
-    return worst, *times[(torch.bfloat16, 1)]
+        E, Dt = aligned_rows(E), aligned_rows(Dt)
+        fns = {"kernel": lambda: gemv_pair(b, E, Dt, K),
+               "plain": lambda: _gemv_pair_torch(b, E, Dt, K)}
+        if dtype == torch.float32 and K == 1:
+            fns["multi_dot"] = lambda: torch.linalg.multi_dot([Dt, E, b])
+        got = {name: [] for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            got[name].append(graph_ms(fns[name], reps, per_graph=10 if K == 1 else 2))
+        host = time_ms(fns["kernel"], reps)
+        times[(dtype, K)] = {name: min(v) for name, v in got.items()}
+        m, n = E.shape
+        size = E.element_size()
+        nbytes = K * 2 * m * n * size + n * size + n * 4  # E, Dt each step; b in, x out
+        times[(dtype, K)]["bound"] = bound(nbytes, K * 4 * m * n)
+        print(f"  (1500, 5000) {str(dtype):14s} K={K:2d} per call: "
+              + ", ".join(f"{name} {' / '.join('%.5f' % t for t in v)} ms"
+                          for name, v in got.items())
+              + f" (device: CUDA events around graph replays, {reps} calls each; "
+              f"host-issued kernel {host:.5f} ms); kernel {min(got['kernel']) * 1e3 / K:.2f} "
+              f"us per step, {nbytes / (min(got['kernel']) * 1e-3) / 1e12:.2f} TB/s; "
+              f"bound {times[(dtype, K)]['bound'][0] * 1e3 / K:.2f} us per step")
+    md = times[(torch.float32, 1)]["multi_dot"]
+    print(f"  per step against multi_dot f32 ({md * 1e3:.2f} us): K2 f32 K=1 "
+          f"{times[(torch.float32, 1)]['kernel'] * 1e3:.2f} us, K=64 "
+          f"{times[(torch.float32, K2_DEEP)]['kernel'] * 1e3 / K2_DEEP:.2f} us; "
+          f"bf16 K=1 {times[(torch.bfloat16, 1)]['kernel'] * 1e3:.2f} us, K=64 "
+          f"{times[(torch.bfloat16, K2_DEEP)]['kernel'] * 1e3 / K2_DEEP:.2f} us")
+    f32 = times[(torch.float32, 1)]
+    return worst, f32["kernel"], f32["plain"], md, f32["bound"]
 
 
 def k3_phase(dev, a):
     """K3 (CUDA C++) through the prototype's entry point, against its plain
     version, NumPy f64 and run (a)'s history; returns (launches,
-    max_abs_err, ms, plain_ms) with the times per launch of K steps."""
+    max_abs_err, ms, plain_ms, (bound_ms, bound_by)) with the times per
+    launch of K steps."""
     import torch
 
+    from admm_tpu_torch.benchmarks.timing import graph_ms
     from admm_tpu_torch.experiments import resident_iter_proto as proto
     from admm_tpu_torch.ops.gemv_pair import _resident_lasso_torch, resident_lasso
 
@@ -373,15 +449,27 @@ def k3_phase(dev, a):
     check(bool(np.all(gap <= 1e-6 * xnorm)),
           "K3 |sqrt(pn2) - pnorm| <= 1e-3 pnorm + 1e-6 ||xopt|| at every step")
 
+    # A relaunch from the same state gives the same bits (fixed-order sums).
+    z1, u1 = torch.zeros_like(zp), torch.zeros_like(up)
+    h1 = resident_lasso(z1, u1, *args)
+    z2, u2 = torch.zeros_like(zp), torch.zeros_like(up)
+    h2 = resident_lasso(z2, u2, *args)
+    check(torch.equal(h1, h2) and torch.equal(z1, z2) and torch.equal(u1, u2),
+          "K3 gives the same bits on two launches")
+
+    m = op["E"].shape[0]
+    # E and D^T each step; z, u, D^T s in, z and u out, the history.
+    bound_ms = bound(K * 2 * m * n * 4 + 5 * n * 4 + K * 8, K * (4 * m * n + 16 * n))
     zc, uc = torch.zeros_like(zp), torch.zeros_like(up)
-    ks = [time_ms(lambda: resident_lasso(zc, uc, *args), 20)]
-    ps = [time_ms(lambda: _resident_lasso_torch(zc, uc, *args), 2)]
-    ps.append(time_ms(lambda: _resident_lasso_torch(zc, uc, *args), 2))
-    ks.append(time_ms(lambda: resident_lasso(zc, uc, *args), 20))
+    ks = [graph_ms(lambda: resident_lasso(zc, uc, *args), 20, per_graph=2)]
+    ps = [graph_ms(lambda: _resident_lasso_torch(zc, uc, *args), 3, per_graph=1)]
+    ps.append(graph_ms(lambda: _resident_lasso_torch(zc, uc, *args), 3, per_graph=1))
+    ks.append(graph_ms(lambda: resident_lasso(zc, uc, *args), 20, per_graph=2))
     print(f"  per launch of {K} steps: kernel {ks[0]:.5f} / {ks[1]:.5f} ms, plain loop "
-          f"{ps[0]:.5f} / {ps[1]:.5f} ms (CUDA events); per step kernel "
-          f"{min(ks) * 1e3 / K:.2f} us, plain {min(ps) * 1e3 / K:.2f} us")
-    return launches, max(dz, du), min(ks), min(ps)
+          f"{ps[0]:.5f} / {ps[1]:.5f} ms (device: CUDA events around graph replays); per step kernel "
+          f"{min(ks) * 1e3 / K:.2f} us, plain {min(ps) * 1e3 / K:.2f} us; bound "
+          f"{bound_ms[0] * 1e3 / K:.2f} us per step ({bound_ms[1]})")
+    return launches, max(dz, du), min(ks), min(ps), bound_ms
 
 
 def _family_objective(family, D, s, lam, z):
@@ -482,11 +570,14 @@ def _random_system(n, seed=9):
 
 def k4_phase(dev):
     """K4 (CUDA C++) against its plain version; returns (max_abs_err, ms,
-    plain_ms), the times at TV (f)'s shape (1, 65536) with the hybrid tail."""
+    plain_ms, (bound_ms, bound_by)), the times at TV (f)'s shape
+    (1, 65536) with the hybrid tail."""
     import torch
 
+    from admm_tpu_torch.benchmarks.timing import graph_ms
     from admm_tpu_torch.ops import _cuda
-    from admm_tpu_torch.ops.tridiag import CyclicReductionSolver, _cr_solve_torch, cr_solve
+    from admm_tpu_torch.ops.tridiag import (
+        CyclicReductionSolver, _cr_solve_torch, compact_stacks, cr_solve)
 
     t0 = time.perf_counter()
     _cuda.library()
@@ -524,11 +615,20 @@ def k4_phase(dev):
         ks, ps = [], []
         for kernel in (True, False, False, True):
             fn = (lambda: cr_solve(bb, sol)) if kernel else (lambda: _cr_solve_torch(bb, sol))
-            (ks if kernel else ps).append(time_ms(fn, 200))
-        times[(lanes, n)] = (min(ks), min(ps))
-        print(f"  B={lanes} n={n} cutoff={cutoff} f32 per solve: kernel "
-              f"{ks[0]:.5f} / {ks[1]:.5f} ms, plain {ps[0]:.5f} / {ps[1]:.5f} ms "
-              "(CUDA events, 200 calls each)")
+            (ks if kernel else ps).append(graph_ms(fn, 200))
+        host = time_ms(lambda: cr_solve(bb, sol), 200)
+        # bb in, x out, the active coefficients and the tail's inverse.
+        stacks = compact_stacks(sol)
+        N = bb.shape[1]
+        f_rows, b_rows = stacks[0].numel(), stacks[2].numel()
+        M = 0 if sol.Tinv is None else sol.Tinv.shape[0]
+        nbytes = (2 * bb.numel() + sum(s.numel() for s in stacks) + M * M) * 4
+        bound_ms = bound(nbytes, lanes * (4 * f_rows + 5 * b_rows + 2 * M * M))
+        times[(lanes, n)] = (min(ks), min(ps), bound_ms)
+        print(f"  B={lanes} n={n} (N={N}) cutoff={cutoff} f32 per solve, device (CUDA "
+              f"events around graph replays, 200 calls each): kernel {ks[0]:.5f} / "
+              f"{ks[1]:.5f} ms, plain {ps[0]:.5f} / {ps[1]:.5f} ms; host-issued kernel "
+              f"{host:.5f} ms; bound {bound_ms[0]:.6f} ms ({bound_ms[1]})")
     return worst, *times[(1, 65536)]
 
 
@@ -682,52 +782,37 @@ def main():
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    k1_err, k1_ms, k1_plain_ms = kernel_phase(dev)
-    k4_err, k4_ms, k4_plain_ms = k4_phase(dev)
-    k2_err, k2_ms, k2_plain_ms = k2_phase(dev)
+    k1_err, k1_ms, k1_plain_ms, k1_bound = kernel_phase(dev)
+    k4_err, k4_ms, k4_plain_ms, k4_bound = k4_phase(dev)
+    k2_err, k2_ms, k2_plain_ms, k2_library_ms, k2_bound = k2_phase(dev)
     k1_launches, a = slice_phase(dev)
-    k3_launches, k3_err, k3_ms, k3_plain_ms = k3_phase(dev, a)
+    k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = k3_phase(dev, a)
     k2_launches = bf16_phase(dev, a)
     k4_launches = tv_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_soft_threshold_dual",
-        "route": "triton",
-        "source": "admm_tpu_torch/ops/triton_fused_zu.py",
-        "replaces": "admm_tpu/ops/kernels.py:48",
-        "launches": k1_launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
-    }, {
-        "name": "cr_solve",
-        "route": "cuda",
-        "source": "admm_tpu_torch/csrc/cr_solve.cu",
-        "replaces": "experiments/pallas_cr_kernel.py:103",
-        "launches": k4_launches,
-        "max_abs_err": k4_err,
-        "ms": k4_ms,
-        "plain_ms": k4_plain_ms,
-    }, {
-        "name": "gemv_pair",
-        "route": "cuda",
-        "source": "admm_tpu_torch/csrc/gemv_pair.cu",
-        "replaces": "experiments/pallas_probe.py:52",
-        "launches": k2_launches,
-        "max_abs_err": k2_err,
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms,
-    }, {
-        "name": "resident_lasso",
-        "route": "cuda",
-        "source": "admm_tpu_torch/csrc/gemv_pair.cu",
-        "replaces": "experiments/resident_iter_proto.py:77",
-        "launches": k3_launches,
-        "max_abs_err": k3_err,
-        "ms": k3_ms,
-        "plain_ms": k3_plain_ms,
-    }]}))
+    def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
+        return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
+    # K1: softshrink gives z only; K4: torch has no tridiagonal solve; K3:
+    # no library call runs whole ADMM steps.  K2's row is the f32 K = 1 call,
+    # the function multi_dot computes.
+    print(json.dumps({"kernels": [
+        row("fused_soft_threshold_dual", "triton", "admm_tpu_torch/ops/triton_fused_zu.py",
+            "admm_tpu/ops/kernels.py:48", k1_launches, k1_err, k1_ms, k1_plain_ms,
+            k1_bound, None),
+        row("cr_solve", "cuda", "admm_tpu_torch/csrc/cr_solve.cu",
+            "experiments/pallas_cr_kernel.py:103", k4_launches, k4_err, k4_ms,
+            k4_plain_ms, k4_bound, None),
+        row("gemv_pair", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
+            "experiments/pallas_probe.py:52", k2_launches, k2_err, k2_ms, k2_plain_ms,
+            k2_bound, k2_library_ms),
+        row("resident_lasso", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
+            "experiments/resident_iter_proto.py:77", k3_launches, k3_err, k3_ms,
+            k3_plain_ms, k3_bound, None),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

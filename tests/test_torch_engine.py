@@ -160,13 +160,13 @@ def test_nanguard_trips_on_nan_prox(unroll):
         return x
 
     res = admm(prox_f, prox_g, ADMMConfig(maxiters=100, unroll=unroll), m=n,
-               dtype=torch.float64)
+               dtype=torch.float64, device="cpu")
     jres = jax_admm(prox_f, prox_g, JaxConfig(maxiters=100, unroll=unroll),
                     m=n, dtype=jnp.float64)
     assert res.diverged and bool(jres.diverged)
     assert res.steps == jres.steps == 1
     off = admm(prox_f, prox_g, ADMMConfig(maxiters=20, nanguard=False), m=n,
-               dtype=torch.float64)
+               dtype=torch.float64, device="cpu")
     assert not off.diverged and off.steps == 20
 
 
@@ -177,7 +177,8 @@ def test_nanguard_trips_on_nan_prox(unroll):
 def test_fused_splitting_check(A, c, match):
     with pytest.raises(ValueError, match=match):
         admm(lambda *a: a[0], lambda *a: a[0], ADMMConfig(), A=A, c=c, m=8,
-             hooks=Hooks(fused_zu=lambda x, u, rho: (x, u)), dtype=torch.float64)
+             hooks=Hooks(fused_zu=lambda x, u, rho: (x, u)), dtype=torch.float64,
+             device="cpu")
 
 
 @pytest.mark.parametrize("kw,hook,name", [
@@ -201,7 +202,7 @@ def test_unported_options_raise(kw, hook, name):
         "hooks": Hooks(**hook)}
     with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP.*slice"):
         admm(lambda *a: a[0], lambda *a: a[0], ADMMConfig(**kw), m=8,
-             dtype=torch.float64, **extra)
+             dtype=torch.float64, device="cpu", **extra)
 
 
 def test_quiet_false_prints_summary_line(capsys):
@@ -220,7 +221,7 @@ def test_shapes_dtype_and_device_resolution():
     assert res.xopt.dtype == torch.float32 and res.xopt.device == x0.device
     assert res.uopt.shape == (5,) and res.steps == 3
     with pytest.raises(ValueError, match="nA, shape_x, or x0"):
-        admm(lambda *a: a[0], lambda *a: a[0], ADMMConfig())
+        admm(lambda *a: a[0], lambda *a: a[0], ADMMConfig(), device="cpu")
 
 
 def _pf(x, z, u, rho, d):

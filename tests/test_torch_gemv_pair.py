@@ -22,6 +22,7 @@ from admm_tpu_torch import ADMMConfig, lasso
 from admm_tpu_torch.convert import lasso_data, numpy_state
 from admm_tpu_torch.experiments import gemv_pair_probe, resident_iter_proto
 from admm_tpu_torch.ops.gemv_pair import gemv_pair, resident_lasso
+from admm_tpu_torch.ops.solve import FatShiftSolver
 
 torch.set_num_threads(1)
 
@@ -67,6 +68,30 @@ def test_gemv_pair_rounds_where_jax_rounds():
     ref = _jax_pair(np.ones(2, np.float32), jnp.asarray(E.float().numpy().T, jnp.bfloat16),
                     jnp.asarray(Dt.float().numpy().T, jnp.bfloat16), jnp.bfloat16, 1)
     assert x.tolist() == ref.tolist() == [1.0 + 2.0**-7, 3.0 * (1.0 + 2.0**-7)]
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("m,n", [(7, 33), (48, 160)])
+def test_gemv_pair_takes_an_f32_b_with_bf16_streams(K, m, n):
+    # An f32 b is rounded to bf16 where the pair reads it: the same bits
+    # as handing over b.to(torch.bfloat16).
+    b, E, Dt = gemv_pair_probe.make_operands(m, n, torch.device("cpu"), torch.bfloat16)
+    b32 = torch.from_numpy(np.random.default_rng(m).standard_normal(n).astype(np.float32))
+    x = gemv_pair(b32, E, Dt, K)
+    assert torch.equal(x, gemv_pair(b32.to(torch.bfloat16), E, Dt, K))
+    assert not torch.equal(b32, b32.to(torch.bfloat16).float())  # b32 does round
+    with pytest.raises(TypeError, match="float32"):
+        gemv_pair(b32.double(), E, Dt, K)
+
+
+def test_bf16_fat_shift_solver_hands_k2_an_f32_b():
+    rng = np.random.default_rng(12)
+    D = torch.from_numpy((rng.standard_normal((24, 80)) / 5).astype(np.float32))
+    fat = FatShiftSolver.from_matrix(D, 1.0, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(80).astype(np.float32))
+    rho0 = fat.rho0
+    pre = gemv_pair(b.to(torch.bfloat16), fat.E, fat.Dt)
+    assert torch.equal(fat.solve(b), b / rho0 - pre / (rho0 * rho0))
 
 
 @pytest.mark.parametrize("ddtype", [np.float32, np.float64])
@@ -134,7 +159,7 @@ def test_resident_iter_proto_smoke_on_cpu(capsys):
     # The history is the port engine's: same problem, fused z/u step.
     D, s, lam = resident_iter_proto.make_problem(smoke=True)
     res = lasso(D, s, lam, ADMMConfig(maxiters=64, domaxiters=True, unroll=64),
-                use_fused_kernel=True)
+                use_fused_kernel=True, device="cpu")
     p2 = np.asarray(res.pnorm, np.float64) ** 2
     # Two f32 runs of the step differ by about eps_f32 ||x|| in x (another
     # summation order), so pnorm^2 agrees to 1e-3 only while pnorm is well

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from admm_tpu_torch import ADMMConfig, grouplasso, lasso, totalvariation
+from admm_tpu_torch import (ADMMConfig, admm, elasticnet, grouplasso, lasso, nnls,
+                            totalvariation, totalvariation2d)
 from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
 from admm_tpu_torch.models.totalvariation import tv_system
 from admm_tpu_torch.ops.gemv_pair import (
@@ -134,6 +135,15 @@ def cr_launches(monkeypatch):
     (2, 5000, 63, _random_system),
     (1, 300, 1023, _tv_system),
     (4, 20000, 1023, _tv_system),
+    # Tile boundaries of the hybrid form (tiles of 512 rows or more, halo
+    # 2^k - 1; ops/tridiag.py::tile_plan):
+    (1, 3077, 63, _random_system),    # n just past the third tile
+    (3, 3072, 63, _tv_system),        # n on a tile boundary
+    (1, 2049, 7, _random_system),     # halo 511, half a tile
+    (3, 65537, 1023, _tv_system),     # halo 255, 256 tiles, most of them padding
+    (128, 8192, 1023, _tv_system),    # the batched TV lanes
+    (128, 1000, 63, _random_system),
+    (3, 20000, None, _tv_system),     # one tile per lane: shared f32, global f64
 ])
 def test_cr_kernel_matches_plain_version(cuda, cr_launches, dtype, lanes, n, cutoff, system):
     sol = CyclicReductionSolver.from_tridiag(*system(n), dense_cutoff=cutoff,
@@ -205,15 +215,26 @@ def k2_launches(monkeypatch):
     return lambda: gemv_pair.launches
 
 
+def _off_stride(A):
+    """A copy of ``A`` in storage whose rows are one element longer, so
+    that no row after the first starts on a 16-byte boundary."""
+    out = A.new_zeros((A.shape[0], A.shape[1] + 1))[:, : A.shape[1]]
+    out.copy_(A)
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K", [1, 5])
 @pytest.mark.parametrize("m,n,aligned", [
     (1, 1, True), (7, 33, True), (7, 33, False), (33, 7, True), (48, 160, True),
     (129, 1000, False), (1000, 129, True), (20, 9000, True), (9000, 20, True),
+    (1500, 5000, True), (5000, 1500, True), (1500, 5000, "stride"),
 ])
 def test_gemv_pair_kernel_matches_plain(cuda, k2_launches, dtype, K, m, n, aligned):
     b, E, Dt = make_operands(m, n, cuda, dtype)
-    if not aligned:  # rows off 16-byte boundaries: the scalar loads
+    if aligned == "stride":  # row strides of n + 1 and m + 1 elements
+        E, Dt = _off_stride(E), _off_stride(Dt)
+    elif not aligned:  # rows off 16-byte boundaries: the scalar loads
         E, Dt = E.contiguous(), Dt.contiguous()
     x = gemv_pair(b, E, Dt, K)
     torch.cuda.synchronize()
@@ -231,6 +252,24 @@ def test_gemv_pair_kernel_matches_plain(cuda, k2_launches, dtype, K, m, n, align
         assert torch.linalg.norm(x - ref) <= bar * torch.linalg.norm(ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(1500, 5000), (5000, 1500), (37, 101)])
+def test_gemv_pair_kernel_gives_the_same_bits_every_launch(cuda, dtype, m, n):
+    b, E, Dt = make_operands(m, n, cuda, dtype)
+    for K in (1, 7):
+        first = gemv_pair(b, E, Dt, K)
+        assert all(torch.equal(gemv_pair(b, E, Dt, K), first) for _ in range(3))
+
+
+@pytest.mark.parametrize("m,n", [(1500, 5000), (48, 160)])
+def test_gemv_pair_kernel_rounds_an_f32_b(cuda, m, n):
+    # The kernel rounds an f32 b to bf16 as it reads it: the same bits as
+    # handing it b.to(torch.bfloat16).
+    _, E, Dt = make_operands(m, n, cuda, torch.bfloat16)
+    b = torch.from_numpy(np.random.default_rng(m).standard_normal(n)).to(cuda, torch.float32)
+    assert torch.equal(gemv_pair(b, E, Dt), gemv_pair(b.to(torch.bfloat16), E, Dt))
+
+
 def _lasso_operands(m, n, device, seed=4):
     rng = np.random.default_rng(seed)
     D = rng.standard_normal((m, n))
@@ -242,7 +281,7 @@ def _lasso_operands(m, n, device, seed=4):
     return aligned_rows(fat.E), aligned_rows(D.T), Dts, kappa
 
 
-@pytest.mark.parametrize("m,n", [(1, 3), (37, 101), (300, 1000), (20, 9000)])
+@pytest.mark.parametrize("m,n", [(1, 3), (37, 101), (300, 1000), (20, 9000), (1500, 5000)])
 def test_resident_lasso_kernel_matches_plain(cuda, monkeypatch, m, n):
     monkeypatch.setattr(resident_lasso, "launches", 0)
     E, Dt, Dts, kappa = _lasso_operands(m, n, cuda)
@@ -296,6 +335,18 @@ def _fat_instance(seed=5, m=64, n=200):
     D = (D / np.sqrt(np.sum(D**2, axis=0, keepdims=True))).astype(np.float32)
     s = (D @ (rng.standard_normal(n) * (rng.random(n) < 0.2))).astype(np.float32)
     return D, s, float(0.1 * np.max(np.abs(D.T @ s)))
+
+
+def test_numpy_inputs_without_a_device_solve_on_the_card(cuda):
+    D, s, lam = _fat_instance()
+    cfg = ADMMConfig(maxiters=5, domaxiters=True)
+    sig = np.repeat(np.random.default_rng(1).standard_normal(40), 64)
+    for res in (lasso(D, s, lam, cfg), elasticnet(D, s, lam, 0.5, cfg), nnls(D, s, cfg),
+                grouplasso(D, s, lam, 20, None, cfg), totalvariation(sig, 0.5, cfg),
+                totalvariation2d(D, 0.5, cfg),
+                admm(lambda x, z, u, rho: 0.5 * (z - u), lambda x, z, u, rho: x + u,
+                     cfg, m=8)):
+        assert res.steps == 5 and res.xopt.device.type == "cuda"
 
 
 @pytest.mark.parametrize("solver", ["lasso", "grouplasso"])

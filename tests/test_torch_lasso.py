@@ -39,7 +39,7 @@ def test_lasso_matches_jax_f64(seed, rows, cols, fused):
     D, s, lam = _make_instance(seed, rows, cols)
     cfg = dict(maxiters=5000, objevals=True, unroll=4)
     jres = jax_lasso(D, s, lam, JaxConfig(**cfg), use_fused_kernel=fused)
-    res = lasso(D, s, lam, ADMMConfig(**cfg), use_fused_kernel=fused)
+    res = lasso(D, s, lam, ADMMConfig(**cfg), use_fused_kernel=fused, device="cpu")
     assert res.steps == jres.steps < 5000
     assert res.xopt.dtype == torch.float64 and res.xopt.device.type == "cpu"
     # Each package factorizes on its own (eigh / solve in f64), so the
@@ -66,7 +66,7 @@ def test_lasso_matches_jax_f32():
     D, s = D.astype(np.float32), s.astype(np.float32)
     cfg = dict(maxiters=200, domaxiters=True, unroll=8)
     jres = jax_lasso(D, s, lam, JaxConfig(**cfg), use_fused_kernel=True)
-    res = lasso(D, s, lam, ADMMConfig(**cfg), use_fused_kernel=True)
+    res = lasso(D, s, lam, ADMMConfig(**cfg), use_fused_kernel=True, device="cpu")
     assert res.steps == jres.steps == 200
     assert res.xopt.dtype == torch.float32
     scale = float(np.max(np.abs(np.asarray(jres.xopt))))
@@ -79,8 +79,8 @@ def test_lasso_matches_jax_f32():
 def test_lasso_fused_and_plain_agree_f64():
     D, s, lam = _make_instance(1, 64, 160)
     cfg = ADMMConfig(maxiters=5000, unroll=16)
-    a = lasso(D, s, lam, cfg, use_fused_kernel=True)
-    b = lasso(D, s, lam, cfg, use_fused_kernel=False)
+    a = lasso(D, s, lam, cfg, use_fused_kernel=True, device="cpu")
+    b = lasso(D, s, lam, cfg, use_fused_kernel=False, device="cpu")
     assert a.steps == b.steps
     np.testing.assert_allclose(a.xopt.numpy(), b.xopt.numpy(), rtol=1e-12, atol=1e-13)
 
@@ -89,7 +89,7 @@ def test_lasso_accepts_tensors_and_keeps_their_device():
     D, s, lam = _make_instance(0, 96, 48)
     res = lasso(torch.from_numpy(D), torch.from_numpy(s), lam,
                 ADMMConfig(maxiters=3000))
-    ref = lasso(D, s, lam, ADMMConfig(maxiters=3000))
+    ref = lasso(D, s, lam, ADMMConfig(maxiters=3000), device="cpu")
     assert res.steps == ref.steps
     assert torch.equal(res.xopt, ref.xopt)
     assert res.solverruntime >= res.runtime > 0
@@ -117,7 +117,7 @@ def test_precision_pin_restores_callers_setting():
         admm(spy, _prox_g, ADMMConfig(maxiters=1, matmul_precision="high"), m=128,
              data=data, dtype=torch.float64)
         assert seen[-1] == ("high", True)
-        lasso(D, s, lam, ADMMConfig(maxiters=5))
+        lasso(D, s, lam, ADMMConfig(maxiters=5), device="cpu")
         assert torch.get_float32_matmul_precision() == "medium"
     finally:
         torch.set_float32_matmul_precision(old)
@@ -131,7 +131,7 @@ def test_precision_pin_restores_callers_setting():
 def test_unported_lasso_modes_raise(kw, exc, match):
     D, s, lam = _make_instance(2, 32, 64)
     with pytest.raises(exc, match=match):
-        lasso(D, s, lam, **kw)
+        lasso(D, s, lam, device="cpu", **kw)
 
 
 def test_lasso_demo_mode_raises():

@@ -50,6 +50,8 @@ def _args(family, D, s, lam):
 def _solve(pkg, family, D, s, lam, cfg, **kw):
     fn = getattr(admm_tpu, family) if pkg == "jax" else _PORT[family]
     Config = JaxConfig if pkg == "jax" else ADMMConfig
+    if pkg != "jax":
+        kw["device"] = "cpu"
     return fn(D, s, *_args(family, D, s, lam), config=Config(**cfg), **kw)
 
 
@@ -79,7 +81,7 @@ def test_group_specs_and_weights_match_jax_f64():
     cfg = dict(maxiters=3000)
     for groups, weights in ((12, None), (ids, np.linspace(0.5, 2.0, 7))):
         jres = admm_tpu.grouplasso(D, s, lam, groups, weights, JaxConfig(**cfg))
-        res = grouplasso(D, s, lam, groups, weights, ADMMConfig(**cfg))
+        res = grouplasso(D, s, lam, groups, weights, ADMMConfig(**cfg), device="cpu")
         assert res.steps == jres.steps < 3000
         np.testing.assert_allclose(res.zopt.numpy(), np.asarray(jres.zopt),
                                    rtol=1e-9, atol=1e-10)
@@ -89,7 +91,8 @@ def test_elasticnet_alpha_one_is_lasso_bit_for_bit():
     # lam*1 and 1 + lam*0/rho are exact, so the z-prox is lasso's.
     D, s, lam = _instance(3, 48, 120)
     cfg = ADMMConfig(maxiters=3000)
-    a, b = elasticnet(D, s, lam, 1.0, cfg), lasso(D, s, lam, cfg)
+    a = elasticnet(D, s, lam, 1.0, cfg, device="cpu")
+    b = lasso(D, s, lam, cfg, device="cpu")
     assert a.steps == b.steps and torch.equal(a.xopt, b.xopt)
 
 
@@ -143,7 +146,7 @@ def test_resolve_groups_resolves_like_jax():
 def test_grouplasso_checks_weights_shape():
     D, s, lam = _instance(5, 20, 30)
     with pytest.raises(ValueError, match=r"weights must have shape \(3,\)"):
-        grouplasso(D, s, lam, 3, np.ones(4))
+        grouplasso(D, s, lam, 3, np.ones(4), device="cpu")
 
 
 def test_bf16_warmstart_plus_f32_polish_recovers_accuracy():
@@ -159,8 +162,9 @@ def test_bf16_warmstart_plus_f32_polish_recovers_accuracy():
         x = x.numpy()
         return 0.5 * np.sum((D @ x - s) ** 2) + lam * np.sum(np.abs(x))
 
-    exact = lasso(D, s, lam, ADMMConfig(maxiters=5000))
-    coarse = lasso(D, s, lam, ADMMConfig(maxiters=5000), stream_dtype=torch.bfloat16)
+    exact = lasso(D, s, lam, ADMMConfig(maxiters=5000), device="cpu")
+    coarse = lasso(D, s, lam, ADMMConfig(maxiters=5000), stream_dtype=torch.bfloat16,
+                   device="cpu")
     pf, pg, objfn, data = make_prox_ops(torch.from_numpy(D), torch.from_numpy(s), lam,
                                         ADMMConfig())
     polished = admm(pf, pg, ADMMConfig(maxiters=200), A=1.0, B=-1.0, c=0.0, m=n,

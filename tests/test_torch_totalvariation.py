@@ -82,7 +82,7 @@ def test_totalvariation_matches_jax_f64(solver, kw):
     sig = _staircase(300)
     cfg = dict(maxiters=2000, objevals=True, **kw)
     jres = jax_tv(sig, 0.8, JaxConfig(**cfg), solver=solver)
-    res = totalvariation(sig, 0.8, ADMMConfig(**cfg), solver=solver)
+    res = totalvariation(sig, 0.8, ADMMConfig(**cfg), solver=solver, device="cpu")
     assert res.steps < 2000
     assert res.xopt.dtype == torch.float64 and res.xopt.device.type == "cpu"
     _assert_same_run(res, jres)
@@ -93,10 +93,11 @@ def test_totalvariation_auto_picks_cr_above_2048():
     sig = _staircase(2100, seed=7, step=64, noise=0.5)
     cfg = dict(maxiters=300, domaxiters=True, unroll="auto")
     jres = jax_tv(sig, 0.5, JaxConfig(**cfg))
-    res = totalvariation(sig, 0.5, ADMMConfig(**cfg))
+    res = totalvariation(sig, 0.5, ADMMConfig(**cfg), device="cpu")
     # 'auto' -> 'cr' takes the balanced unroll, 'dense' the GEMV one.
     assert res.config.unroll == jres.config.unroll == 4
-    dense = totalvariation(sig[:2048], 0.5, ADMMConfig(maxiters=2, unroll="auto"))
+    dense = totalvariation(sig[:2048], 0.5, ADMMConfig(maxiters=2, unroll="auto"),
+                           device="cpu")
     assert dense.config.unroll == 16
     _assert_same_run(res, jres)
 
@@ -187,7 +188,7 @@ def test_convert_refuses_the_packed_solver():
 ])
 def test_unported_tv_modes_raise(kw, exc, match):
     with pytest.raises(exc, match=match):
-        totalvariation(_staircase(64), 0.5, **kw)
+        totalvariation(_staircase(64), 0.5, device="cpu", **kw)
 
 
 def test_totalvariation_demo_mode_raises():
@@ -198,8 +199,8 @@ def test_totalvariation_demo_mode_raises():
 def test_plain_cr_argument_runs_the_same_iteration():
     sig = _staircase(300, seed=9)
     cfg = ADMMConfig(maxiters=2000)
-    a = totalvariation(sig, 0.8, cfg, solver="cr")
-    b = totalvariation(sig, 0.8, cfg, solver="cr", _plain_cr=True)
+    a = totalvariation(sig, 0.8, cfg, solver="cr", device="cpu")
+    b = totalvariation(sig, 0.8, cfg, solver="cr", device="cpu", _plain_cr=True)
     assert a.steps == b.steps
     assert torch.equal(a.xopt, b.xopt)
 
@@ -220,7 +221,7 @@ def test_totalvariation2d_matches_jax_f64(kw):
     S = _blocky(24, 20)
     cfg = dict(maxiters=2000, objevals=True, **kw)
     jres = jax_tv2d_mod.totalvariation2d(S, 1.0, JaxConfig(**cfg))
-    res = totalvariation2d(S, 1.0, ADMMConfig(**cfg))
+    res = totalvariation2d(S, 1.0, ADMMConfig(**cfg), device="cpu")
     assert res.steps < 2000 and res.xopt.shape == (24, 20) and res.zopt.shape == (2, 24, 20)
     _assert_same_run(res, jres)
 
@@ -262,6 +263,6 @@ def test_chip_smoke_numpy_reference_counts_the_ports_steps():
 
     sig = chip_smoke.staircase(4096)
     cfg = ADMMConfig(maxiters=2000, unroll="auto")
-    res = totalvariation(sig.astype(np.float64), 0.5, cfg)
+    res = totalvariation(sig.astype(np.float64), 0.5, cfg, device="cpu")
     assert 10 < res.steps < 2000
     assert chip_smoke.numpy_tv_steps(sig, 0.5, cfg) == res.steps
