@@ -6,7 +6,8 @@ imports ``torch`` and never ``jax``.
 
 Ported so far (ROADMAP.md, queue 1, slices 1 and 6, and part of 3): the
 alg-0 engine, the serial LASSO with all four x-prox branches and the fused
-soft-threshold / dual-update pass as a Triton kernel for Hopper GPUs;
+soft-threshold / dual-update pass, alone or with the whole step tail, as a
+CUDA C++ kernel for Hopper GPUs;
 elastic net, NNLS and group lasso on the same x-update; the bf16-stream
 x-update of all four, whose GEMV pair is a CUDA C++ kernel for Hopper;
 1-D total variation with its dense and cyclic-reduction x-updates, the

@@ -2,8 +2,9 @@
 (port of ``admm_tpu/benchmarks/headline.py``).
 
 Same problem generator, config and JSON keys as ``admm_tpu``'s headline,
-run through the port with ``use_fused_kernel=True`` (the fused z/u pass
-is a Triton kernel on a CUDA device).  ``vs_baseline`` compares against
+run through the port with ``use_fused_kernel=True`` (the z/u pass and the
+rest of the step's tail are one launch of the CUDA C++ kernel K1b on a
+CUDA device).  ``vs_baseline`` compares against
 the same single-process NumPy implementation of the iteration run on this
 host.  Differences from ``admm_tpu``'s line:
 
@@ -172,8 +173,9 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: i
     under ``torch.profiler`` (device time of its kernels; setup is outside
     both).  Prints one JSON line: wall and device microseconds per step,
     the device's busy share (device time over unprofiled wall time),
-    kernel launches per step, the z/u kernel's device time per call, and
-    the ``top`` kernels by device time."""
+    kernel launches per step, the device time per call of K1b (the z/u
+    pass with the step's tail, ``zu_tail_kernel<float, true>``), and the
+    ``top`` kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -204,7 +206,7 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: i
         return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
 
     device_us = sum(dev_us(e) for e in kernels) / res.steps
-    zu = [e for e in kernels if "fused_zu_kernel" in e.key]
+    zu = [e for e in kernels if "zu_tail_kernel" in e.key]
     kernels.sort(key=dev_us, reverse=True)
     line = {
         "profile": {
@@ -214,7 +216,7 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: i
             "device_us_per_step": device_us,
             "busy_share": device_us / wall_us,
             "launches_per_step": sum(e.count for e in kernels) / res.steps,
-            "fused_zu_kernel_us_per_call": (dev_us(zu[0]) / zu[0].count) if zu else None,
+            "zu_tail_kernel_us_per_call": (dev_us(zu[0]) / zu[0].count) if zu else None,
             "top": [[e.key[:80], dev_us(e) / res.steps, e.count / res.steps]
                     for e in kernels[:top]],
         }

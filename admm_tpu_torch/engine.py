@@ -13,6 +13,16 @@ device:
   * the host reads ``k`` and ``done`` once per chunk and nowhere else;
   * rho is a 0-d device tensor, so nothing in a chunk waits on the host.
 
+When the ``fused_zu`` hook is the soft-threshold pass
+(``ops/kernels.soft_threshold_pass``, lasso's ``use_fused_kernel``), a
+step is ``prox_f`` plus one ``ops/kernels.fused_zu_tail``: the z/u pass,
+norms, Boyd errors, flags, history write and freeze select in one launch
+of K1b on the card.  That path keeps k, done and diverged in one int64
+device tensor and updates its x, z and u in place: the engine copies x0,
+z0 and u0 once at the start, so a caller's tensors are never written.
+Every other hook, relax and the path without the hook take the generic
+tail below.
+
 Ported: shape and initial-state resolution, the ``fused_zu`` hook with its
 splitting check, ``relax``, the standard stop, ``domaxiters``,
 ``nodualerror``, ``nanguard``, ``objevals`` / ``objopt``, the per-iteration
@@ -33,6 +43,7 @@ import torch
 from .config import ADMMConfig, matmul_precision, resolve_unroll
 from .device import resolve_device
 from .linop import ScaledIdentityOp, as_linop
+from .ops.kernels import fused_zu_tail, zu_tail_scratch
 from .results import ADMMResults
 
 
@@ -328,25 +339,59 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
             diverged=sel(s.diverged, s.diverged | diverged_i),
         )
 
-    s = _State(
-        k=torch.zeros((), dtype=torch.int64, device=device),
-        x=x0, z=z0, u=u0, done=no, diverged=no,
-    )
-    while True:
-        for _ in range(K):
+    lam_of = getattr(hooks.fused_zu, "soft_threshold_lam", None) if use_fused else None
+    if lam_of is not None:
+        # The soft-threshold pass: the whole tail in one fused_zu_tail.
+        lam = lam_of(data)
+        x, z, u = x0.clone(), z0.clone(), u0.clone()  # updated in place
+        st = torch.zeros(3, dtype=torch.int64, device=device)  # k, done, diverged
+        tail_kw = dict(perr_abs=perr_abs, derr_abs=math.sqrt(float(z.numel())) * cfg.abstol,
+                       reltol=cfg.reltol, domaxiters=cfg.domaxiters,
+                       nodualerror=cfg.nodualerror, nanguard=cfg.nanguard,
+                       scratch=zu_tail_scratch(x.numel(), rdtype, device))
+
+        def tail_step():
+            if record_obj:
+                slot = torch.where((st[1] != 0) | (st[0] >= N), n_spare, st[0])
+            fused_zu_tail(pf(x, z, u, rho), x, z, u, lam, rho, st, hist, **tail_kw)
+            if record_obj:
+                # x and z now hold this step's values unless it was frozen,
+                # and then the write goes to the spare slot.
+                hist[4].index_copy_(0, slot.reshape(1), obj_fn(x, z).reshape(1))
+
+        _run_chunks(tail_step, lambda: st[:2].tolist(), N, K)
+        steps, diverged = st[0], st[2] != 0
+    else:
+        s = _State(
+            k=torch.zeros((), dtype=torch.int64, device=device),
+            x=x0, z=z0, u=u0, done=no, diverged=no,
+        )
+
+        def generic_step():
+            nonlocal s
             s = step(s)
-        # The one host read per chunk.
-        k_host, done_host = torch.stack((s.k, s.done.long())).tolist()
-        if done_host or k_host >= N:
-            break
+
+        _run_chunks(generic_step, lambda: torch.stack((s.k, s.done.long())).tolist(), N, K)
+        steps, x, z, u, diverged = s.k, s.x, s.z, s.u, s.diverged
 
     return {
-        "steps": s.k,
-        "xopt": s.x,
-        "zopt": s.z,
-        "uopt": s.u,
+        "steps": steps,
+        "xopt": x,
+        "zopt": z,
+        "uopt": u,
         "rho_final": rho,
-        "diverged": s.diverged,
+        "diverged": diverged,
         "hist": {name: hist[i, :N] for i, name in enumerate(names)},
-        "objopt": obj_fn(s.x, s.z) if obj_fn is not None else None,
+        "objopt": obj_fn(x, z) if obj_fn is not None else None,
     }
+
+
+def _run_chunks(step, flags, N, K):
+    """Run chunks of K steps until ``flags() -> (k, done)``, the one host
+    read per chunk, says the solve is done or at N steps."""
+    while True:
+        for _ in range(K):
+            step()
+        k_host, done_host = flags()
+        if done_host or k_host >= N:
+            return

@@ -10,7 +10,8 @@ x-update:  (D^T D + rho I)^{-1} (D^T s + rho (z - u)); the fat (m < n)
            branch goes through the matrix-inversion lemma.
 z-update:  soft_threshold(x + u, lambda / rho), or with
            ``use_fused_kernel`` the fused z + dual-update pass of
-           ``ops/kernels.py`` (a Triton kernel on the GPU).
+           ``ops/kernels.py``, which the engine runs with the whole tail
+           of the step in one launch of a CUDA C++ kernel on the GPU.
 
 Prox operators are module-level functions over a ``data`` dict of
 tensors on the solve's device.
@@ -22,7 +23,7 @@ import torch
 
 from ..config import ADMMConfig
 from ..engine import Hooks, admm
-from ..ops.kernels import fused_soft_threshold_dual
+from ..ops.kernels import fused_soft_threshold_dual, soft_threshold_pass
 from ..ops.prox import soft_threshold
 from ..ops.solve import FatShiftSolver, SymShiftSolver, WoodburySolver
 from ..results import ADMMResults
@@ -55,8 +56,10 @@ def _obj(x, z, d):
     return 0.5 * torch.sum((d["D"] @ x - d["s"]) ** 2) + d["lam"] * torch.sum(torch.abs(z))
 
 
+@soft_threshold_pass(lambda d: d["lam"])
 def _fused_zu(x, u, rho, d):
-    # One-pass z-prox + dual update (Hooks.fused_zu; ops/kernels.py).
+    # One-pass z-prox + dual update (Hooks.fused_zu; ops/kernels.py).  The
+    # mark lets the engine run the whole step tail in one fused_zu_tail.
     return fused_soft_threshold_dual(x, u, d["lam"] / rho)
 
 
@@ -113,8 +116,9 @@ def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
     """Solve LASSO (reference solvers/lasso.m:77).
 
     Constraint wiring matches lasso.m:226-239: A = 1, B = -1, c = 0 in R^n.
-    ``use_fused_kernel`` routes the z-prox + dual update through the fused
-    pass of ``ops/kernels.py`` (the Triton kernel on a CUDA device).
+    ``use_fused_kernel`` routes the z-prox + dual update and the rest of
+    the step's tail through ``ops/kernels.fused_zu_tail`` (one launch of
+    the CUDA C++ kernel K1b a step on a CUDA device).
 
     ``D`` and ``s`` are numpy arrays or tensors; the solve runs in D's
     dtype on ``device``, or on D's device when D is a tensor, or on the

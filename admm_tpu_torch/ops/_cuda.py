@@ -12,8 +12,8 @@ is none.
 Kernels launch on PyTorch's current stream, allocate nothing and do not
 synchronise; each C function returns ``cudaGetLastError()`` after its
 launch, and a nonzero code raises here.  The callers (``ops/tridiag.py``,
-``ops/gemv_pair.py``) check device, dtype, shape and contiguity before
-they get here.
+``ops/gemv_pair.py``, ``ops/kernels.py``) check device, dtype, shape and
+contiguity before they get here.
 """
 
 from __future__ import annotations
@@ -30,11 +30,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("cr_solve.cu", "gemv_pair.cu")
+SOURCES = ("cr_solve.cu", "gemv_pair.cu", "zu_tail.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 # name: (restype, argtypes) of each C function of the library.
 _SIGNATURES = {
     "admm_cr_solve": (_I, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -43,6 +43,9 @@ _SIGNATURES = {
     "admm_resident_lasso_blocks": (_I, (_I, _I, ctypes.POINTER(_I))),
     "admm_resident_lasso": (_I, (_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P,
                                  ctypes.c_float, ctypes.c_float, _I, _I, _I, _P)),
+    "admm_zu": (_I, (_I, _P, _P, _P, _P, _P, _I64, _I, _P)),
+    "admm_zu_tail": (_I, (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _D, _D, _D, _I,
+                          _P, _I64, _I, _I, _P)),
     "admm_cuda_error_string": (ctypes.c_char_p, (_I,)),
 }
 
@@ -169,3 +172,34 @@ def resident_lasso(z, u, Dts, E, Dt, t, partial, hist, rho, kappa, K):
         hist.data_ptr(), rho, kappa, m, n, K,
         torch.cuda.current_stream(z.device).cuda_stream)
     _check(lib, err, "resident_lasso")
+
+
+def zu(x, u, t, z, unew, blocks):
+    """Launch K1's z/u mode (``csrc/zu_tail.cu``) on the current stream:
+    ``z`` and ``unew`` from ``x``, ``u`` and the 0-d ``t``, on ``blocks``
+    blocks (``ops/kernels.zu_blocks``).  All contiguous, of one float
+    dtype, on one CUDA device."""
+    lib = library()
+    err = lib.admm_zu(int(x.dtype == torch.float64), x.data_ptr(), u.data_ptr(),
+                      t.data_ptr(), z.data_ptr(), unew.data_ptr(), x.numel(), blocks,
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    _check(lib, err, "zu")
+
+
+def zu_tail(x_new, x, z, u, lam, rho, state, hist, perr_abs, derr_abs, reltol, flags,
+            scratch, blocks, cluster):
+    """Launch K1b, the tail mode of ``csrc/zu_tail.cu``, on the current
+    stream: one step's tail from ``x_new``, with ``x``, ``z``, ``u`` and
+    ``state`` (3 int64) updated in place and one column of ``hist``
+    ``(rows, N + 1)`` written, on ``blocks`` blocks that reduce in one
+    cluster when ``cluster`` is set (``ops/kernels.zu_tail_plan``).
+    ``scratch`` is ``ops/kernels.zu_tail_scratch``'s.  Float tensors of one
+    dtype, all contiguous on one CUDA device."""
+    lib = library()
+    err = lib.admm_zu_tail(
+        int(x.dtype == torch.float64), x_new.data_ptr(), x.data_ptr(), z.data_ptr(),
+        u.data_ptr(), lam.data_ptr(), rho.data_ptr(), state.data_ptr(), hist.data_ptr(),
+        hist.shape[1], hist.shape[1] - 1, perr_abs, derr_abs, reltol, flags,
+        scratch.data_ptr(), x.numel(), blocks, int(cluster),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(lib, err, "zu_tail")

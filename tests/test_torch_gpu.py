@@ -1,4 +1,5 @@
-"""The port on a CUDA device: the Triton z/u kernel and the CUDA C++
+"""The port on a CUDA device: the CUDA C++ z/u kernel in both its modes
+(K1, the z/u pass; K1b, the pass with the whole engine tail) and the
 cyclic-reduction, GEMV-pair and resident-LASSO kernels against their
 plain PyTorch versions, and the LASSO, group-lasso and TV slices going
 through them.
@@ -20,7 +21,8 @@ from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
 from admm_tpu_torch.models.totalvariation import tv_system
 from admm_tpu_torch.ops.gemv_pair import (
     _gemv_pair_torch, _resident_lasso_torch, aligned_rows, gemv_pair, resident_lasso)
-from admm_tpu_torch.ops.kernels import _fused_torch, fused_soft_threshold_dual
+from admm_tpu_torch.ops.kernels import (
+    _fused_torch, _fused_zu_tail_torch, fused_soft_threshold_dual, fused_zu_tail)
 from admm_tpu_torch.ops.solve import FatShiftSolver
 from admm_tpu_torch.ops.tridiag import CyclicReductionSolver, _cr_solve_torch, cr_solve
 
@@ -41,6 +43,12 @@ def launches(monkeypatch):
     return lambda: fused_soft_threshold_dual.launches
 
 
+@pytest.fixture
+def tail_launches(monkeypatch):
+    monkeypatch.setattr(fused_zu_tail, "launches", 0)
+    return lambda: fused_zu_tail.launches
+
+
 def _vectors(n, dev, dtype, seed=2):
     rng = np.random.default_rng(seed)
     return (torch.from_numpy(rng.standard_normal(n)).to(dev, dtype),
@@ -49,7 +57,7 @@ def _vectors(n, dev, dtype, seed=2):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1, 64, 1000, 5000, 8192, 70000])
-def test_triton_kernel_matches_twin(cuda, launches, n, dtype):
+def test_zu_mode_matches_twin(cuda, launches, n, dtype):
     x, u = _vectors(n, cuda, dtype)
     t = torch.tensor(0.37, dtype=dtype, device=cuda)
     u_before = u.clone()
@@ -57,12 +65,12 @@ def test_triton_kernel_matches_twin(cuda, launches, n, dtype):
     torch.cuda.synchronize()
     assert launches() == 1
     z_t, u_t = _fused_torch(x, u, t)
-    # Same rounding by construction (triton_fused_zu.py docstring): exact.
+    # Same rounding by construction (csrc/zu_tail.cu header): exact.
     assert torch.equal(z_k, z_t) and torch.equal(u_k, u_t)
     assert torch.equal(u, u_before)  # out of place
 
 
-def test_triton_kernel_edge_values(cuda):
+def test_zu_mode_edge_values(cuda):
     # Exactly at the threshold, signed zeros, infinities and NaN.
     t = torch.tensor(0.5, dtype=torch.float32, device=cuda)
     x = torch.tensor([0.25, -0.25, 0.0, -0.0, float("inf"), float("-inf"),
@@ -88,7 +96,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fused_soft_threshold_dual(h, h, torch.tensor(0.3, device=cuda).half())
 
 
-def test_lasso_on_gpu_goes_through_the_kernel(cuda, launches):
+def test_lasso_on_gpu_goes_through_the_kernel(cuda, launches, tail_launches):
     rng = np.random.default_rng(2)
     D = rng.standard_normal((64, 128))
     D = D / np.sqrt(np.sum(D**2, axis=0, keepdims=True))
@@ -97,16 +105,145 @@ def test_lasso_on_gpu_goes_through_the_kernel(cuda, launches):
     cfg = ADMMConfig(maxiters=47, domaxiters=True, unroll=4)
     res = lasso(D, s, lam, cfg, use_fused_kernel=True, device=cuda)
     assert res.steps == 47 and res.xopt.device.type == "cuda"
-    # 12 chunks of 4 sub-steps: frozen sub-steps run the kernel too.
-    assert launches() == 48
+    # 12 chunks of 4 sub-steps, each one launch of K1b (the tail mode):
+    # frozen sub-steps run the kernel too.
+    assert tail_launches() == 48 and launches() == 0
     cpu = lasso(D, s, lam, cfg, use_fused_kernel=True, device="cpu")
     # f64 on both devices; cuBLAS and the CPU BLAS sum in other orders.
     np.testing.assert_allclose(res.xopt.cpu().numpy(), cpu.xopt.numpy(),
                                rtol=1e-9, atol=1e-10)
+    for name in ("pnorm", "dnorm", "perr", "derr"):
+        np.testing.assert_allclose(res.trace(name), cpu.trace(name), rtol=1e-9)
     plain = lasso(D, s, lam, cfg, use_fused_kernel=False, device=cuda)
-    assert launches() == 48
+    assert tail_launches() == 48
     np.testing.assert_allclose(plain.xopt.cpu().numpy(), cpu.xopt.numpy(),
                                rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_converging_lasso_on_gpu_stops_with_the_plain_tail(cuda, tail_launches, dtype):
+    rng = np.random.default_rng(5)
+    D = rng.standard_normal((96, 300))
+    D = D / np.sqrt(np.sum(D**2, axis=0, keepdims=True))
+    s = D @ (rng.standard_normal(300) * (rng.random(300) < 0.2))
+    lam = 0.1 * np.max(np.abs(D.T @ s))
+    cfg = ADMMConfig(maxiters=3000, unroll=8)
+    D_t, s_t = (torch.from_numpy(a).to(cuda, dtype) for a in (D, s))
+    res = lasso(D_t, s_t, lam, cfg, use_fused_kernel=True)
+    assert res.steps < 3000 and not res.diverged
+    assert tail_launches() >= res.steps
+    plain = lasso(D_t, s_t, lam, cfg, use_fused_kernel=False)
+    # The kernel sums its squares in another order than torch: the stop
+    # may fall one step apart, never more.
+    assert abs(res.steps - plain.steps) <= 1
+
+
+# K1b's cases: (k, done, abstol, the tail's flags, a NaN in x_new).
+_N = 12
+_TAIL_CASES = {
+    "step": (3, 0, 1e-4, {}, False),
+    "stop": (3, 0, 1e3, {}, False),
+    "last": (_N - 1, 0, 1e-4, {}, False),
+    "done": (3, 1, 1e-4, {}, False),
+    "past_n": (_N, 0, 1e-4, {}, False),
+    "nodualerror": (3, 0, 1e3, {"nodualerror": True}, False),
+    "domaxiters": (3, 0, 1e3, {"domaxiters": True}, False),
+    "nan": (3, 0, 1e-4, {}, True),
+}
+
+
+def _tail_operands(dev, dtype, n, k, done, abstol, nan):
+    """One K1b call's operands, (x_new, x, z, u, lam, rho, state, hist), and
+    its keywords."""
+    rng = np.random.default_rng(n)
+    vecs = [torch.from_numpy(rng.standard_normal(n)).to(dev, dtype) for _ in range(4)]
+    if nan:
+        vecs[0][n // 2] = float("nan")
+    lam = torch.tensor(0.3, dtype=dtype, device=dev)
+    rho = torch.tensor(1.7, dtype=dtype, device=dev)
+    state = torch.tensor([k, done, 0], dtype=torch.int64, device=dev)
+    hist = torch.full((5, _N + 1), float("nan"), dtype=dtype, device=dev)
+    kw = dict(perr_abs=float(np.sqrt(n)) * abstol, derr_abs=float(np.sqrt(n)) * abstol,
+              reltol=1e-3, domaxiters=False, nodualerror=False, nanguard=True)
+    return [*vecs, lam, rho, state, hist], kw
+
+
+def _same_bits(a, b):
+    if a.dtype.is_floating_point:
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+        a, b = a.view(bits), b.view(bits)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 7, 1000, 5000, 70000])
+@pytest.mark.parametrize("case", list(_TAIL_CASES))
+def test_tail_mode_matches_plain(cuda, tail_launches, n, dtype, case):
+    k, done, abstol, flags, nan = _TAIL_CASES[case]
+    ops, kw = _tail_operands(cuda, dtype, n, k, done, abstol, nan)
+    kw.update(flags)
+    before, plain, kern, again = ([t.clone() for t in ops] for _ in range(4))
+    _fused_zu_tail_torch(*plain, **kw)
+    fused_zu_tail(*kern, **kw)
+    fused_zu_tail(*again, **kw)
+    torch.cuda.synchronize()
+    assert tail_launches() == 2
+    # x, z, u and the state bit for bit; the same bits from both launches.
+    for i in (1, 2, 3, 6):
+        assert _same_bits(kern[i], plain[i]) and _same_bits(kern[i], again[i])
+    assert _same_bits(kern[7], again[7])
+    frozen = case in ("done", "past_n")
+    if frozen:
+        for i in (1, 2, 3, 6):
+            assert _same_bits(kern[i], before[i])
+    # Only column `slot` of rows 0-3 is written, NaN where the plain one is.
+    slot = _N if frozen else k
+    hk, hp = kern[7].cpu(), plain[7].cpu()
+    assert torch.equal(torch.isnan(hk), torch.isnan(hp))
+    assert torch.isnan(hk[4]).all()
+    written = ~torch.isnan(hp)
+    assert (written.nonzero()[:, 1] == slot).all()
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(hk[written], hp[written], rtol=rtol, atol=0)
+    if not nan:
+        # Built away from ties: the norms and their bars lie far more than
+        # rtol apart, so the flags are decided by the values alone.
+        col = hp[:4, slot].double().numpy()
+        assert abs(col[0] - col[2]) > 1e3 * rtol * col[2]
+        assert np.isnan(col[1]) or abs(col[1] - col[3]) > 1e3 * rtol * col[3]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [7, 1001])
+def test_tail_mode_off_16_byte_boundaries(cuda, dtype, n):
+    # Vectors one element past a 16-byte boundary take the scalar loop.
+    ops, kw = _tail_operands(cuda, dtype, n, 3, 0, 1e-4, False)
+    plain = [t.clone() for t in ops]
+    kern = [torch.empty(n + 1, dtype=dtype, device=cuda)[1:].copy_(t) for t in ops[:4]]
+    kern += [t.clone() for t in ops[4:]]
+    assert all(t.data_ptr() % 16 for t in kern[:4])
+    _fused_zu_tail_torch(*plain, **kw)
+    fused_zu_tail(*kern, **kw)
+    for i in (1, 2, 3, 6):
+        assert _same_bits(kern[i], plain[i])
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(kern[7][:4, 3], plain[7][:4, 3], rtol=rtol, atol=0)
+
+
+def test_tail_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    ops, kw = _tail_operands(cuda, torch.float32, 16, 3, 0, 1e-4, False)
+    bad = list(ops)
+    bad[2] = ops[2].double()
+    with pytest.raises(ValueError, match="z is"):
+        fused_zu_tail(*bad, **kw)
+    bad = list(ops)
+    bad[7] = ops[7].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_zu_tail(*bad, **kw)
+    bad = list(ops)
+    bad[3] = ops[3].cpu()
+    with pytest.raises(ValueError, match="u is"):
+        fused_zu_tail(*bad, **kw)
 
 
 def _tv_system(n, rho=1.0):
