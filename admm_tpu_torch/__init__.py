@@ -4,8 +4,11 @@ A second package beside ``admm_tpu``, which stays the reference.  Module
 names mirror ``admm_tpu``'s so each counterpart is easy to find.  The port
 imports ``torch`` and never ``jax``.
 
-Ported so far (ROADMAP.md, queue 1, slices 1 and 6, and part of 3): the
-alg-0 engine, the serial LASSO with all four x-prox branches and the fused
+Ported so far (ROADMAP.md, queue 1, slices 1, 2 and 6, and part of 3):
+the engine with all of its serial variants (fast and accelerated ADMM,
+H-norm stops, adaptive and residual-balancing rho, the stall detector,
+Anderson acceleration, iterate records and every hook) and ``FnOp``; the
+model problem; the serial LASSO with all four x-prox branches and the fused
 soft-threshold / dual-update pass, alone or with the whole step tail, as a
 CUDA C++ kernel for Hopper GPUs;
 elastic net, NNLS and group lasso on the same x-update; the bf16-stream
@@ -19,8 +22,9 @@ fat-LASSO iteration in one launch.
 
 from .config import ADMMConfig
 from .engine import Hooks, admm
-from .models import elasticnet, grouplasso, lasso, nnls, totalvariation, totalvariation2d
+from .linop import FnOp
+from .models import elasticnet, grouplasso, lasso, model, nnls, totalvariation, totalvariation2d
 from .results import ADMMResults
 
-__all__ = ["ADMMConfig", "ADMMResults", "Hooks", "admm", "elasticnet", "grouplasso",
-           "lasso", "nnls", "totalvariation", "totalvariation2d"]
+__all__ = ["ADMMConfig", "ADMMResults", "FnOp", "Hooks", "admm", "elasticnet", "grouplasso",
+           "lasso", "model", "nnls", "totalvariation", "totalvariation2d"]

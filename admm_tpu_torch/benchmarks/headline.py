@@ -167,14 +167,29 @@ def main(smoke: bool = False, device: str = "cuda"):
     return line
 
 
-def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: int = 12):
-    """Where the time goes in the fused headline loop.  Sets up once, runs
-    ``iters`` steps unprofiled (wall time per step), then the same solve
-    under ``torch.profiler`` (device time of its kernels; setup is outside
-    both).  Prints one JSON line: wall and device microseconds per step,
-    the device's busy share (device time over unprofiled wall time),
-    kernel launches per step, the device time per call of K1b (the z/u
-    pass with the step's tail, ``zu_tail_kernel<float, true>``), and the
+# Engine variants ``profile`` can run on the headline problem: (config
+# options, bf16 streams, lasso's fused hook).  'fused' is the headline's
+# own loop (K1b, unroll 64); the others are chip_smoke.py's (n)-(p)
+# (unroll 16), under domaxiters, so every step is timed.
+VARIANTS = {
+    "fused": (dict(unroll=64), False, True),
+    "rbadaptive": (dict(unroll=16, rbadaptive=True), False, True),
+    "anderson": (dict(unroll=16, anderson=5), False, True),
+    "fast_weak_bf16": (dict(unroll=16, fast=True), True, False),
+    "fast_strong_bf16": (dict(unroll=16, fast=True, fasttype="strong"), True, False),
+}
+
+
+def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: int = 12,
+            variant: str = "fused"):
+    """Where the time goes in the headline loop, in one of ``VARIANTS``.
+    Sets up once, runs ``iters`` steps unprofiled (wall time per step),
+    then the same solve under ``torch.profiler`` (device time of its
+    kernels; setup is outside both).  Prints one JSON line: wall and
+    device microseconds per step, the device's busy share (device time
+    over unprofiled wall time), kernel launches per step, the device time
+    per call of K1b (the z/u pass with the step's tail,
+    ``zu_tail_kernel<float, true>``) where the variant runs it, and the
     ``top`` kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity
@@ -184,16 +199,19 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: i
     from admm_tpu_torch.config import matmul_precision
     from admm_tpu_torch.models.lasso import _fused_zu, make_prox_ops
 
+    options, bf16, fused = VARIANTS[variant]
     D, s, lam = make_problem(smoke)
     n = D.shape[1]
-    cfg = ADMMConfig(maxiters=iters, domaxiters=True, unroll=64)
+    cfg = ADMMConfig(maxiters=iters, domaxiters=True, **options)
     with matmul_precision("highest"):
         prox_f, prox_g, obj, data = make_prox_ops(
-            torch.as_tensor(D, device=device), torch.as_tensor(s, device=device), lam, cfg)
+            torch.as_tensor(D, device=device), torch.as_tensor(s, device=device), lam, cfg,
+            stream_dtype=torch.bfloat16 if bf16 else None)
 
     def solve():
         return admm(prox_f, prox_g, cfg, m=n, nA=n, nB=n, data=data,
-                    hooks=Hooks(obj=obj, fused_zu=_fused_zu), dtype=torch.float32)
+                    hooks=Hooks(obj=obj, fused_zu=_fused_zu if fused else None),
+                    dtype=torch.float32)
 
     solve()  # warm-up
     wall_us = min(solve().runtime for _ in range(2)) * 1e6 / iters
@@ -210,6 +228,7 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: i
     kernels.sort(key=dev_us, reverse=True)
     line = {
         "profile": {
+            "variant": variant,
             "steps": res.steps,
             "wall_us_per_step": wall_us,
             "profiled_wall_us_per_step": res.runtime * 1e6 / res.steps,
@@ -231,8 +250,10 @@ if __name__ == "__main__":
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
                     help="print a per-kernel device-time breakdown instead")
+    ap.add_argument("--variant", default="fused", choices=sorted(VARIANTS),
+                    help="the engine variant --profile runs")
     args = ap.parse_args()
     if args.profile:
-        profile(smoke=args.smoke, device=args.device)
+        profile(smoke=args.smoke, device=args.device, variant=args.variant)
     else:
         main(smoke=args.smoke, device=args.device)

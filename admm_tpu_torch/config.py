@@ -6,10 +6,8 @@ per-option documentation and defaults).  Every option name, default and
 validation rule matches ``admm_tpu.config.ADMMConfig``, so one config value
 means the same thing in both packages.
 
-The config is *static*: it selects which branches the engine runs.  Options
-whose engine branch is not ported yet are accepted here and refused by
-``admm_tpu_torch.engine.admm`` with ``NotImplementedError`` (see ROADMAP.md,
-queue 1).
+The config is *static*: it selects which branches the engine runs; the
+port's engine runs every one of them.
 """
 
 from __future__ import annotations

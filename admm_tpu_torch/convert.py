@@ -3,8 +3,8 @@
 ``admm_tpu``'s solver setups leave their operands in a ``data`` dict of
 JAX arrays and solver objects.  ``numpy_state`` flattens such a dict into
 plain numpy arrays (duck-typed: it never imports JAX), and ``lasso_data``,
-``tv_data`` and ``tv2d_data`` rebuild the port's ``data`` dicts from them
-on a given device.  Feeding the same numbers to both packages this way
+``model_data``, ``tv_data`` and ``tv2d_data`` rebuild the port's ``data``
+dicts from them on a given device.  Feeding the same numbers to both packages this way
 isolates the iteration from differences in the setup-time linear algebra
 (eigh, solve, inverse), which is what the parity tests need.
 
@@ -12,7 +12,12 @@ Flat keys:
 - LASSO: ``D``, ``s``, ``Dts``, ``lam``; the static-rho solver, as
   ``fat.D``/``fat.E``/``fat.rho0`` (``FatShiftSolver``, fat D; ``fat.D``
   and ``fat.E`` are ``ml_dtypes.bfloat16`` arrays in the bf16-stream
-  mode, carried bit for bit) or ``Minv`` (skinny D);
+  mode, carried bit for bit) or ``Minv`` (skinny D); the dynamic-rho
+  solver, as ``wood.D``/``wood.V``/``wood.w`` (``WoodburySolver``, fat D)
+  or ``sol.V``/``sol.w`` (``SymShiftSolver``, skinny D);
+- the model problem: ``P``, ``Q``, ``r``, ``s``, ``Ptr``, ``Qts``; with
+  static rho ``PtPinv``, ``QtQinv``, with dynamic rho ``solP.V``/``solP.w``
+  and ``solQ.V``/``solQ.w``;
 - 1-D TV: ``s``, ``lam``; ``Minv`` (dense x-update) or the
   cyclic-reduction solver as ``cr.alphas``, ``cr.betas``, ``cr.a_lv``,
   ``cr.c_lv``, ``cr.d_lv``, ``cr.masks_f``, ``cr.masks_b``, ``cr.n``,
@@ -31,23 +36,31 @@ import torch
 
 from .linop import DiffOp
 from .models.totalvariation2d import TV2DOp
-from .ops.solve import FatShiftSolver
+from .ops.solve import FatShiftSolver, SymShiftSolver, WoodburySolver
 from .ops.tridiag import CyclicReductionSolver
 
-_ARRAYS = ("D", "s", "Dts", "lam", "Minv", "S", "Ur", "wr", "Uc", "wc")
+_ARRAYS = ("D", "s", "Dts", "lam", "Minv", "S", "Ur", "wr", "Uc", "wc",
+           "P", "Q", "r", "Ptr", "Qts", "PtPinv", "QtQinv")
 _FAT_FIELDS = ("D", "E", "rho0")
+# The solver objects carried field by field: data key -> (fields, class).
+_SOLVERS = {"wood": (("D", "V", "w"), WoodburySolver),
+            "sol": (("V", "w"), SymShiftSolver),
+            "solP": (("V", "w"), SymShiftSolver),
+            "solQ": (("V", "w"), SymShiftSolver)}
 _CR_STACKS = ("alphas", "betas", "a_lv", "c_lv", "d_lv")
 _CR_MASKS = ("masks_f", "masks_b")
 
 
 def numpy_state(data: dict, **warm) -> dict:
-    """Flatten a static-rho LASSO or TV ``data`` dict (of either package)
-    plus optional ``x0``/``z0``/``u0`` arrays into ``{flat key: numpy
-    array}``."""
+    """Flatten a LASSO, model or static-rho TV ``data`` dict (of either
+    package) plus optional ``x0``/``z0``/``u0`` arrays into ``{flat key:
+    numpy array}``."""
     state = {}
     for key, val in data.items():
         if key == "fat":
             state.update({f"fat.{f}": _np(getattr(val, f)) for f in _FAT_FIELDS})
+        elif key in _SOLVERS:
+            state.update({f"{key}.{f}": _np(getattr(val, f)) for f in _SOLVERS[key][0]})
         elif key == "cr":
             if not hasattr(val, "masks_f"):
                 raise ValueError(
@@ -66,7 +79,7 @@ def numpy_state(data: dict, **warm) -> dict:
         else:
             raise ValueError(
                 f"numpy_state: no conversion for data[{key!r}]; only the "
-                "static-rho LASSO and TV state is carried across")
+                "LASSO, model and static-rho TV state is carried across")
     state.update({k: _np(v) for k, v in warm.items() if v is not None})
     return state
 
@@ -96,11 +109,33 @@ def lasso_data(state: dict, *, device="cpu", dtype=None):
     the warm-start tensors ``x0``/``z0``/``u0`` present in the state.
     Every tensor lands on ``device`` in ``dtype`` (default: D's dtype),
     except bf16 stream arrays, which stay bf16."""
-    t, warm = _maker(state, "D", device, dtype)
+    return _data(state, "D", device, dtype)
+
+
+def model_data(state: dict, *, device="cpu", dtype=None):
+    """``(data, warm)`` for the port's model-problem proxes
+    (``models/model.py``), as ``lasso_data`` builds them for LASSO; the
+    default dtype is P's."""
+    return _data(state, "P", device, dtype)
+
+
+def _data(state, lead, device, dtype):
+    """The arrays and solver objects present in ``state`` as the port's
+    ``data`` dict, and the warm start; the default dtype is that of
+    ``state[lead]``."""
+    t, warm = _maker(state, lead, device, dtype)
     data = {k: t(k) for k in _ARRAYS if k in state}
     if "fat.E" in state:
         data["fat"] = FatShiftSolver(*(t(f"fat.{f}") for f in _FAT_FIELDS))
+    data.update(_solvers(state, t))
     return data, warm
+
+
+def _solvers(state, t):
+    """The solver objects of ``_SOLVERS`` present in ``state``, rebuilt
+    from their fields with ``t``."""
+    return {key: cls(*(t(f"{key}.{f}") for f in fields))
+            for key, (fields, cls) in _SOLVERS.items() if f"{key}.{fields[-1]}" in state}
 
 
 def tv_data(state: dict, *, device="cpu", dtype=None):

@@ -1,6 +1,6 @@
 """Linear-operator protocol for the ADMM constraint A x + B z = c (port of
-``admm_tpu/linop.py``: ``ScaledIdentityOp``, ``DenseOp``, ``DiffOp`` and
-``as_linop``).
+``admm_tpu/linop.py``: ``ScaledIdentityOp``, ``DenseOp``, ``DiffOp``,
+``FnOp`` and ``as_linop``).
 
 Every operator provides:
   - ``mv(v)``   : A @ v
@@ -9,6 +9,8 @@ Every operator provides:
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -86,10 +88,36 @@ class DiffOp:
         return f"DiffOp({self.n})"
 
 
+class FnOp:
+    """A matrix-free operator from explicit mv/rmv callables (the
+    reference's function-handle A with explicit nA, admm.m:121-130):
+    ``mv(v) = mv_fn(v, *data)``.  Its output shape is unknown, so a solve
+    with a scalar c must give ``m``."""
+
+    def __init__(self, mv: Callable, rmv: Callable, data=()):
+        self._mv = mv
+        self._rmv = rmv
+        self.data = tuple(data)
+
+    def mv(self, v):
+        return self._mv(v, *self.data)
+
+    def rmv(self, v):
+        return self._rmv(v, *self.data)
+
+    def out_shape(self, in_shape):
+        return None  # unknown; the caller supplies m
+
+    def __repr__(self):
+        return f"FnOp({getattr(self._mv, '__name__', 'mv')})"
+
+
 def as_linop(A, *, device=None, dtype=None) -> object:
     """Coerce matrices / scalars / operators into a LinOp (admm.m:112-158).
 
-    Anything exposing the mv/rmv/out_shape protocol passes through.  A
+    Anything exposing the mv/rmv/out_shape protocol passes through
+    (``FnOp`` and user operator classes, the reference's function-handle
+    A/B).  A
     numpy or torch matrix becomes a ``DenseOp`` on ``device`` (default:
     the tensor's own device, or the CPU for numpy input)."""
     if hasattr(A, "mv") and hasattr(A, "rmv"):

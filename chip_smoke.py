@@ -95,6 +95,27 @@ through the functions a user calls and checks what comes out:
          z = 0).  The bf16 run's steps are printed, not held to the stop:
          the default tolerances lie below bf16's noise floor, as
          admm_tpu's own bf16 runs show.
+  9. the engine variants (slice 2) on the headline problem, maxiters 2000,
+     unroll 16:
+     (n) rbadaptive lasso with the fused hook: K1's z/u mode launched at
+         least once per step and K1b never; steps equal within one, and
+         rho_final equal, to the solve without the kernel (the margin of
+         the deciding step printed) and to the solve with the z/u mode's
+         plain version; max|dxopt| <= 1e-5 ||xopt||_inf against both;
+     (o) anderson=5 with the fused hook: K1 once per step, converges
+         before maxiters, objective within 1e-4 of (d)'s plain solve;
+     (p) fast weak and fasttype='strong' with bf16 streams: K2 once per
+         step; dvals, avals and restarted (strong: avals) recorded;
+         ||dxopt|| / ||xopt|| <= 2e-2 against f32 streams, for strong
+         over its first STRONG_STEPS steps (alg 1 has no restart and LASSO
+         is not strongly convex, so its run drifts in any precision);
+     (q) adaptive rho with convtest and stopcond 'both', stopcond
+         'hnorm', stallwindow 20, record_iterates over 200 steps under
+         domaxiters and quiet=False: finite, traces of the expected
+         shapes, rho moved, one printed row per step;
+     (r) the synchronising calls of (n)-(p), counted with
+         torch.cuda.set_sync_debug_mode("warn"): none inside a sub-step,
+         at most one per chunk plus SYNCS_OUTSIDE outside the loop.
 
 Kernel times are device times: CUDA events around replays of a CUDA
 graph that holds several calls (``graph_ms``), so that the host's time per
@@ -113,6 +134,7 @@ It exits non-zero, printing no result, when no CUDA device is visible.
 The CUDA kernels build into build/kernels/ in the checkout.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -144,6 +166,10 @@ K2_SHAPES = ((1, 1), (7, 33), (48, 160), (1500, 5000), (5000, 1500))
 K2_DEEP = 64
 BF16_TIMED_STEPS = 4096
 FAMILY_MAXITERS = 2000
+VARIANT_MAXITERS = 2000  # slice 2's runs (n)-(q)
+STRONG_STEPS = 10  # (p): alg 1's bar, before its momentum's drift dominates
+RECORD_STEPS = 200  # (q): record_iterates under domaxiters
+SYNCS_OUTSIDE = 64  # (r): the set-up's and the results' synchronising calls
 # H100 SXM peaks from NVIDIA's data sheet.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -347,7 +373,7 @@ def k1b_phase(dev):
 
 def slice_phase(dev):
     """The main path; returns K1b's launch count in run (a), the z/u mode's
-    in (d)'s user-hook run, and run (a) itself."""
+    in (d)'s user-hook run, run (a) itself and (d)'s plain run."""
     import torch
 
     from admm_tpu_torch import ADMMConfig, Hooks, admm, lasso
@@ -436,7 +462,227 @@ def slice_phase(dev):
           f"plain {['%.4f' % t for t in plain_t]}")
     print(f"  (e) iter/s best of 3: fused {HEADLINE_STEPS / min(fused_t):.1f}, "
           f"plain {HEADLINE_STEPS / min(plain_t):.1f}")
-    return launches, zu_launches, a
+    return launches, zu_launches, a, d_plain
+
+
+@contextlib.contextmanager
+def counting_syncs():
+    """Count the synchronising CUDA calls of a solve, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: yields a dict
+    whose "steps" counts those inside the engine's sub-steps, "chunks" the
+    chunks (each ends in one read of the stop flag) and, on exit, "solve"
+    all of the solve's, set-up included."""
+    import warnings
+
+    import torch
+
+    from admm_tpu_torch import engine
+
+    got = {"steps": 0, "chunks": 0, "solve": 0}
+    run_chunks = engine._run_chunks
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        syncs = lambda: sum("called a synchronizing" in str(w.message) for w in seen)  # noqa: E731
+
+        def counted(step, flags, N, K, table=None):
+            def one_step():
+                before = syncs()
+                step()
+                got["steps"] += syncs() - before
+
+            def read():
+                got["chunks"] += 1
+                return flags()
+
+            return run_chunks(one_step, read, N, K, table)
+
+        engine._run_chunks = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield got
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            engine._run_chunks = run_chunks
+            got["solve"] = syncs()
+
+
+def lasso_objective(D, s, lam, z):
+    """LASSO's objective at z in NumPy f64."""
+    z = z.double().cpu().numpy()
+    return 0.5 * np.sum((D @ z - s) ** 2) + lam * np.sum(np.abs(z))
+
+
+def variants_phase(dev, d_plain):
+    """Slice 2, the engine variants, on the headline problem (n)-(r);
+    returns {kernel: {path: launches}} for K1's z/u mode and K2."""
+    import contextlib as _contextlib
+    import io
+
+    import torch
+
+    from admm_tpu_torch import ADMMConfig, Hooks, admm, lasso
+    from admm_tpu_torch.benchmarks.headline import make_problem
+    from admm_tpu_torch.config import matmul_precision
+    from admm_tpu_torch.models.lasso import make_prox_ops
+    from admm_tpu_torch.ops.gemv_pair import gemv_pair as k2
+    from admm_tpu_torch.ops.kernels import _fused_torch
+    from admm_tpu_torch.ops.kernels import fused_soft_threshold_dual as k1
+    from admm_tpu_torch.ops.kernels import fused_zu_tail as k1b
+
+    D, s, lam = make_problem()
+    D64, s64 = D.astype(np.float64), s.astype(np.float64)
+    n = D.shape[1]
+    bf16 = torch.bfloat16
+    launches = {"k1": {}, "k2": {}}
+    syncs = {}
+    print(f"slice 2: engine variants on lasso {D.shape[0]}x{n} f32, lam={lam:.6g}")
+
+    def counted(tag, solve):
+        """Run ``solve`` with every launch count at 0 just before it and
+        read just after, its synchronising calls counted."""
+        k1.launches = k1b.launches = k2.launches = 0
+        with counting_syncs() as sy:
+            r = solve()
+            torch.cuda.synchronize()
+        syncs[tag] = sy
+        return r, k1.launches, k1b.launches, k2.launches
+
+    # (n) residual balancing with the fused hook: K1's z/u mode each step,
+    # never K1b, whose tail knows no rho update.
+    cfg_n = ADMMConfig(maxiters=VARIANT_MAXITERS, unroll=16, rbadaptive=True)
+    nk, zu, tail, _ = counted("n", lambda: lasso(D, s, lam, cfg_n, use_fused_kernel=True,
+                                                 device=dev))
+    launches["k1"]["n"] = zu
+    plain = lasso(D, s, lam, cfg_n, use_fused_kernel=False, device=dev)
+    # The same solve with the z/u mode's plain version in the hook's place.
+    with matmul_precision("highest"):
+        pf, pg, obj, data = make_prox_ops(torch.as_tensor(D, device=dev),
+                                          torch.as_tensor(s, device=dev), lam, cfg_n)
+    twin = admm(pf, pg, cfg_n, m=n, nA=n, nB=n, data=data, dtype=torch.float32,
+                hooks=Hooks(fused_zu=lambda x, u, rho, d: _fused_torch(x, u, d["lam"] / rho)))
+    xinf = float(torch.max(torch.abs(nk.xopt)))
+    dx_plain = float(torch.max(torch.abs(nk.xopt - plain.xopt)))
+    dx_twin = float(torch.max(torch.abs(nk.xopt - twin.xopt)))
+    print(f"  (n) rbadaptive, fused: steps={nk.steps} rho_final={nk.rho_final:.9g} "
+          f"z/u launches={zu} K1b launches={tail} runtime={nk.runtime:.4f}s; without the "
+          f"kernel (prox_g): steps={plain.steps} rho_final={plain.rho_final:.9g}, "
+          f"max|dxopt| = {dx_plain:.3e}; with the z/u mode's plain version: "
+          f"steps={twin.steps} rho_final={twin.rho_final:.9g}, max|dxopt| = {dx_twin:.3e}; "
+          f"||xopt||_inf = {xinf:.6g}")
+    k = min(nk.steps, plain.steps) - 1
+    print(f"  (n) stop margin at step {k + 1}: pnorm/perr {nk.pnorm[k]:.9g}/{nk.perr[k]:.9g} "
+          f"(plain {plain.pnorm[k]:.9g}/{plain.perr[k]:.9g}), dnorm/derr "
+          f"{nk.dnorm[k]:.9g}/{nk.derr[k]:.9g} (plain {plain.dnorm[k]:.9g}/"
+          f"{plain.derr[k]:.9g})")
+    check(nk.steps < VARIANT_MAXITERS and not nk.diverged and bool(torch.isfinite(nk.xopt).all()),
+          f"(n) converges before {VARIANT_MAXITERS}, finite")
+    check(zu >= nk.steps and tail == 0, f"(n) z/u mode launches {zu} >= steps {nk.steps}, "
+          f"K1b launches {tail} == 0")
+    check(abs(nk.steps - plain.steps) <= 1, "(n) steps equal within one to the solve without "
+          "the kernel")
+    check(nk.rho_final == plain.rho_final == twin.rho_final, "(n) rho_final equal")
+    check(dx_plain <= 1e-5 * xinf and dx_twin <= 1e-5 * xinf,
+          "(n) max|dxopt| <= 1e-5 ||xopt||_inf against both")
+    check(twin.steps == nk.steps, "(n) steps equal to the z/u plain-version solve")
+
+    # (o) Anderson acceleration with the fused hook.
+    cfg_o = ADMMConfig(maxiters=VARIANT_MAXITERS, unroll=16, anderson=5)
+    ok_, zu, tail, _ = counted("o", lambda: lasso(D, s, lam, cfg_o, use_fused_kernel=True,
+                                                  device=dev))
+    launches["k1"]["o"] = zu
+    f_o = lasso_objective(D64, s64, lam, ok_.zopt)
+    f_d = lasso_objective(D64, s64, lam, d_plain.zopt)
+    print(f"  (o) anderson=5, fused: steps={ok_.steps} (d) plain steps={d_plain.steps}; "
+          f"z/u launches={zu} K1b launches={tail}; objective {f_o:.9g} vs (d) {f_d:.9g}, "
+          f"rel {abs(f_o - f_d) / abs(f_d):.3e}")
+    check(ok_.steps < VARIANT_MAXITERS and not ok_.diverged, f"(o) converges before "
+          f"{VARIANT_MAXITERS}")
+    check(zu >= ok_.steps and tail == 0, f"(o) z/u mode launches {zu} >= steps {ok_.steps}, "
+          "no K1b")
+    check(abs(f_o - f_d) <= 1e-4 * abs(f_d), "(o) objective within 1e-4 of (d)'s plain solve")
+
+    # (p) fast (alg 2, weak) and fasttype='strong' with bf16 streams: K2
+    # computes the x-update each step.
+    for tag, kw, bar_steps in (("p weak", dict(fast=True), VARIANT_MAXITERS),
+                               ("p strong", dict(fast=True, fasttype="strong"), STRONG_STEPS)):
+        cfg_p = ADMMConfig(maxiters=VARIANT_MAXITERS, unroll=16, **kw)
+        r, _, _, cnt = counted(tag, lambda: lasso(D, s, lam, cfg_p, stream_dtype=bf16,
+                                                  device=dev))
+        launches["k2"][tag] = cnt
+        f32 = lasso(D, s, lam, cfg_p, device=dev)
+        rel = float(torch.linalg.norm(r.xopt - f32.xopt) / torch.linalg.norm(f32.xopt))
+        traces = sorted(k for k in ("dvals", "avals", "restarted") if k in r.hist)
+        print(f"  ({tag}) bf16: steps={r.steps} K2 launches={cnt} runtime={r.runtime:.4f}s "
+              f"iter/s {r.steps / r.runtime:.1f}; f32: steps={f32.steps}; "
+              f"||dxopt||/||xopt|| = {rel:.3e}; traces {traces}"
+              + (f", restarts {int(r.restarted.sum())}" if r.restarted is not None else ""))
+        check(cnt >= r.steps and bool(torch.isfinite(r.xopt).all()) and not r.diverged,
+              f"({tag}) K2 launches {cnt} >= steps {r.steps}, finite")
+        want = ["avals", "dvals", "restarted"] if "strong" not in tag else ["avals"]
+        check(traces == want and all(len(r.trace(t)) == r.steps for t in want),
+              f"({tag}) {', '.join(want)} recorded, one per step")
+        if bar_steps != VARIANT_MAXITERS:
+            # alg 1 has no restart and LASSO is not strongly convex, so its
+            # momentum grows and the run drifts in any precision: the bar
+            # holds over the first steps, before the drift dominates.
+            cfg_b = ADMMConfig(maxiters=bar_steps, domaxiters=True, **kw)
+            r = lasso(D, s, lam, cfg_b, stream_dtype=bf16, device=dev)
+            f32 = lasso(D, s, lam, cfg_b, device=dev)
+            rel = float(torch.linalg.norm(r.xopt - f32.xopt) / torch.linalg.norm(f32.xopt))
+            print(f"  ({tag}) after {bar_steps} steps: ||dxopt||/||xopt|| = {rel:.3e}")
+        check(rel <= 2e-2, f"({tag}) ||xopt_bf16 - xopt_f32|| <= 2e-2 ||xopt_f32|| "
+              f"after {r.steps} steps")
+
+    # (q) each once, finite, trace shapes checked.
+    q_cases = {
+        "adaptive": (dict(adaptive=True, convtest=True, stopcond="both"), {}),
+        "hnorm": (dict(stopcond="hnorm"), dict(use_fused_kernel=True)),
+        "stallwindow": (dict(stallwindow=20), dict(use_fused_kernel=True)),
+        "record_iterates": (dict(maxiters=RECORD_STEPS, domaxiters=True, record_iterates=True),
+                            dict(use_fused_kernel=True)),
+        "quiet": (dict(quiet=False), dict(use_fused_kernel=True)),
+    }
+    for tag, (kw, extra) in q_cases.items():
+        cfg_q = ADMMConfig(**dict(dict(maxiters=VARIANT_MAXITERS, unroll=16), **kw))
+        out = io.StringIO()
+        with _contextlib.redirect_stdout(out):
+            r = lasso(D, s, lam, cfg_q, device=dev, **extra)
+        rows = [ln for ln in out.getvalue().splitlines() if "\tpnorm " in ln]
+        shapes = {k: tuple(v.shape) for k, v in r.hist.items()}
+        print(f"  (q) {tag}: steps={r.steps} rho_final={r.rho_final:.9g} diverged={r.diverged} "
+              f"stalled={r.stalled} runtime={r.runtime:.4f}s; traces {shapes}")
+        check(bool(torch.isfinite(r.xopt).all()) and r.xopt.device.type == "cuda",
+              f"(q) {tag} xopt finite on the card")
+        check(all(v.shape[0] == cfg_q.maxiters for v in r.hist.values()),
+              f"(q) {tag} traces of maxiters rows")
+        if tag == "adaptive":
+            check("Hnormsq" in r.hist and r.rho_final != cfg_q.rho, "(q) adaptive: H-norms "
+                  f"recorded, rho moved to {r.rho_final:.6g}")
+        elif tag == "hnorm":
+            H = r.Hnormsq
+            check(r.steps < cfg_q.maxiters and len(H) == r.steps and H[-1] <= cfg_q.hnormtol,
+                  "(q) hnorm stops on H-norm^2 <= hnormtol")
+        elif tag == "record_iterates":
+            check(r.steps == RECORD_STEPS and r.wvals.shape == (RECORD_STEPS, 3 * n)
+                  and r.trace("xvals").shape == (RECORD_STEPS, n)
+                  and np.isfinite(r.wvals).all(), "(q) record_iterates: x/z/u/w traces of "
+                  f"{RECORD_STEPS} steps, finite")
+            w = r.wvals[-1]
+            check(np.array_equal(w[:n], r.xopt.cpu().numpy()), "(q) the last w starts with xopt")
+        elif tag == "quiet":
+            check(len(rows) == r.steps and rows[-1].startswith(f"{r.steps}\t"),
+                  f"(q) quiet=False printed {len(rows)} rows for {r.steps} steps")
+
+    # (r) host reads per solve.
+    for tag, sy in syncs.items():
+        outside = sy["solve"] - sy["steps"] - sy["chunks"]
+        print(f"  (r) ({tag}) synchronising calls: {sy['solve']} in the solve, "
+              f"{sy['steps']} inside its sub-steps, {sy['chunks']} chunk reads, "
+              f"{outside} outside the loop (set-up and results)")
+        check(sy["steps"] == 0, f"(r) ({tag}) no synchronising call inside a sub-step")
+        check(sy["solve"] <= sy["chunks"] + SYNCS_OUTSIDE,
+              f"(r) ({tag}) at most one per chunk plus {SYNCS_OUTSIDE} outside the loop")
+    return launches
 
 
 def k2_operands(m, n, dev, dtype, K):
@@ -938,26 +1184,34 @@ def main():
     k1b_err, k1b_ms, k1b_plain_ms, k1b_bound = k1b_phase(dev)
     k4_err, k4_ms, k4_plain_ms, k4_bound = k4_phase(dev)
     k2_err, k2_ms, k2_plain_ms, k2_library_ms, k2_bound = k2_phase(dev)
-    k1b_launches, k1_launches, a = slice_phase(dev)
+    k1b_launches, k1_launches, a, d_plain = slice_phase(dev)
     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = k3_phase(dev, a)
     k2_launches = bf16_phase(dev, a)
     k4_launches = tv_phase(dev)
+    variants = variants_phase(dev, d_plain)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
-        return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+        by_path = launches if isinstance(launches, dict) else None
+        out = {"name": name, "route": route, "source": source, "replaces": replaces,
+               "launches": sum(by_path.values()) if by_path else launches,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+        if by_path:
+            out["launches_by_path"] = by_path
+        return out
 
     # K1: softshrink gives z only; K1b, K3: no library call runs an ADMM
     # step's tail or whole steps; K4: torch has no tridiagonal solve.  K2's
     # row is the f32 K = 1 call, the function multi_dot computes.  K1's
-    # launches are those of (d)'s user-hook run, the path that takes the
-    # z/u mode; the main path (a) takes K1b.
+    # launches are those of the paths that take the z/u mode: (d)'s user
+    # hook, (n) residual balancing and (o) Anderson acceleration with
+    # lasso's fused hook (the main path (a) takes K1b); K2's those of the
+    # bf16 paths (k) and (p).
     print(json.dumps({"kernels": [
         row("fused_soft_threshold_dual", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
-            "admm_tpu/ops/kernels.py:48", k1_launches, k1_err, k1_ms, k1_plain_ms,
-            k1_bound, None),
+            "admm_tpu/ops/kernels.py:48", {"d": k1_launches, **variants["k1"]}, k1_err, k1_ms,
+            k1_plain_ms, k1_bound, None),
         row("fused_zu_tail", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
             "admm_tpu/ops/kernels.py:48", k1b_launches, k1b_err, k1b_ms, k1b_plain_ms,
             k1b_bound, None),
@@ -965,8 +1219,8 @@ def main():
             "experiments/pallas_cr_kernel.py:103", k4_launches, k4_err, k4_ms,
             k4_plain_ms, k4_bound, None),
         row("gemv_pair", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
-            "experiments/pallas_probe.py:52", k2_launches, k2_err, k2_ms, k2_plain_ms,
-            k2_bound, k2_library_ms),
+            "experiments/pallas_probe.py:52", {"k": k2_launches, **variants["k2"]}, k2_err,
+            k2_ms, k2_plain_ms, k2_bound, k2_library_ms),
         row("resident_lasso", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
             "experiments/resident_iter_proto.py:77", k3_launches, k3_err, k3_ms,
             k3_plain_ms, k3_bound, None),

@@ -1,8 +1,10 @@
 """The port on a CUDA device: the CUDA C++ z/u kernel in both its modes
 (K1, the z/u pass; K1b, the pass with the whole engine tail) and the
 cyclic-reduction, GEMV-pair and resident-LASSO kernels against their
-plain PyTorch versions, and the LASSO, group-lasso and TV slices going
-through them.
+plain PyTorch versions, the LASSO, group-lasso and TV slices going
+through them, and the engine variants (slice 2): one chunk of each on the
+headline problem without a synchronising call inside its steps, and each
+against the same solve on the CPU.
 
 Every case needs a CUDA device and skips without one.  This file imports
 no JAX, so it also runs where JAX is not installed; skip the repo's
@@ -11,12 +13,16 @@ conftest (which imports JAX) there:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 """
 
+import importlib
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
-from admm_tpu_torch import (ADMMConfig, admm, elasticnet, grouplasso, lasso, nnls,
+from admm_tpu_torch import (ADMMConfig, admm, elasticnet, grouplasso, lasso, model, nnls,
                             totalvariation, totalvariation2d)
+from admm_tpu_torch.benchmarks.headline import make_problem
 from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
 from admm_tpu_torch.models.totalvariation import tv_system
 from admm_tpu_torch.ops.gemv_pair import (
@@ -28,6 +34,7 @@ from admm_tpu_torch.ops.tridiag import CyclicReductionSolver, _cr_solve_torch, c
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
+engine_mod = importlib.import_module("admm_tpu_torch.engine")
 
 
 @pytest.fixture
@@ -506,3 +513,91 @@ def test_bf16_streams_on_gpu_go_through_the_kernel(cuda, k2_launches, solver):
     # order can move a rounding of b or E b by one bf16 ulp.
     ref = cpu.xopt.numpy()
     assert np.linalg.norm(res.xopt.cpu().numpy() - ref) <= 2e-2 * np.linalg.norm(ref)
+
+
+# Slice 2's options: (config, lasso keywords, the kernel each step runs).
+_SLICE2 = {
+    "rbadaptive": (dict(rbadaptive=True), dict(use_fused_kernel=True), "k1"),
+    "adaptive": (dict(adaptive=True, convtest=True, stopcond="both"), {}, None),
+    "hnorm": (dict(stopcond="hnorm"), dict(use_fused_kernel=True), "k1"),
+    "both_convtest": (dict(stopcond="both", convtest=True), dict(use_fused_kernel=True), "k1"),
+    "stallwindow": (dict(stallwindow=4), dict(use_fused_kernel=True), "k1"),
+    "anderson": (dict(anderson=5), dict(use_fused_kernel=True), "k1"),
+    "record_iterates": (dict(record_iterates=True), dict(use_fused_kernel=True), "k1"),
+    "fast_weak": (dict(fast=True), dict(stream_dtype=torch.bfloat16), "k2"),
+    "fast_strong": (dict(fast=True, fasttype="strong"), dict(stream_dtype=torch.bfloat16), "k2"),
+    "quiet_objevals": (dict(quiet=False, objevals=True), dict(use_fused_kernel=True), "k1b"),
+}
+
+
+@pytest.mark.parametrize("name", list(_SLICE2))
+def test_slice2_chunk_on_the_headline_reads_nothing_back(cuda, monkeypatch, launches,
+                                                         tail_launches, k2_launches, name):
+    # One chunk of 8 sub-steps on the 1500 x 5000 f32 headline problem:
+    # no synchronising call inside the sub-steps, one read of the stop flag
+    # after them, and the step's kernel launched by every sub-step.
+    kw, extra, kernel = _SLICE2[name]
+    D, s, lam = make_problem()
+    K = 8
+    syncs, reads = [], []
+    run_chunks = engine_mod._run_chunks
+
+    def counted(step, flags, N, K_, table=None):
+        def one_step():
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs.extend(str(w.message) for w in seen if "called a synchronizing" in str(w.message))
+
+        def read():
+            reads.append(1)
+            return flags()
+
+        return run_chunks(one_step, read, N, K_, table)
+
+    monkeypatch.setattr(engine_mod, "_run_chunks", counted)
+    res = lasso(D, s, lam, ADMMConfig(maxiters=K, unroll=K, **kw), device=cuda, **extra)
+    assert syncs == [] and reads == [1]
+    assert torch.isfinite(res.xopt).all() and 1 <= res.steps <= K
+    assert (launches(), tail_launches(), k2_launches()) == {
+        "k1": (K, 0, 0), "k1b": (0, K, 0), "k2": (0, 0, K), None: (0, 0, 0)}[kernel]
+
+
+@pytest.mark.parametrize("name", [n for n in _SLICE2 if n != "quiet_objevals"])
+def test_slice2_options_on_gpu_match_the_cpu(cuda, name):
+    # f64 on both devices, f64 streams (bf16 streams round alike but sum
+    # in other orders): cuBLAS, cuSOLVER and the CPU's LAPACK round
+    # differently, so the bars are those of a parity test.
+    kw, extra, _ = _SLICE2[name]
+    extra = {k: v for k, v in extra.items() if k != "stream_dtype"}
+    D, s, lam = _fat_instance()
+    D, s = D.astype(np.float64), s.astype(np.float64)
+    cfg = ADMMConfig(maxiters=60, unroll=4, **kw)
+    res = lasso(D, s, lam, cfg, device=cuda, **extra)
+    cpu = lasso(D, s, lam, cfg, device="cpu", **extra)
+    assert res.steps == cpu.steps and res.diverged == cpu.diverged
+    assert res.stalled == cpu.stalled
+    np.testing.assert_allclose(res.rho_final, cpu.rho_final, rtol=1e-12)
+    np.testing.assert_allclose(res.xopt.cpu().numpy(), cpu.xopt.numpy(), rtol=1e-9, atol=1e-10)
+    assert set(res.hist) == set(cpu.hist)
+    for key in cpu.hist:
+        ref = cpu.trace(key)
+        scale = np.max(np.abs(ref[0])) or np.nanmax(np.abs(ref))
+        np.testing.assert_allclose(res.trace(key), ref, rtol=0, atol=1e-8 * scale)
+
+
+def test_model_on_gpu_matches_the_cpu(cuda):
+    rng = np.random.default_rng(7)
+    P, Q = rng.standard_normal((64, 48)), rng.standard_normal((64, 48))
+    r, s = rng.standard_normal(64), rng.standard_normal(64)
+    for kw in (dict(), dict(fast=True, maxiters=200), dict(rbadaptive=True, rho=0.01)):
+        cfg = ADMMConfig(**dict(dict(maxiters=2000, unroll=4), **kw))
+        res = model(P, Q, r, s, cfg, device=cuda)
+        cpu = model(P, Q, r, s, cfg, device="cpu")
+        assert res.xopt.device.type == "cuda" and res.steps == cpu.steps
+        np.testing.assert_allclose(res.xopt.cpu().numpy(), cpu.xopt.numpy(), rtol=1e-9,
+                                   atol=1e-10)

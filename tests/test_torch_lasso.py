@@ -129,9 +129,32 @@ def test_precision_pin_restores_callers_setting():
     (dict(rbadaptive=True), NotImplementedError, "slice 2"),
 ])
 def test_unported_lasso_modes_raise(kw, exc, match):
+    """parallel=True (slice 10) still raises.  The two adaptive modes,
+    which raised until slice 2, run lasso's dynamic-rho x-updates (the
+    Woodbury fat branch and the eigenbasis skinny one) as admm_tpu's lasso
+    does, each package doing its own setup."""
     D, s, lam = _make_instance(2, 32, 64)
-    with pytest.raises(exc, match=match):
-        lasso(D, s, lam, device="cpu", **kw)
+    if match != "slice 2":
+        with pytest.raises(exc, match=match):
+            lasso(D, s, lam, device="cpu", **kw)
+        return
+    for D, s, lam in (_make_instance(2, 32, 64), _make_instance(0, 96, 48)):
+        cfg = dict(maxiters=400, rho=0.2, **kw)
+        jres = jax_lasso(D, s, lam, JaxConfig(**cfg))
+        res = lasso(D, s, lam, ADMMConfig(**cfg), device="cpu")
+        assert res.steps == jres.steps and res.diverged == bool(jres.diverged)
+        np.testing.assert_allclose(res.rho_final, float(jres.rho_final), rtol=1e-12)
+        for name in ("xopt", "zopt", "uopt"):
+            np.testing.assert_allclose(getattr(res, name).numpy(),
+                                       np.asarray(getattr(jres, name)),
+                                       rtol=1e-9, atol=1e-10)
+        for name in jres.hist:
+            # 1e-8 of the first value, or of the largest where the first is 0.
+            ref = jres.trace(name)
+            scale = abs(ref[0]) or np.nanmax(np.abs(ref))
+            np.testing.assert_allclose(res.trace(name), ref, rtol=0, atol=1e-8 * scale)
+        if kw.get("rbadaptive"):
+            assert res.rho_final != 0.2
 
 
 def test_lasso_demo_mode_raises():

@@ -143,8 +143,38 @@ def test_convert_round_trips_jax_state(shape):
 
 
 def test_convert_refuses_adaptive_state():
+    # Adaptive LASSO state now crosses (the Woodbury solver as wood.*); a
+    # key with no conversion is still refused by name.
     D, _ = _operands(7, 16, 48)
     cfg = JaxConfig(adaptive=True, convtest=True)
     _, _, _, jdata = jax_make_prox_ops(jnp.asarray(D), jnp.zeros(16), 0.2, cfg)
-    with pytest.raises(ValueError, match="wood"):
-        numpy_state(jdata)
+    assert {"wood.D", "wood.V", "wood.w"} <= set(numpy_state(jdata))
+    with pytest.raises(ValueError, match="'solver'"):
+        numpy_state(dict(jdata, solver=object()))
+
+
+@pytest.mark.parametrize("shape", [(48, 160), (96, 48)])  # fat: wood, skinny: sol
+@pytest.mark.parametrize("mode", ["adaptive", "rbadaptive"])
+def test_convert_round_trips_dynamic_rho_state(shape, mode):
+    D, _ = _operands(8, *shape)
+    s = np.random.default_rng(9).standard_normal(shape[0])
+    cfg = dict(adaptive=True, convtest=True) if mode == "adaptive" else dict(rbadaptive=True)
+    _, _, _, jdata = jax_make_prox_ops(jnp.asarray(D), jnp.asarray(s), 0.2, JaxConfig(**cfg))
+    state = numpy_state(jdata)
+    key = "wood" if shape[0] < shape[1] else "sol"
+    fields = ("D", "V", "w") if key == "wood" else ("V", "w")
+    assert {f"{key}.{f}" for f in fields} <= set(state)
+    data, _ = lasso_data(state, device="cpu")
+    assert isinstance(data[key], tsolve.WoodburySolver if key == "wood" else tsolve.SymShiftSolver)
+    # The port's solver holds admm_tpu's arrays bit for bit, and back.
+    for f in fields:
+        got = getattr(data[key], f)
+        assert got.dtype == torch.float64
+        np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(jdata[key], f)))
+    back = numpy_state(data)
+    assert set(back) == set(state)
+    for k in state:
+        np.testing.assert_array_equal(back[k], state[k])
+    # So the port's solve on carried state equals admm_tpu's to rounding.
+    b = np.random.default_rng(10).standard_normal(shape[1])
+    _close(data[key].solve(torch.from_numpy(b), 0.7), jdata[key].solve(jnp.asarray(b), 0.7))

@@ -187,8 +187,22 @@ def test_convert_refuses_the_packed_solver():
     (dict(solver="dense", _plain_cr=True), ValueError, "cyclic-reduction"),
 ])
 def test_unported_tv_modes_raise(kw, exc, match):
-    with pytest.raises(exc, match=match):
-        totalvariation(_staircase(64), 0.5, device="cpu", **kw)
+    """The refusals that stay.  Adaptive TV, which raised until slice 2,
+    now takes the dense eigenbasis x-update and is held against
+    admm_tpu's adaptive TV, with and without the convtest monitor that
+    lets rho move."""
+    if match != "slice 2":
+        with pytest.raises(exc, match=match):
+            totalvariation(_staircase(64), 0.5, device="cpu", **kw)
+        return
+    sig = _staircase(64)
+    for extra in ({}, {"convtest": True, "stopcond": "both"}):
+        cfg = dict(maxiters=500, objevals=True, **kw, **extra)
+        jres = jax_tv(sig, 0.5, JaxConfig(**cfg))
+        res = totalvariation(sig, 0.5, ADMMConfig(**cfg), device="cpu")
+        assert res.diverged == bool(jres.diverged)
+        np.testing.assert_allclose(res.rho_final, float(jres.rho_final), rtol=1e-12)
+        _assert_same_run(res, jres)
 
 
 def test_totalvariation_demo_mode_raises():
