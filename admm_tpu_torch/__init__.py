@@ -4,7 +4,7 @@ A second package beside ``admm_tpu``, which stays the reference.  Module
 names mirror ``admm_tpu``'s so each counterpart is easy to find.  The port
 imports ``torch`` and never ``jax``.
 
-Ported so far (ROADMAP.md, queue 1, slices 1, 2 and 6, and part of 3):
+Ported so far (ROADMAP.md, queue 1, slices 1, 2, 3, 4 and 6):
 the engine with all of its serial variants (fast and accelerated ADMM,
 H-norm stops, adaptive and residual-balancing rho, the stall detector,
 Anderson acceleration, iterate records and every hook) and ``FnOp``; the
@@ -14,17 +14,24 @@ CUDA C++ kernel for Hopper GPUs;
 elastic net, NNLS and group lasso on the same x-update; the bf16-stream
 x-update of all four, whose GEMV pair is a CUDA C++ kernel for Hopper;
 1-D total variation with its dense and cyclic-reduction x-updates, the
-cyclic-reduction solve as a CUDA C++ kernel for Hopper; and 2-D total
-variation.  ``admm_tpu_torch.experiments`` holds the two probes of
-``experiments/`` whose TPU kernels run the GEMV pair and the whole
-fat-LASSO iteration in one launch.
+cyclic-reduction solve as a CUDA C++ kernel for Hopper; 2-D total
+variation; basis pursuit and the fused lasso (``StackIDiffOp``); LAD,
+Huber fitting and quantile regression on one normal-equations x-update;
+the linear SVM (hinge and 0-1 loss) through the serial unwrapped-ADMM
+solver; and the string registry ``get_prox_ops`` with its ``errorcheck``
+(``utils/validate.py``).  ``admm_tpu_torch.experiments`` holds the two
+probes of ``experiments/`` whose TPU kernels run the GEMV pair and the
+whole fat-LASSO iteration in one launch.
 """
 
 from .config import ADMMConfig
 from .engine import Hooks, admm
 from .linop import FnOp
-from .models import elasticnet, grouplasso, lasso, model, nnls, totalvariation, totalvariation2d
+from .models import (basispursuit, elasticnet, fusedlasso, get_prox_ops, grouplasso, huberfit,
+                     lad, lasso, linearsvm, model, nnls, quantile, totalvariation,
+                     totalvariation2d, unwrappedadmm)
 from .results import ADMMResults
 
-__all__ = ["ADMMConfig", "ADMMResults", "FnOp", "Hooks", "admm", "elasticnet", "grouplasso",
-           "lasso", "model", "nnls", "totalvariation", "totalvariation2d"]
+__all__ = ["ADMMConfig", "ADMMResults", "FnOp", "Hooks", "admm", "basispursuit", "elasticnet",
+           "fusedlasso", "get_prox_ops", "grouplasso", "huberfit", "lad", "lasso", "linearsvm",
+           "model", "nnls", "quantile", "totalvariation", "totalvariation2d", "unwrappedadmm"]

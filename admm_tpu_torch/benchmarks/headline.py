@@ -20,7 +20,9 @@ device), best of 3 after a warm-up.
 
 Run: ``python -m admm_tpu_torch.benchmarks.headline [--smoke] [--device D]``.
 Prints ONE JSON line.  ``--profile`` prints a per-kernel device-time
-breakdown of a shorter solve instead (``profile``).
+breakdown of a shorter solve instead (``profile``); ``--variant`` picks an
+engine variant of the headline or another family at
+``admm_tpu/benchmarks/matrix.py``'s size (``FAMILY_VARIANTS``).
 """
 
 import argparse
@@ -180,9 +182,39 @@ VARIANTS = {
 }
 
 
+# Families beside LASSO that ``profile`` runs in f32 at the sizes of
+# admm_tpu/benchmarks/matrix.py's timed rows, on the generic step with the
+# 'gemv' body's unroll of 16.
+FAMILY_VARIANTS = ("basispursuit", "lad")
+
+
+def _family_setup(variant, cfg, smoke, device):
+    """(prox_f, prox_g, obj, data, admm's wiring keywords) of a
+    ``FAMILY_VARIANTS`` problem: basis pursuit with D 512 x 2048 and a
+    planted 10%-sparse x (matrix.py:387-395), or LAD with D 4096 x 512 and
+    s N(0, 1) (matrix.py:416-424); float32 tensors on ``device``."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    if variant == "lad":
+        from admm_tpu_torch.models.lad import make_prox_ops as make_lad
+
+        m, n = (400, 50) if smoke else (4096, 512)
+        D, s = f32(rng.standard_normal((m, n))), f32(rng.standard_normal(m))
+        return (*make_lad(D, s, cfg), dict(A=D, B=-1.0, c=s, m=m, nA=n, nB=m))
+    from admm_tpu_torch.models.basispursuit import make_prox_ops as make_bp
+
+    m, n = (64, 256) if smoke else (512, 2048)
+    D = rng.standard_normal((m, n)).astype(np.float32)
+    x = rng.standard_normal(n) * (rng.random(n) < 0.1)
+    return (*make_bp(f32(D), f32(D @ x), cfg), dict(m=n, nA=n, nB=n))
+
+
 def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: int = 12,
             variant: str = "fused"):
-    """Where the time goes in the headline loop, in one of ``VARIANTS``.
+    """Where the time goes in the headline loop, in one of ``VARIANTS``,
+    or in a family of ``FAMILY_VARIANTS``.
     Sets up once, runs ``iters`` steps unprofiled (wall time per step),
     then the same solve under ``torch.profiler`` (device time of its
     kernels; setup is outside both).  Prints one JSON line: wall and
@@ -199,19 +231,25 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: i
     from admm_tpu_torch.config import matmul_precision
     from admm_tpu_torch.models.lasso import _fused_zu, make_prox_ops
 
-    options, bf16, fused = VARIANTS[variant]
-    D, s, lam = make_problem(smoke)
-    n = D.shape[1]
-    cfg = ADMMConfig(maxiters=iters, domaxiters=True, **options)
-    with matmul_precision("highest"):
-        prox_f, prox_g, obj, data = make_prox_ops(
-            torch.as_tensor(D, device=device), torch.as_tensor(s, device=device), lam, cfg,
-            stream_dtype=torch.bfloat16 if bf16 else None)
+    if variant in FAMILY_VARIANTS:
+        cfg = ADMMConfig(maxiters=iters, domaxiters=True, unroll=16)
+        with matmul_precision("highest"):
+            prox_f, prox_g, obj, data, wiring = _family_setup(variant, cfg, smoke, device)
+        hooks = Hooks(obj=obj)
+    else:
+        options, bf16, fused = VARIANTS[variant]
+        D, s, lam = make_problem(smoke)
+        n = D.shape[1]
+        cfg = ADMMConfig(maxiters=iters, domaxiters=True, **options)
+        with matmul_precision("highest"):
+            prox_f, prox_g, obj, data = make_prox_ops(
+                torch.as_tensor(D, device=device), torch.as_tensor(s, device=device), lam, cfg,
+                stream_dtype=torch.bfloat16 if bf16 else None)
+        wiring = dict(m=n, nA=n, nB=n)
+        hooks = Hooks(obj=obj, fused_zu=_fused_zu if fused else None)
 
     def solve():
-        return admm(prox_f, prox_g, cfg, m=n, nA=n, nB=n, data=data,
-                    hooks=Hooks(obj=obj, fused_zu=_fused_zu if fused else None),
-                    dtype=torch.float32)
+        return admm(prox_f, prox_g, cfg, data=data, hooks=hooks, dtype=torch.float32, **wiring)
 
     solve()  # warm-up
     wall_us = min(solve().runtime for _ in range(2)) * 1e6 / iters
@@ -250,7 +288,8 @@ if __name__ == "__main__":
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
                     help="print a per-kernel device-time breakdown instead")
-    ap.add_argument("--variant", default="fused", choices=sorted(VARIANTS),
+    ap.add_argument("--variant", default="fused",
+                    choices=sorted(VARIANTS) + list(FAMILY_VARIANTS),
                     help="the engine variant --profile runs")
     args = ap.parse_args()
     if args.profile:

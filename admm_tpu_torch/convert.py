@@ -3,10 +3,11 @@
 ``admm_tpu``'s solver setups leave their operands in a ``data`` dict of
 JAX arrays and solver objects.  ``numpy_state`` flattens such a dict into
 plain numpy arrays (duck-typed: it never imports JAX), and ``lasso_data``,
-``model_data``, ``tv_data`` and ``tv2d_data`` rebuild the port's ``data``
-dicts from them on a given device.  Feeding the same numbers to both packages this way
-isolates the iteration from differences in the setup-time linear algebra
-(eigh, solve, inverse), which is what the parity tests need.
+``model_data``, ``tv_data``, ``tv2d_data`` and ``fusedlasso_data``
+rebuild the port's ``data`` dicts from them on a given device.  Feeding
+the same numbers to both packages this way isolates the iteration from
+differences in the setup-time linear algebra (eigh, solve, inverse),
+which is what the parity tests need.
 
 Flat keys:
 - LASSO: ``D``, ``s``, ``Dts``, ``lam``; the static-rho solver, as
@@ -23,10 +24,18 @@ Flat keys:
   ``cr.c_lv``, ``cr.d_lv``, ``cr.masks_f``, ``cr.masks_b``, ``cr.n``,
   ``cr.cut_stride`` and, with a hybrid dense tail, ``cr.Tinv``;
 - 2-D TV: ``S``, ``lam``, ``Ur``, ``wr``, ``Uc``, ``wc``;
-- optionally the warm start ``x0``, ``z0``, ``u0``.
+- basis pursuit: ``P``, ``q``;
+- the fused lasso: ``s``, ``t`` and ``Minv`` (static rho) or ``V``, ``w``
+  (dynamic rho);
+- LAD, Huber fitting and quantile regression: ``D``, ``s``, ``Dplus``
+  and ``tau``; the linear SVM: ``D``, ``ell``, ``C`` and the unwrapped
+  solver's ``Dplus`` (``admm_tpu``'s pinv, which its unwrappedadmm adds at
+  solve time: a test puts it into the dict it flattens);
+- optionally the warm start ``x0``, ``z0``, ``u0`` (the unwrapped
+  solver's random start among them).
 
-Matrix-free operators (TV's ``D``, 2-D TV's ``A``) hold no numbers; they
-are rebuilt from the shapes.
+Matrix-free operators (TV's ``D``, 2-D TV's ``A``, the fused lasso's
+``A``) hold no numbers; they are rebuilt from the shapes.
 """
 
 from __future__ import annotations
@@ -34,13 +43,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .linop import DiffOp
+from .linop import DiffOp, StackIDiffOp
 from .models.totalvariation2d import TV2DOp
 from .ops.solve import FatShiftSolver, SymShiftSolver, WoodburySolver
 from .ops.tridiag import CyclicReductionSolver
 
 _ARRAYS = ("D", "s", "Dts", "lam", "Minv", "S", "Ur", "wr", "Uc", "wc",
-           "P", "Q", "r", "Ptr", "Qts", "PtPinv", "QtQinv")
+           "P", "Q", "r", "Ptr", "Qts", "PtPinv", "QtQinv", "q", "t", "V", "w",
+           "Dplus", "tau", "ell", "C")
 _FAT_FIELDS = ("D", "E", "rho0")
 # The solver objects carried field by field: data key -> (fields, class).
 _SOLVERS = {"wood": (("D", "V", "w"), WoodburySolver),
@@ -79,7 +89,7 @@ def numpy_state(data: dict, **warm) -> dict:
         else:
             raise ValueError(
                 f"numpy_state: no conversion for data[{key!r}]; only the "
-                "LASSO, model and static-rho TV state is carried across")
+                "state of the ported families is carried across")
     state.update({k: _np(v) for k, v in warm.items() if v is not None})
     return state
 
@@ -105,17 +115,19 @@ def _maker(state, lead, device, dtype):
 
 def lasso_data(state: dict, *, device="cpu", dtype=None):
     """Build ``(data, warm)`` for the port from a flat numpy ``state``:
-    ``data`` is the dict the port's LASSO proxes take and ``warm`` holds
-    the warm-start tensors ``x0``/``z0``/``u0`` present in the state.
-    Every tensor lands on ``device`` in ``dtype`` (default: D's dtype),
-    except bf16 stream arrays, which stay bf16."""
+    ``data`` is the dict the port's proxes take and ``warm`` holds the
+    warm-start tensors ``x0``/``z0``/``u0`` present in the state.  It
+    serves every family whose state D leads: LASSO and its siblings, and
+    LAD, Huber, quantile and the linear SVM with their ``Dplus``.  Every
+    tensor lands on ``device`` in ``dtype`` (default: D's dtype), except
+    bf16 stream arrays, which stay bf16."""
     return _data(state, "D", device, dtype)
 
 
 def model_data(state: dict, *, device="cpu", dtype=None):
     """``(data, warm)`` for the port's model-problem proxes
-    (``models/model.py``), as ``lasso_data`` builds them for LASSO; the
-    default dtype is P's."""
+    (``models/model.py``) and basis pursuit's (``P``, ``q``), as
+    ``lasso_data`` builds them for LASSO; the default dtype is P's."""
     return _data(state, "P", device, dtype)
 
 
@@ -162,6 +174,16 @@ def tv2d_data(state: dict, *, device="cpu", dtype=None):
     t, warm = _maker(state, "S", device, dtype)
     data = {k: t(k) for k in ("S", "lam", "Ur", "wr", "Uc", "wc")}
     data["A"] = TV2DOp(*state["S"].shape)
+    return data, warm
+
+
+def fusedlasso_data(state: dict, *, device="cpu", dtype=None):
+    """``(data, warm)`` for the port's fused-lasso proxes
+    (``models/fusedlasso.py``): ``s``, the threshold vector ``t``, ``Minv``
+    or ``V``/``w``, and the matrix-free ``A`` rebuilt from s's length; the
+    default dtype is s's."""
+    data, warm = _data(state, "s", device, dtype)
+    data["A"] = StackIDiffOp(state["s"].shape[0])
     return data, warm
 
 

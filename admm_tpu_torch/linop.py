@@ -1,6 +1,6 @@
 """Linear-operator protocol for the ADMM constraint A x + B z = c (port of
 ``admm_tpu/linop.py``: ``ScaledIdentityOp``, ``DenseOp``, ``DiffOp``,
-``FnOp`` and ``as_linop``).
+``StackIDiffOp``, ``FnOp`` and ``as_linop``).
 
 Every operator provides:
   - ``mv(v)``   : A @ v
@@ -86,6 +86,29 @@ class DiffOp:
 
     def __repr__(self):
         return f"DiffOp({self.n})"
+
+
+class StackIDiffOp:
+    """The fused-lasso stacked operator A = [I; D] applied matrix-free:
+    ``mv(x) = cat([x, Dx])`` (2n,), ``rmv(v) = v[:n] + D^T v[n:]``, O(n)
+    element-wise work instead of a dense (2n, n) GEMV per residual/dual
+    evaluation (models/fusedlasso.py)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self._D = DiffOp(n)
+
+    def mv(self, v):
+        return torch.cat((v, self._D.mv(v)))
+
+    def rmv(self, v):
+        return v[: self.n] + self._D.rmv(v[self.n:])
+
+    def out_shape(self, in_shape):
+        return (2 * self.n,) + tuple(in_shape[1:])
+
+    def __repr__(self):
+        return f"StackIDiffOp({self.n})"
 
 
 class FnOp:

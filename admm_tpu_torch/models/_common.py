@@ -1,6 +1,7 @@
 """Shared solver-wrapper plumbing (port of ``admm_tpu/models/_common.py``:
-``merge_config``, ``check_data_vector`` and ``timed_solver``; the port's
-own ``as_tensor`` and ``place_data``)."""
+``merge_config``, ``bind_data``, ``check_data_vector``,
+``normal_equations_data`` and ``timed_solver``; the port's own
+``as_tensor`` and ``place_data``)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,18 @@ def merge_config(config: ADMMConfig, overrides: dict,
     return resolve_unroll(config, body)
 
 
+def bind_data(prox_f, prox_g, obj, data):
+    """Close data-convention functions over concrete operands, recovering
+    the reference's closure-style prox handles (getproxops returns
+    closures over cached factorizations, getProxOps.m:13-31).  For the
+    string registry / ad-hoc use only: solvers pass ``data`` through the
+    engine."""
+    pf = None if prox_f is None else (lambda x, z, u, rho: prox_f(x, z, u, rho, data))
+    pg = None if prox_g is None else (lambda x, z, u, rho: prox_g(x, z, u, rho, data))
+    ob = None if obj is None else (lambda x, z: obj(x, z, data))
+    return pf, pg, ob
+
+
 def check_data_vector(D, s, Dname="D", sname="s"):
     """Shape cross-check shared by the regression-style solvers (the
     reference's per-solver errorcheck subfunctions, e.g. lasso.m:132-141):
@@ -39,6 +52,20 @@ def check_data_vector(D, s, Dname="D", sname="s"):
             f"{sname} must be a vector of length {Dsh[0]} (rows of {Dname}), "
             f"got shape {ssh}"
         )
+
+
+def normal_equations_data(D, s):
+    """Shared LAD/Huber/quantile setup: validate the skinny shape and
+    materialize the normal-equations pseudo-inverse (D^T D)^{-1} D^T once
+    (the f == 0 x-update through D; getProxOps.m:753-912).  ``D`` and
+    ``s`` are tensors on the solve's device."""
+    check_data_vector(D, s)
+    if D.shape[0] < D.shape[1]:
+        raise ValueError(
+            f"D must have at least as many rows as columns "
+            f"(normal equations D^T D must be invertible), got {tuple(D.shape)}"
+        )
+    return {"D": D, "s": s, "Dplus": torch.linalg.solve(D.T @ D, D.T)}
 
 
 def as_tensor(v):

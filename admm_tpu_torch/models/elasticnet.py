@@ -13,8 +13,7 @@ z-update composes shrinkage with a uniform rescale:
 
 ``alpha=1`` recovers lasso exactly; ``alpha=0`` is ridge regression.
 
-Not ported yet: the ``@register("elasticnet")`` entry (the string
-registry, ROADMAP slice 3) and ``elasticnet_batch`` (slice 8).
+Not ported yet: ``elasticnet_batch`` (slice 8 of ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -25,7 +24,8 @@ from ..config import ADMMConfig
 from ..engine import Hooks, admm
 from ..ops.prox import soft_threshold
 from ..results import ADMMResults
-from ._common import check_data_vector, merge_config, place_data, timed_solver
+from . import register
+from ._common import bind_data, check_data_vector, merge_config, place_data, timed_solver
 from .lasso import make_ls_xprox
 
 
@@ -53,6 +53,12 @@ def make_prox_ops(D, s, lam, alpha=0.5, config: ADMMConfig = ADMMConfig(),
     data["lam"] = torch.as_tensor(lam, dtype=D.dtype, device=D.device)
     data["alpha"] = torch.as_tensor(alpha, dtype=D.dtype, device=D.device)
     return prox_f, _prox_g, _obj, data
+
+
+@register("elasticnet")
+def _registry_entry(D, s, lam, alpha=0.5, config=ADMMConfig(), device=None, **_):
+    D, s, _device = place_data(D, s, device)
+    return bind_data(*make_prox_ops(D, s, lam, alpha, config))
 
 
 @timed_solver

@@ -18,8 +18,7 @@ are ``index_add_``.
 ``weights`` defaults to 1 per group; pass e.g. sqrt(group sizes) for the
 size-adjusted convention.
 
-Not ported yet: the ``@register("grouplasso")`` entry (the string
-registry, ROADMAP slice 3) and ``grouplasso_batch`` (slice 8).
+Not ported yet: ``grouplasso_batch`` (slice 8 of ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -31,7 +30,8 @@ from ..config import ADMMConfig
 from ..engine import Hooks, admm
 from ..ops.prox import block_soft_threshold
 from ..results import ADMMResults
-from ._common import check_data_vector, merge_config, place_data, timed_solver
+from . import register
+from ._common import bind_data, check_data_vector, merge_config, place_data, timed_solver
 from .lasso import make_ls_xprox
 
 
@@ -101,6 +101,12 @@ def make_prox_ops(D, s, lam, groups, weights=None,
     data["w"] = w
     data["gid"] = torch.as_tensor(gid, dtype=torch.int64, device=dev)
     return prox_f, _prox_g, _obj, data
+
+
+@register("grouplasso")
+def _registry_entry(D, s, lam, groups, weights=None, config=ADMMConfig(), device=None, **_):
+    D, s, _device = place_data(D, s, device)
+    return bind_data(*make_prox_ops(D, s, lam, groups, weights, config))
 
 
 @timed_solver

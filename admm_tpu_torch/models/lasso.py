@@ -27,7 +27,8 @@ from ..ops.kernels import fused_soft_threshold_dual, soft_threshold_pass
 from ..ops.prox import soft_threshold
 from ..ops.solve import FatShiftSolver, SymShiftSolver, WoodburySolver
 from ..results import ADMMResults
-from ._common import check_data_vector, merge_config, place_data, timed_solver
+from . import register
+from ._common import bind_data, check_data_vector, merge_config, place_data, timed_solver
 
 
 def _prox_f_static(x, z, u, rho, d):
@@ -107,6 +108,12 @@ def make_prox_ops(D, s, lam, config: ADMMConfig = ADMMConfig(), stream_dtype=Non
     prox_f, data = make_ls_xprox(D, s, config, stream_dtype)
     data["lam"] = torch.as_tensor(lam, dtype=D.dtype, device=D.device)
     return prox_f, _prox_g, _obj, data
+
+
+@register("lasso")
+def _registry_entry(D, s, lam, config=ADMMConfig(), device=None, **_):
+    D, s, _device = place_data(D, s, device)
+    return bind_data(*make_prox_ops(D, s, lam, config))
 
 
 @timed_solver

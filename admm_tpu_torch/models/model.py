@@ -10,8 +10,7 @@ zminModel (:989-1012):
     z <- (Q^T Q + rho I)^{-1} (Q^T s + rho (x + u))
 
 Static rho materializes both inverses (one GEMV per prox); adaptive rho
-keeps the eigendecompositions (``ops/solve.SymShiftSolver``).  The string
-registry entry comes with slice 3 of ROADMAP.md queue 1.
+keeps the eigendecompositions (``ops/solve.SymShiftSolver``).
 """
 
 from __future__ import annotations
@@ -23,7 +22,8 @@ from ..device import resolve_device
 from ..engine import Hooks, admm
 from ..ops.solve import SymShiftSolver
 from ..results import ADMMResults
-from ._common import as_tensor, merge_config, timed_solver
+from . import register
+from ._common import as_tensor, bind_data, merge_config, timed_solver
 
 
 def _prox_f_static(x, z, u, rho, d):
@@ -64,6 +64,20 @@ def make_prox_ops(P, Q, r, s, config: ADMMConfig = ADMMConfig()):
     return _prox_f_static, _prox_g_static, _obj, data
 
 
+def _place(P, Q, r, s, device):
+    """P, Q, r and s on the solve's device (``device.resolve_device``) in
+    P's dtype."""
+    device = resolve_device(device, P, Q, r, s)
+    P = as_tensor(P).to(device)
+    return (P, *(as_tensor(a).to(device=device, dtype=P.dtype) for a in (Q, r, s))), device
+
+
+@register("model")
+def _registry_entry(P, Q, r, s, config=ADMMConfig(), device=None, **_):
+    operands, _device = _place(P, Q, r, s, device)
+    return bind_data(*make_prox_ops(*operands, config))
+
+
 @timed_solver
 def model(P=None, Q=None, r=None, s=None, config: ADMMConfig = ADMMConfig(), *,
           x0=None, z0=None, u0=None, device=None, **overrides) -> ADMMResults:
@@ -80,9 +94,7 @@ def model(P=None, Q=None, r=None, s=None, config: ADMMConfig = ADMMConfig(), *,
             "model() demo mode needs the testers of ROADMAP.md queue 1, "
             "slice 11, which are not ported yet")
     config = merge_config(config, overrides, body="gemv")
-    device = resolve_device(device, P, Q, r, s)
-    P = as_tensor(P).to(device)
-    Q, r, s = (as_tensor(a).to(device=device, dtype=P.dtype) for a in (Q, r, s))
+    (P, Q, r, s), device = _place(P, Q, r, s, device)
     n = P.shape[1]
     prox_f, prox_g, obj, data = make_prox_ops(P, Q, r, s, config)
     return admm(

@@ -9,8 +9,7 @@ least-squares prox (``lasso.make_ls_xprox``) and the z-update is the
 projection ``ops/prox.project_nonneg``.  z is the feasible iterate; the
 objective is reported at z.
 
-Not ported yet: the ``@register("nnls")`` entry (the string registry,
-ROADMAP slice 3) and ``nnls_batch`` (slice 8).
+Not ported yet: ``nnls_batch`` (slice 8 of ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -21,7 +20,8 @@ from ..config import ADMMConfig
 from ..engine import Hooks, admm
 from ..ops.prox import project_nonneg
 from ..results import ADMMResults
-from ._common import check_data_vector, merge_config, place_data, timed_solver
+from . import register
+from ._common import bind_data, check_data_vector, merge_config, place_data, timed_solver
 from .lasso import make_ls_xprox
 
 
@@ -39,6 +39,12 @@ def make_prox_ops(D, s, config: ADMMConfig = ADMMConfig(), stream_dtype=None):
     tensors on the solve's device."""
     prox_f, data = make_ls_xprox(D, s, config, stream_dtype)
     return prox_f, _prox_g, _obj, data
+
+
+@register("nnls")
+def _registry_entry(D, s, config=ADMMConfig(), device=None, **_):
+    D, s, _device = place_data(D, s, device)
+    return bind_data(*make_prox_ops(D, s, config))
 
 
 @timed_solver

@@ -32,7 +32,8 @@ from ..linop import DiffOp
 from ..ops.prox import soft_threshold
 from ..ops.tridiag import CyclicReductionSolver
 from ..results import ADMMResults
-from ._common import as_tensor, merge_config, timed_solver
+from . import register
+from ._common import as_tensor, bind_data, merge_config, timed_solver
 
 
 def _prox_f_static(x, z, u, rho, d):
@@ -138,6 +139,13 @@ def make_prox_ops(s, lam, config: ADMMConfig = ADMMConfig(), solver: str = "auto
 
     prox_g = _prox_g if config.relax == 1.0 else _prox_g_relaxed
     return prox_f, prox_g, _obj, data, D
+
+
+@register("totalvariation")
+def _registry_entry(s, lam, config=ADMMConfig(), device=None, **_):
+    s = as_tensor(s).to(resolve_device(device, s))
+    pf, pg, obj, data, _D = make_prox_ops(s, lam, config)
+    return bind_data(pf, pg, obj, data)
 
 
 @timed_solver

@@ -27,7 +27,8 @@ from ..device import resolve_device
 from ..engine import Hooks, admm
 from ..ops.prox import soft_threshold
 from ..results import ADMMResults
-from ._common import as_tensor, merge_config, timed_solver
+from . import register
+from ._common import as_tensor, bind_data, merge_config, timed_solver
 
 
 def _d(v, axis):
@@ -109,6 +110,13 @@ def make_prox_ops(S, lam, config: ADMMConfig = ADMMConfig()):
             "A": A, "Ur": Ur, "wr": wr, "Uc": Uc, "wc": wc}
     prox_g = _prox_g if config.relax == 1.0 else _prox_g_relaxed
     return _prox_f, prox_g, _obj, data, A
+
+
+@register("totalvariation2d")
+def _registry_entry(S, lam, config=ADMMConfig(), device=None, **_):
+    S = as_tensor(S).to(resolve_device(device, S))
+    pf, pg, obj, data, _A = make_prox_ops(S, lam, config)
+    return bind_data(pf, pg, obj, data)
 
 
 @timed_solver

@@ -116,6 +116,35 @@ through the functions a user calls and checks what comes out:
      (r) the synchronising calls of (n)-(p), counted with
          torch.cuda.set_sync_debug_mode("warn"): none inside a sub-step,
          at most one per chunk plus SYNCS_OUTSIDE outside the loop.
+ 10. the families of slices 3 and 4 at admm_tpu/benchmarks/matrix.py's
+     sizes in f32, each timed over FAMILY_TIMED_STEPS steps under
+     domaxiters (unroll 'auto'; the fused lasso over FL_TIMED_STEPS) and
+     held to matrix.py's f32 oracle bars (its oracle settings ORACLE:
+     abstol 1e-7, reltol 1e-6, stall window 100):
+     (s) basis pursuit, D 512 x 2048, x_true 10% nonzero, s = D x_true:
+         the reference tester's rules, ||xopt||_1 <= ||x_true||_1 and
+         mean|(D xopt - s) / D xopt| <= 1e-4 (matrix.py's f32 bar);
+         ||xopt_f32 - xopt_f64|| <= 1e-3 ||xopt_f64|| against the same
+         solve in f64 on the card (the stall window stops both at one step
+         short of the optimum, so this measures f32's drift along the
+         path); ||xopt - x_true|| / ||x_true|| printed (L1 does not
+         recover x_true at this density);
+     (t) the fused lasso on matrix.py's staircase, n = 8192, lam1 0.1,
+         lam2 0.5: lam2 = 0 within 1e-3 of the closed-form soft threshold,
+         lam1 = 0 within 2e-2 of the port's totalvariation (relative
+         norms);
+     (u)-(w) LAD, Huber fitting and quantile regression (tau 0.8), D
+         4096 x 512, s N(0, 1): objective within 1e-2, 1e-3 and 1e-2 of
+         the same solve in f64 on the card;
+     (x) the linear SVM (hinge, C = 1), D 4096 x 512, ell = sign(D w0 +
+         0.1 noise): objective within 1e-3 of f64 on the card;
+     (y) the SVM oracle of tests/test_linearsvm.py (128 + 128 points,
+         separation 0.5), hinge and 0-1 loss: slope error <= 0.05 and an
+         objective below the one at x = [1, -1].
+     Every run of (s)-(y) on the main path: xopt on the card, no K1-K4
+     launch (these families run the generic step and no kernel), no
+     synchronising call inside a sub-step and at most one per chunk plus
+     SYNCS_OUTSIDE.
 
 Kernel times are device times: CUDA events around replays of a CUDA
 graph that holds several calls (``graph_ms``), so that the host's time per
@@ -170,6 +199,16 @@ VARIANT_MAXITERS = 2000  # slice 2's runs (n)-(q)
 STRONG_STEPS = 10  # (p): alg 1's bar, before its momentum's drift dominates
 RECORD_STEPS = 200  # (q): record_iterates under domaxiters
 SYNCS_OUTSIDE = 64  # (r): the set-up's and the results' synchronising calls
+# (s), (u)-(x): matrix.py times these rows over 8000 steps; cut to 2000 to
+# keep the script's time (each generic step issues ~70 launches from the
+# host).
+FAMILY_TIMED_STEPS = 2000
+FL_TIMED_STEPS = 2000  # (t): matrix.py's dense-TV rows at this width run 500-8000
+BP_SHAPE = (512, 2048)
+REG_SHAPE = (4096, 512)
+FL_N = 8192
+# matrix.py's f32 oracle settings (accuracy_matrix, _beyond_reference_accuracy).
+ORACLE = dict(maxiters=20000, abstol=1e-7, reltol=1e-6, stallwindow=100, unroll="auto")
 # H100 SXM peaks from NVIDIA's data sheet.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -480,9 +519,14 @@ def counting_syncs():
 
     got = {"steps": 0, "chunks": 0, "solve": 0}
     run_chunks = engine._run_chunks
+    tally = [0, 0]  # warnings looked at, synchronising calls among them
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
-        syncs = lambda: sum("called a synchronizing" in str(w.message) for w in seen)  # noqa: E731
+
+        def syncs():
+            tally[1] += sum("called a synchronizing" in str(w.message) for w in seen[tally[0]:])
+            tally[0] = len(seen)
+            return tally[1]
 
         def counted(step, flags, N, K, table=None):
             def one_step():
@@ -1161,6 +1205,183 @@ def tv_phase(dev):
     return launches
 
 
+def svm_instance(seed, mpos, mneg, sep):
+    """tests/test_linearsvm.py's instance (testers/linearsvmtest.m:130-200):
+    two classes around the line x1 = x2 with margin ``sep``; (D, ell)."""
+    rng = np.random.default_rng(seed)
+    base_p = np.linspace(0, 2, mpos)
+    base_n = np.linspace(0, 2, mneg)
+    pos = np.stack([base_p + rng.random(mpos) - sep * rng.random(mpos),
+                    base_p - rng.random(mpos) + sep * rng.random(mpos)], axis=1)
+    neg = np.stack([base_n - rng.random(mneg) + sep * rng.random(mneg),
+                    base_n + rng.random(mneg) - sep * rng.random(mneg)], axis=1)
+    return np.concatenate([pos, neg], axis=0), np.concatenate([np.ones(mpos), -np.ones(mneg)])
+
+
+def family_objective(family, D, s, x, tau=0.8, C=1.0):
+    """Each family's objective at x in NumPy f64 (s is ell for the SVMs)."""
+    x = x.double().cpu().numpy()
+    r = D @ x - s
+    if family == "lad":
+        return np.sum(np.abs(r))
+    if family == "huberfit":
+        a = np.abs(r)
+        return np.sum(np.where(a <= 1.0, 0.5 * r * r, a - 0.5))
+    if family == "quantile":
+        return np.sum(np.maximum(tau * r, (tau - 1.0) * r))
+    v = s * (D @ x)
+    loss = np.maximum(1.0 - v, 0.0) if family == "hinge" else np.maximum(np.sign(1.0 - v), 0.0)
+    return 0.5 * np.sum(x * x) + C * np.sum(loss)
+
+
+def families_phase(dev):
+    """Slices 3 and 4, (s)-(y): none of their runs may launch K1-K4."""
+    import torch
+
+    from admm_tpu_torch import (ADMMConfig, basispursuit, fusedlasso, huberfit, lad, linearsvm,
+                                quantile, totalvariation)
+    from admm_tpu_torch.ops.gemv_pair import gemv_pair, resident_lasso
+    from admm_tpu_torch.ops.kernels import fused_soft_threshold_dual, fused_zu_tail
+    from admm_tpu_torch.ops.tridiag import cr_solve
+
+    kernels = {"K1": fused_soft_threshold_dual, "K1b": fused_zu_tail, "K2": gemv_pair,
+               "K3": resident_lasso, "K4": cr_solve}
+    timed = ADMMConfig(maxiters=FAMILY_TIMED_STEPS, domaxiters=True, unroll="auto")
+    oracle = ADMMConfig(**ORACLE)
+
+    def main_path(tag, solve):
+        """Run ``solve`` with every kernel's count at 0 just before it and
+        read just after, its synchronising calls counted, and check both
+        and its xopt."""
+        for k in kernels.values():
+            k.launches = 0
+        with counting_syncs() as sy:
+            r = solve()
+            torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        outside = sy["solve"] - sy["steps"] - sy["chunks"]
+        print(f"  ({tag}) steps={r.steps} runtime={r.runtime:.4f}s iter/s "
+              f"{r.steps / r.runtime:.1f} (setup+solve {r.solverruntime:.4f}s); kernel "
+              f"launches {launches}; synchronising calls: {sy['steps']} inside sub-steps, "
+              f"{sy['chunks']} chunk reads, {outside} outside the loop")
+        check(r.xopt.device.type == "cuda" and bool(torch.isfinite(r.xopt).all())
+              and not r.diverged, f"({tag}) xopt finite on the card")
+        check(not any(launches.values()), f"({tag}) no K1-K4 launch")
+        check(sy["steps"] == 0, f"({tag}) no synchronising call inside a sub-step")
+        check(sy["solve"] <= sy["chunks"] + SYNCS_OUTSIDE,
+              f"({tag}) at most one per chunk plus {SYNCS_OUTSIDE} outside the loop")
+        return r
+
+    def against_f64(tag, solve, bar, measure):
+        """The converging f32 solve and the same in f64 on the card; checks
+        measure(f32 run, f64 run) <= bar."""
+        r32 = main_path(tag, lambda: solve(torch.float32))
+        r64 = solve(torch.float64)
+        err = measure(r32, r64)
+        print(f"  ({tag}) f32: steps={r32.steps} stalled={r32.stalled}; f64: steps={r64.steps} "
+              f"stalled={r64.stalled}; error {err:.3e} (bar {bar})")
+        check(err <= bar, f"({tag}) f32 within {bar} of f64 on the card")
+        return r32, r64
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a.double() - b.double()) / torch.linalg.norm(b.double()))
+
+    print(f"slices 3 and 4: the generic step's families in f32, {FAMILY_TIMED_STEPS} timed "
+          f"steps (fused lasso {FL_TIMED_STEPS}), oracle settings {ORACLE}")
+
+    # (s) basis pursuit.
+    rng = np.random.default_rng(3)
+    m, n = BP_SHAPE
+    D = rng.standard_normal((m, n)).astype(np.float32)
+    x_true = rng.standard_normal(n) * (rng.random(n) < 0.1)
+    s = (D @ x_true).astype(np.float32)
+    Dd = torch.from_numpy(D).to(dev)
+    sd = torch.from_numpy(s).to(dev)
+    print(f"  (s) basispursuit {m}x{n}, {int(np.sum(x_true != 0))} nonzeros planted")
+    main_path("s timed", lambda: basispursuit(Dd, sd, timed))
+    # The stall window stops f32 and f64 at the same step short of the
+    # optimum: their distance is f32's drift along the path (1.0e-4 on an
+    # H100 80GB HBM3 at 700 W), so it is held at 1e-3; the tester's own
+    # rules follow.
+    r32, r64 = against_f64("s", lambda dt: basispursuit(Dd.to(dt), sd.to(dt), oracle),
+                           1e-3, lambda a, b: rel(a.xopt, b.xopt))
+    l1, l1_true = float(torch.sum(torch.abs(r32.xopt.double()))), float(np.sum(np.abs(x_true)))
+    print(f"  (s) ||xopt - x_true|| / ||x_true|| = "
+          f"{np.linalg.norm(r32.xopt.double().cpu().numpy() - x_true) / np.linalg.norm(x_true):.3e}"
+          f"; ||xopt||_1 {l1:.6f} (f64 {float(torch.sum(torch.abs(r64.xopt))):.6f}), "
+          f"||x_true||_1 {l1_true:.6f}")
+    check(l1 <= l1_true * (1 + 1e-6) + 1e-8, "(s) ||xopt||_1 <= ||x_true||_1")
+    # The reference tester's error (testers/problems.py basispursuittest),
+    # to which matrix.py's f32 bar of 1e-4 applies.
+    Dx = D.astype(np.float64) @ r32.xopt.double().cpu().numpy()
+    relerror = float(np.mean(np.abs((Dx - s) / Dx)))
+    print(f"  (s) mean|(D xopt - s) / D xopt| = {relerror:.3e} (bar 1e-4)")
+    check(relerror <= 1e-4, "(s) the tester's constraint error within 1e-4")
+
+    # (t) the fused lasso on the staircase.
+    sig = staircase(FL_N)
+    sigd = torch.from_numpy(sig).to(dev)
+    print(f"  (t) fusedlasso n={FL_N}, lam1 0.1, lam2 0.5")
+    main_path("t timed", lambda: fusedlasso(
+        sigd, 0.1, 0.5, ADMMConfig(maxiters=FL_TIMED_STEPS, domaxiters=True, unroll="auto")))
+    soft = main_path("t lam2=0", lambda: fusedlasso(sigd, 0.1, 0.0, oracle))
+    truth = np.sign(sig) * np.maximum(np.abs(sig) - 0.1, 0.0)
+    err = np.linalg.norm(soft.xopt.double().cpu().numpy() - truth) / np.linalg.norm(truth)
+    print(f"  (t) lam2 = 0 against the soft threshold: {err:.3e} (bar 1e-3)")
+    check(err <= 1e-3, "(t) lam2 = 0 within 1e-3 of the closed form")
+    fused = main_path("t lam1=0", lambda: fusedlasso(sigd, 0.0, 0.5, oracle))
+    tv = totalvariation(sigd, 0.5, oracle)
+    err = rel(fused.xopt, tv.xopt)
+    print(f"  (t) lam1 = 0 against totalvariation (steps {tv.steps}): {err:.3e} (bar 2e-2)")
+    check(err <= 2e-2, "(t) lam1 = 0 within 2e-2 of totalvariation")
+
+    # (u)-(w) the normal-equations families on one D.
+    rng = np.random.default_rng(4)
+    m, n = REG_SHAPE
+    D = rng.standard_normal((m, n)).astype(np.float32)
+    s = rng.standard_normal(m).astype(np.float32)
+    D64, s64 = D.astype(np.float64), s.astype(np.float64)
+    Dd, sd = torch.from_numpy(D).to(dev), torch.from_numpy(s).to(dev)
+    solvers = {"lad": (lambda D_, s_, c: lad(D_, s_, c), 1e-2),
+               "huberfit": (lambda D_, s_, c: huberfit(D_, s_, c), 1e-3),
+               "quantile": (lambda D_, s_, c: quantile(D_, s_, 0.8, c), 1e-2)}
+    for tag, (family, (solve, bar)) in zip("uvw", solvers.items()):
+        print(f"  ({tag}) {family} {m}x{n}")
+        main_path(f"{tag} timed", lambda: solve(Dd, sd, timed))
+        against_f64(tag, lambda dt: solve(Dd.to(dt), sd.to(dt), oracle), bar,
+                    lambda a, b: abs(family_objective(family, D64, s64, a.xopt)
+                                     - family_objective(family, D64, s64, b.xopt))
+                    / abs(family_objective(family, D64, s64, b.xopt)))
+
+    # (x) the linear SVM at matrix.py's size.
+    rng = np.random.default_rng(5)
+    D = rng.standard_normal((m, n)).astype(np.float32)
+    ell = np.sign(D @ rng.standard_normal(n) + 0.1 * rng.standard_normal(m)).astype(np.float32)
+    D64, ell64 = D.astype(np.float64), ell.astype(np.float64)
+    Dd, elld = torch.from_numpy(D).to(dev), torch.from_numpy(ell).to(dev)
+    print(f"  (x) linearsvm {m}x{n}, hinge, C = 1")
+    main_path("x timed", lambda: linearsvm(Dd, elld, 1.0, timed))
+    against_f64("x", lambda dt: linearsvm(Dd.to(dt), elld.to(dt), 1.0, oracle), 1e-3,
+                lambda a, b: abs(family_objective("hinge", D64, ell64, a.xopt)
+                                 - family_objective("hinge", D64, ell64, b.xopt))
+                / abs(family_objective("hinge", D64, ell64, b.xopt)))
+
+    # (y) the linear-SVM oracle.
+    D, ell = svm_instance(0, 128, 128, 0.5)
+    D32, ell32 = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (D, ell))
+    for loss in ("hinge", "01"):
+        r = main_path(f"y {loss}", lambda: linearsvm(
+            D32, ell32, 1.0, ADMMConfig(objevals=True, maxiters=1000), loss=loss))
+        x = r.xopt.double().cpu().numpy()
+        slope = abs(1.0 - (-x[1] / x[0]))
+        f, f_ref = (family_objective(loss, D, ell, torch.from_numpy(v))
+                    for v in (x, np.array([1.0, -1.0])))
+        print(f"  (y) {loss}: slope error {slope:.4f} (bar 0.05), objective {f:.6f} "
+              f"(at [1, -1]: {f_ref:.6f})")
+        check(slope <= 0.05 and f < f_ref, f"(y) {loss}: slope within 0.05, objective below "
+              "the one at [1, -1]")
+
+
 def main():
     import torch
 
@@ -1189,6 +1410,7 @@ def main():
     k2_launches = bf16_phase(dev, a)
     k4_launches = tv_phase(dev)
     variants = variants_phase(dev, d_plain)
+    families_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):

@@ -7,8 +7,9 @@ import numpy as np
 import pytest
 import torch
 
-from admm_tpu_torch import (ADMMConfig, admm, elasticnet, grouplasso, lasso, nnls,
-                            totalvariation, totalvariation2d)
+from admm_tpu_torch import (ADMMConfig, admm, basispursuit, elasticnet, fusedlasso, get_prox_ops,
+                            grouplasso, huberfit, lad, lasso, linearsvm, nnls, quantile,
+                            totalvariation, totalvariation2d, unwrappedadmm)
 from admm_tpu_torch.device import resolve_device
 
 torch.set_num_threads(1)
@@ -26,6 +27,7 @@ def _problem(seed=0, m=12, n=30):
 
 _CFG = ADMMConfig(maxiters=3, domaxiters=True)
 _D, _S = _problem()
+_DS, _SS = _problem(3, 30, 12)  # skinny, for the normal-equations and SVM families
 _ENTRIES = {
     "lasso": lambda **kw: lasso(_D, _S, 0.1, _CFG, **kw),
     "elasticnet": lambda **kw: elasticnet(_D, _S, 0.1, 0.5, _CFG, **kw),
@@ -35,6 +37,13 @@ _ENTRIES = {
     "totalvariation2d": lambda **kw: totalvariation2d(_D, 0.5, _CFG, **kw),
     "admm": lambda **kw: admm(lambda x, z, u, rho: 0.5 * (z - u),
                               lambda x, z, u, rho: x + u, _CFG, m=8, **kw),
+    "basispursuit": lambda **kw: basispursuit(_D, _S, _CFG, **kw),
+    "fusedlasso": lambda **kw: fusedlasso(_S, 0.1, 0.2, _CFG, **kw),
+    "lad": lambda **kw: lad(_DS, _SS, _CFG, **kw),
+    "huberfit": lambda **kw: huberfit(_DS, _SS, _CFG, **kw),
+    "quantile": lambda **kw: quantile(_DS, _SS, 0.3, _CFG, **kw),
+    "linearsvm": lambda **kw: linearsvm(_DS, np.sign(_SS), 1.0, _CFG, **kw),
+    "unwrappedadmm": lambda **kw: unwrappedadmm(lambda x, z, u, rho: z, _DS, _CFG, **kw),
 }
 
 
@@ -48,6 +57,14 @@ def test_numpy_inputs_without_a_device_need_the_card(no_card, entry):
 def test_device_cpu_solves_on_the_cpu(no_card, entry):
     res = _ENTRIES[entry](device="cpu")
     assert res.steps == 3 and res.xopt.device.type == "cpu"
+
+
+def test_registry_places_like_a_solver(no_card):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        get_prox_ops("basispursuit", D=_D, s=_S)
+    pf, pg, obj = get_prox_ops("basispursuit", D=_D, s=_S, device="cpu")
+    x = torch.zeros(30, dtype=torch.float64)
+    assert pf(x, x, x, 1.0).device.type == "cpu"
 
 
 def test_tensors_on_the_cpu_ask_for_the_cpu(no_card):

@@ -4,7 +4,11 @@ cyclic-reduction, GEMV-pair and resident-LASSO kernels against their
 plain PyTorch versions, the LASSO, group-lasso and TV slices going
 through them, and the engine variants (slice 2): one chunk of each on the
 headline problem without a synchronising call inside its steps, and each
-against the same solve on the CPU.
+against the same solve on the CPU; and the families of slices 3 and 4
+(basis pursuit, fused lasso, LAD, Huber, quantile, linear SVM), which run
+no kernel: one chunk of each without a synchronising call inside it, f32
+against f64 on the card to admm_tpu/benchmarks/matrix.py's f32 bars, and
+f64 on the card against the CPU.
 
 Every case needs a CUDA device and skips without one.  This file imports
 no JAX, so it also runs where JAX is not installed; skip the repo's
@@ -20,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from admm_tpu_torch import (ADMMConfig, admm, elasticnet, grouplasso, lasso, model, nnls,
+from admm_tpu_torch import (ADMMConfig, admm, basispursuit, elasticnet, fusedlasso, get_prox_ops,
+                            grouplasso, huberfit, lad, lasso, linearsvm, model, nnls, quantile,
                             totalvariation, totalvariation2d)
 from admm_tpu_torch.benchmarks.headline import make_problem
 from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
@@ -601,3 +606,112 @@ def test_model_on_gpu_matches_the_cpu(cuda):
         assert res.xopt.device.type == "cuda" and res.steps == cpu.steps
         np.testing.assert_allclose(res.xopt.cpu().numpy(), cpu.xopt.numpy(), rtol=1e-9,
                                    atol=1e-10)
+
+
+def _family_solvers():
+    """Slices 3 and 4 at small sizes: family -> solve(dtype, config,
+    device), on numpy inputs made from one seed."""
+    rng = np.random.default_rng(9)
+    Dfat = rng.standard_normal((40, 160))
+    s_bp = Dfat @ (rng.standard_normal(160) * (rng.random(160) < 0.1))
+    D, s = rng.standard_normal((300, 30)), rng.standard_normal(300)
+    ell = np.sign(D @ rng.standard_normal(30) + 0.1 * rng.standard_normal(300))
+    sig = np.repeat(rng.standard_normal(16), 32) + 0.5 * rng.standard_normal(512)
+    return {
+        "basispursuit": lambda dt, cfg, dev: basispursuit(Dfat.astype(dt), s_bp.astype(dt), cfg,
+                                                          device=dev),
+        "fusedlasso": lambda dt, cfg, dev: fusedlasso(sig.astype(dt), 0.1, 0.5, cfg, device=dev),
+        "lad": lambda dt, cfg, dev: lad(D.astype(dt), s.astype(dt), cfg, device=dev),
+        "huberfit": lambda dt, cfg, dev: huberfit(D.astype(dt), s.astype(dt), cfg, device=dev),
+        "quantile": lambda dt, cfg, dev: quantile(D.astype(dt), s.astype(dt), 0.8, cfg,
+                                                  device=dev),
+        "linearsvm": lambda dt, cfg, dev: linearsvm(D.astype(dt), ell.astype(dt), 1.0, cfg,
+                                                    device=dev),
+    }
+
+
+# matrix.py's f32 bars on the objective, and for the fused lasso on xopt
+# (relative norm); basis pursuit is held as chip_smoke.py (s) holds it:
+# xopt at 1e-3 (the stall window stops f32 and f64 short of the optimum)
+# and the tester's constraint error at matrix.py's 1e-4.
+_FAMILY_BARS = {"basispursuit": ("x", 1e-3), "fusedlasso": ("x", 1e-3), "lad": ("obj", 1e-2),
+                "huberfit": ("obj", 1e-3), "quantile": ("obj", 1e-2), "linearsvm": ("obj", 1e-3)}
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILY_BARS))
+def test_family_chunk_reads_nothing_back(cuda, monkeypatch, launches, tail_launches, k2_launches,
+                                         cr_launches, family):
+    # One chunk of 8 sub-steps: no synchronising call inside them, one
+    # read of the stop flag after them, and no kernel launched.
+    K = 8
+    syncs, reads = [], []
+    run_chunks = engine_mod._run_chunks
+
+    def counted(step, flags, N, K_, table=None):
+        def one_step():
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs.extend(str(w.message) for w in seen if "called a synchronizing" in str(w.message))
+
+        def read():
+            reads.append(1)
+            return flags()
+
+        return run_chunks(one_step, read, N, K_, table)
+
+    monkeypatch.setattr(engine_mod, "_run_chunks", counted)
+    res = _family_solvers()[family](np.float32, ADMMConfig(maxiters=K, unroll=K), None)
+    assert syncs == [] and reads == [1]
+    assert res.xopt.device.type == "cuda" and torch.isfinite(res.xopt).all()
+    assert (launches(), tail_launches(), k2_launches(), cr_launches()) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILY_BARS))
+def test_family_f32_on_gpu_within_its_bar(cuda, family):
+    cfg = ADMMConfig(maxiters=20000, abstol=1e-7, reltol=1e-6, stallwindow=100, unroll="auto",
+                     objevals=True)
+    solve = _family_solvers()[family]
+    r32, r64 = solve(np.float32, cfg, cuda), solve(np.float64, cfg, cuda)
+    assert r32.xopt.dtype == torch.float32 and r32.xopt.device.type == "cuda"
+    kind, bar = _FAMILY_BARS[family]
+    if kind == "x":
+        err = torch.linalg.norm(r32.xopt.double() - r64.xopt) / torch.linalg.norm(r64.xopt)
+        if family == "basispursuit":
+            rng = np.random.default_rng(9)  # _family_solvers' D and s
+            D = rng.standard_normal((40, 160))
+            s = D @ (rng.standard_normal(160) * (rng.random(160) < 0.1))
+            Dx = D @ r32.xopt.double().cpu().numpy()
+            assert np.mean(np.abs((Dx - s) / Dx)) <= 1e-4
+    else:
+        err = abs(r32.objopt - r64.objopt) / abs(r64.objopt)
+    assert err <= bar
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILY_BARS))
+def test_family_on_gpu_matches_the_cpu(cuda, family):
+    # f64 on both devices: cuBLAS, cuSOLVER and the CPU's LAPACK round
+    # differently, so the bars are those of a parity test.  The SVM's
+    # random start is drawn on the CPU for both.
+    cfg = ADMMConfig(maxiters=300, unroll=4, objevals=True)
+    solve = _family_solvers()[family]
+    res, cpu = solve(np.float64, cfg, cuda), solve(np.float64, cfg, "cpu")
+    assert res.steps == cpu.steps and res.diverged == cpu.diverged
+    np.testing.assert_allclose(res.xopt.cpu().numpy(), cpu.xopt.numpy(), rtol=1e-9, atol=1e-10)
+    for key in ("pnorm", "objvals"):
+        ref = cpu.trace(key)
+        np.testing.assert_allclose(res.trace(key), ref, rtol=0, atol=1e-8 * np.max(np.abs(ref)))
+
+
+def test_registry_closures_on_gpu(cuda):
+    rng = np.random.default_rng(3)
+    D, s = rng.standard_normal((40, 10)), rng.standard_normal(40)
+    pf, pg, obj = get_prox_ops("quantile", D=D, s=s, tau=0.3)  # the card by default
+    x, z = torch.zeros(10, device=cuda, dtype=torch.float64), torch.zeros(40, device=cuda,
+                                                                         dtype=torch.float64)
+    out = pg(pf(x, z, z, 1.0), z, z, 1.0)
+    assert out.device.type == "cuda" and torch.isfinite(out).all()
