@@ -4,7 +4,8 @@ A second package beside ``admm_tpu``, which stays the reference.  Module
 names mirror ``admm_tpu``'s so each counterpart is easy to find.  The port
 imports ``torch`` and never ``jax``.
 
-Ported so far (ROADMAP.md, queue 1, slices 1, 2, 3, 4 and 6):
+Ported so far (ROADMAP.md, queue 1, slices 1 to 6 and the spectral half
+of 7):
 the engine with all of its serial variants (fast and accelerated ADMM,
 H-norm stops, adaptive and residual-balancing rho, the stall detector,
 Anderson acceleration, iterate records and every hook) and ``FnOp``; the
@@ -18,8 +19,11 @@ cyclic-reduction solve as a CUDA C++ kernel for Hopper; 2-D total
 variation; basis pursuit and the fused lasso (``StackIDiffOp``); LAD,
 Huber fitting and quantile regression on one normal-equations x-update;
 the linear SVM (hinge and 0-1 loss) through the serial unwrapped-ADMM
-solver; and the string registry ``get_prox_ops`` with its ``errorcheck``
-(``utils/validate.py``).  ``admm_tpu_torch.experiments`` holds the two
+solver; the standard-form LP and the QP in both constraint forms on the
+Schur-complement KKT solvers, with Ruiz preconditioning; covariance
+selection and the standard-form SDP on matrix iterates, with eigh or
+Newton-Schulz spectral proxes; and the string registry ``get_prox_ops``
+with its ``errorcheck`` (``utils/validate.py``).  ``admm_tpu_torch.experiments`` holds the two
 probes of ``experiments/`` whose TPU kernels run the GEMV pair and the
 whole fat-LASSO iteration in one launch.
 """
@@ -27,11 +31,14 @@ whole fat-LASSO iteration in one launch.
 from .config import ADMMConfig
 from .engine import Hooks, admm
 from .linop import FnOp
-from .models import (basispursuit, elasticnet, fusedlasso, get_prox_ops, grouplasso, huberfit,
-                     lad, lasso, linearsvm, model, nnls, quantile, totalvariation,
-                     totalvariation2d, unwrappedadmm)
+from .models import (basispursuit, covarianceselection, elasticnet, fusedlasso, get_prox_ops,
+                     grouplasso, huberfit, lad, lasso, linearprogram, linearsvm, model, nnls,
+                     quadraticprogram, quantile, sdp, totalvariation, totalvariation2d,
+                     unwrappedadmm)
 from .results import ADMMResults
 
-__all__ = ["ADMMConfig", "ADMMResults", "FnOp", "Hooks", "admm", "basispursuit", "elasticnet",
-           "fusedlasso", "get_prox_ops", "grouplasso", "huberfit", "lad", "lasso", "linearsvm",
-           "model", "nnls", "quantile", "totalvariation", "totalvariation2d", "unwrappedadmm"]
+__all__ = ["ADMMConfig", "ADMMResults", "FnOp", "Hooks", "admm", "basispursuit",
+           "covarianceselection", "elasticnet", "fusedlasso", "get_prox_ops", "grouplasso",
+           "huberfit", "lad", "lasso", "linearprogram", "linearsvm", "model", "nnls",
+           "quadraticprogram", "quantile", "sdp", "totalvariation", "totalvariation2d",
+           "unwrappedadmm"]

@@ -183,16 +183,29 @@ VARIANTS = {
 
 
 # Families beside LASSO that ``profile`` runs in f32 at the sizes of
-# admm_tpu/benchmarks/matrix.py's timed rows, on the generic step with the
-# 'gemv' body's unroll of 16.
-FAMILY_VARIANTS = ("basispursuit", "lad")
+# admm_tpu/benchmarks/matrix.py's timed rows, on the generic step, with the
+# unroll of their iteration body's class ('gemv' 16, 'heavy' 1) and the
+# steps they are profiled over.
+FAMILY_VARIANTS = {"basispursuit": (16, 2048), "lad": (16, 2048), "lp": (16, 2048),
+                   "qp_bounded": (16, 2048), "covsel_eigh": (1, 200), "covsel_ns": (1, 200),
+                   "sdp_diag_ns": (1, 200)}
 
 
 def _family_setup(variant, cfg, smoke, device):
     """(prox_f, prox_g, obj, data, admm's wiring keywords) of a
-    ``FAMILY_VARIANTS`` problem: basis pursuit with D 512 x 2048 and a
-    planted 10%-sparse x (matrix.py:387-395), or LAD with D 4096 x 512 and
-    s N(0, 1) (matrix.py:416-424); float32 tensors on ``device``."""
+    ``FAMILY_VARIANTS`` problem, float32 tensors on ``device``:
+    - basispursuit: D 512 x 2048, a planted 10%-sparse x (matrix.py:387-395);
+    - lad: D 4096 x 512, s N(0, 1) (matrix.py:416-424);
+    - lp: n = 1024, D = |N(0, 1)|, s = D |x|, b in [0.5, 1.5), affine KKT
+      (matrix.py:430-448), with D of n/2 rows: with matrix.py's square D
+      (condition ~1e6) the float32 solve diverges at its first step
+      (chip_smoke.py's LP phase);
+    - qp_bounded: n = 2048, P = G G^T + n I, box [-1, 1] (matrix.py:465-474);
+    - covsel_eigh, covsel_ns: D (4n, n) N(0, 1), lambda 0.1, n = 256 with
+      the eigh x-prox and n = 512 with the Newton-Schulz one, profiled
+      over the steps FAMILY_VARIANTS gives (200; matrix.py:476-493);
+    - sdp_diag_ns: the max-cut relaxation of a 10%-dense graph, n = 512,
+      Newton-Schulz z-prox with 16 steps (matrix.py:778-801)."""
     import torch
 
     rng = np.random.default_rng(0)
@@ -203,6 +216,41 @@ def _family_setup(variant, cfg, smoke, device):
         m, n = (400, 50) if smoke else (4096, 512)
         D, s = f32(rng.standard_normal((m, n))), f32(rng.standard_normal(m))
         return (*make_lad(D, s, cfg), dict(A=D, B=-1.0, c=s, m=m, nA=n, nB=m))
+    if variant == "lp":
+        from admm_tpu_torch.models.linearprogram import make_prox_ops as make_lp
+
+        n = 64 if smoke else 1024
+        x = np.abs(rng.standard_normal(n))
+        D = np.abs(rng.standard_normal((n // 2, n)))
+        b = rng.random(n) + 0.5
+        return (*make_lp(f32(b), f32(D), f32(D @ x), cfg), dict(m=n, nA=n, nB=n))
+    if variant == "qp_bounded":
+        from admm_tpu_torch.models.quadraticprogram import _obj, make_prox_ops_bounded
+
+        n = 64 if smoke else 2048
+        G = rng.standard_normal((n, n))
+        P = f32(G @ G.T + n * np.eye(n))
+        pf, pg, data = make_prox_ops_bounded(P, f32(rng.standard_normal(n)), f32(-np.ones(n)),
+                                             f32(np.ones(n)), cfg)
+        data.update(P=P, r=f32(0.0))
+        return pf, pg, _obj, data, dict(m=n, nA=n, nB=n)
+    if variant.startswith("covsel"):
+        from admm_tpu_torch.models.covarianceselection import empirical_covariance
+        from admm_tpu_torch.models.covarianceselection import make_prox_ops as make_cs
+
+        n = 32 if smoke else (256 if variant == "covsel_eigh" else 512)
+        S = empirical_covariance(f32(rng.standard_normal((4 * n, n))))
+        method = "eigh" if variant == "covsel_eigh" else "ns"
+        return (*make_cs(S, 0.1, cfg, prox_method=method), dict(shape_x=(n, n), shape_z=(n, n)))
+    if variant == "sdp_diag_ns":
+        from admm_tpu_torch.models.sdp import make_prox_ops as make_sdp
+
+        n = 32 if smoke else 512
+        W = np.triu(rng.random((n, n)) < 0.1, 1).astype(np.float64)
+        W = W + W.T
+        L = np.diag(W.sum(-1)) - W
+        return (*make_sdp(f32(-0.25 * L), "diag", f32(np.ones(n)), cfg, prox_method="ns",
+                          ns_iters=16), dict(shape_x=(n, n), shape_z=(n, n)))
     from admm_tpu_torch.models.basispursuit import make_prox_ops as make_bp
 
     m, n = (64, 256) if smoke else (512, 2048)
@@ -211,7 +259,7 @@ def _family_setup(variant, cfg, smoke, device):
     return (*make_bp(f32(D), f32(D @ x), cfg), dict(m=n, nA=n, nB=n))
 
 
-def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: int = 12,
+def profile(smoke: bool = False, device: str = "cuda", iters: int = None, top: int = 12,
             variant: str = "fused"):
     """Where the time goes in the headline loop, in one of ``VARIANTS``,
     or in a family of ``FAMILY_VARIANTS``.
@@ -222,7 +270,8 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: i
     over unprofiled wall time), kernel launches per step, the device time
     per call of K1b (the z/u pass with the step's tail,
     ``zu_tail_kernel<float, true>``) where the variant runs it, and the
-    ``top`` kernels by device time."""
+    ``top`` kernels by device time.  ``iters`` defaults to 2048, or to the
+    family's own count in ``FAMILY_VARIANTS``."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -232,11 +281,14 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = 2048, top: i
     from admm_tpu_torch.models.lasso import _fused_zu, make_prox_ops
 
     if variant in FAMILY_VARIANTS:
-        cfg = ADMMConfig(maxiters=iters, domaxiters=True, unroll=16)
+        unroll, steps = FAMILY_VARIANTS[variant]
+        iters = iters or steps
+        cfg = ADMMConfig(maxiters=iters, domaxiters=True, unroll=unroll)
         with matmul_precision("highest"):
             prox_f, prox_g, obj, data, wiring = _family_setup(variant, cfg, smoke, device)
         hooks = Hooks(obj=obj)
     else:
+        iters = iters or 2048
         options, bf16, fused = VARIANTS[variant]
         D, s, lam = make_problem(smoke)
         n = D.shape[1]

@@ -3,8 +3,9 @@
 ``admm_tpu``'s solver setups leave their operands in a ``data`` dict of
 JAX arrays and solver objects.  ``numpy_state`` flattens such a dict into
 plain numpy arrays (duck-typed: it never imports JAX), and ``lasso_data``,
-``model_data``, ``tv_data``, ``tv2d_data`` and ``fusedlasso_data``
-rebuild the port's ``data`` dicts from them on a given device.  Feeding
+``model_data``, ``tv_data``, ``tv2d_data``, ``fusedlasso_data`` and
+``program_data`` rebuild the port's ``data`` dicts from them on a given
+device.  Feeding
 the same numbers to both packages this way isolates the iteration from
 differences in the setup-time linear algebra (eigh, solve, inverse),
 which is what the parity tests need.
@@ -31,6 +32,17 @@ Flat keys:
   and ``tau``; the linear SVM: ``D``, ``ell``, ``C`` and the unwrapped
   solver's ``Dplus`` (``admm_tpu``'s pinv, which its unwrappedadmm adds at
   solve time: a test puts it into the dict it flattens);
+- the LP and the standard-form QP: ``b`` (LP) or ``q``, ``P``, ``r`` (QP),
+  ``s`` and the KKT solver as ``kkt.*``, field by field: the Schur solve
+  of dynamic rho ``kkt.D``, ``kkt.V`` (absent for the LP's identity
+  basis), ``kkt.w``, ``kkt.G``; the affine fold ``kkt.K1``, ``kkt.x0``;
+  or the factored apply ``kkt.Minv``, ``kkt.MinvDt``, ``kkt.D``,
+  ``kkt.cf``, ``kkt.lower`` (JAX's ``cho_factor`` keeps the upper
+  factor, ``lower`` False);
+- the bounded QP: ``q``, ``lb``, ``ub``, ``P``, ``r`` and ``Minv``
+  (static rho) or ``sol.V``/``sol.w`` (dynamic rho);
+- covariance selection: ``S``, ``lam``; the SDP: ``C``, ``b`` and, for a
+  dense constraint stack, ``A`` and the Gram's Cholesky factor ``L``;
 - optionally the warm start ``x0``, ``z0``, ``u0`` (the unwrapped
   solver's random start among them).
 
@@ -45,30 +57,40 @@ import torch
 
 from .linop import DiffOp, StackIDiffOp
 from .models.totalvariation2d import TV2DOp
-from .ops.solve import FatShiftSolver, SymShiftSolver, WoodburySolver
+from .ops.solve import (AffineKKTSolver, FatShiftSolver, StaticKKTSolver, SymShiftSolver,
+                        WoodburySolver, kkt_eq_solver)
 from .ops.tridiag import CyclicReductionSolver
 
 _ARRAYS = ("D", "s", "Dts", "lam", "Minv", "S", "Ur", "wr", "Uc", "wc",
            "P", "Q", "r", "Ptr", "Qts", "PtPinv", "QtQinv", "q", "t", "V", "w",
-           "Dplus", "tau", "ell", "C")
+           "Dplus", "tau", "ell", "C", "b", "lb", "ub", "A", "L")
 _FAT_FIELDS = ("D", "E", "rho0")
 # The solver objects carried field by field: data key -> (fields, class).
 _SOLVERS = {"wood": (("D", "V", "w"), WoodburySolver),
             "sol": (("V", "w"), SymShiftSolver),
             "solP": (("V", "w"), SymShiftSolver),
             "solQ": (("V", "w"), SymShiftSolver)}
+# The three KKT solvers behind data["kkt"], told apart by a field only
+# each has: (fields, class); the Schur solve's V is None for the LP.
+_KKT = {"G": (("D", "V", "w", "G"), kkt_eq_solver),
+        "K1": (("K1", "x0"), AffineKKTSolver),
+        "cf": (("Minv", "MinvDt", "D", "cf", "lower"), StaticKKTSolver)}
 _CR_STACKS = ("alphas", "betas", "a_lv", "c_lv", "d_lv")
 _CR_MASKS = ("masks_f", "masks_b")
 
 
 def numpy_state(data: dict, **warm) -> dict:
-    """Flatten a LASSO, model or static-rho TV ``data`` dict (of either
-    package) plus optional ``x0``/``z0``/``u0`` arrays into ``{flat key:
-    numpy array}``."""
+    """Flatten the ``data`` dict of a ported family (from either package)
+    plus optional ``x0``/``z0``/``u0`` arrays into ``{flat key: numpy
+    array}``."""
     state = {}
     for key, val in data.items():
         if key == "fat":
             state.update({f"fat.{f}": _np(getattr(val, f)) for f in _FAT_FIELDS})
+        elif key == "kkt":
+            fields = next(f for k, (f, _) in _KKT.items() if hasattr(val, k))
+            state.update({f"kkt.{f}": _np(getattr(val, f)) for f in fields
+                          if getattr(val, f) is not None})
         elif key in _SOLVERS:
             state.update({f"{key}.{f}": _np(getattr(val, f)) for f in _SOLVERS[key][0]})
         elif key == "cr":
@@ -140,6 +162,11 @@ def _data(state, lead, device, dtype):
     if "fat.E" in state:
         data["fat"] = FatShiftSolver(*(t(f"fat.{f}") for f in _FAT_FIELDS))
     data.update(_solvers(state, t))
+    for mark, (fields, cls) in _KKT.items():
+        if f"kkt.{mark}" in state:
+            data["kkt"] = cls(*(bool(state["kkt.lower"]) if f == "lower"
+                                else t(f"kkt.{f}") if f"kkt.{f}" in state else None
+                                for f in fields))
     return data, warm
 
 
@@ -148,6 +175,16 @@ def _solvers(state, t):
     from their fields with ``t``."""
     return {key: cls(*(t(f"{key}.{f}") for f in fields))
             for key, (fields, cls) in _SOLVERS.items() if f"{key}.{fields[-1]}" in state}
+
+
+def program_data(state: dict, *, device="cpu", dtype=None):
+    """``(data, warm)`` for the port's LP, QP, covariance-selection and SDP
+    proxes (``models/linearprogram.py``, ``quadraticprogram.py``,
+    ``covarianceselection.py``, ``sdp.py``): the arrays, ``Minv`` or
+    ``sol`` of the bounded QP, and the KKT solver rebuilt from its
+    ``kkt.*`` fields.  The default dtype is that of the first of P, S, C,
+    b in the state."""
+    return _data(state, next(k for k in ("P", "S", "C", "b") if k in state), device, dtype)
 
 
 def tv_data(state: dict, *, device="cpu", dtype=None):

@@ -4,9 +4,11 @@ wrappers plus the string-keyed proximal-operator registry.
 Ported so far: the serial LASSO, elastic net, NNLS and group lasso, the
 model problem, 1-D and 2-D total variation, basis pursuit, the fused
 lasso, LAD, Huber fitting, quantile regression, the linear SVM and the
-serial unwrapped-ADMM solver.  Each module exposes ``make_prox_ops(...)``
-and a solver entry point with the reference solver's signature plus
-``device=``; ``get_prox_ops`` resolves a family by name.
+serial unwrapped-ADMM solver, the standard-form LP, the QP in both
+constraint forms, covariance selection and the standard-form SDP.  Each
+module exposes ``make_prox_ops(...)`` and a solver entry point with the
+reference solver's signature plus ``device=``; ``get_prox_ops`` resolves a
+family by name.
 """
 
 _REGISTRY = {}
@@ -46,16 +48,20 @@ def get_prox_ops(problem: str, args=None, **kwargs):
 
 
 from .basispursuit import basispursuit  # noqa: E402
+from .covarianceselection import covarianceselection  # noqa: E402
 from .elasticnet import elasticnet  # noqa: E402
 from .fusedlasso import fusedlasso  # noqa: E402
 from .grouplasso import grouplasso  # noqa: E402
 from .huberfit import huberfit  # noqa: E402
 from .lad import lad  # noqa: E402
 from .lasso import lasso  # noqa: E402
+from .linearprogram import linearprogram  # noqa: E402
 from .linearsvm import linearsvm  # noqa: E402
 from .model import model  # noqa: E402
 from .nnls import nnls  # noqa: E402
+from .quadraticprogram import quadraticprogram  # noqa: E402
 from .quantile import quantile  # noqa: E402
+from .sdp import sdp  # noqa: E402
 from .totalvariation import totalvariation  # noqa: E402
 from .totalvariation2d import totalvariation2d  # noqa: E402
 from .unwrapped import unwrappedadmm  # noqa: E402
@@ -77,4 +83,8 @@ __all__ = [
     "huberfit",
     "linearsvm",
     "unwrappedadmm",
+    "linearprogram",
+    "quadraticprogram",
+    "covarianceselection",
+    "sdp",
 ]

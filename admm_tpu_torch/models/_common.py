@@ -102,3 +102,60 @@ def timed_solver(fn):
         return results
 
     return wrapper
+
+
+def warn_if_badly_scaled(D, P, bar: float = 1e5):
+    """The LP's and QP's one-line steer toward precondition=True when the
+    KKT row-norm spread says plain ADMM will struggle (no reference analog
+    — its testers only generate well-scaled data).  Runs only for numpy inputs
+    of bounded size, as in ``admm_tpu``: tensors would pay a copy to the
+    host per solve, and repeat solves at benchmark sizes would bill an
+    O(mn) f64 scan to every call just to stay silent."""
+    import warnings
+
+    if not isinstance(D, np.ndarray) or D.size > 4_000_000:
+        return
+    if P is not None and (not isinstance(P, np.ndarray) or P.size > 4_000_000):
+        return
+
+    from ..ops.scaling import kkt_scale_quality
+
+    q = kkt_scale_quality(D, P)
+    if q > bar:
+        warnings.warn(
+            f"constraint data is badly scaled (KKT row-norm spread "
+            f"{q:.1e}); plain ADMM may converge slowly or stall — "
+            f"consider precondition=True (Ruiz equilibration)",
+            RuntimeWarning, stacklevel=4)
+
+
+def host64(v):
+    """``v`` (numpy array or tensor, on any device) as a host f64 array,
+    or None."""
+    return None if v is None else as_tensor(v).to("cpu", torch.float64).numpy()
+
+
+def host_dtype(v):
+    """The numpy dtype of ``v``'s numbers (a numpy array's or a tensor's)."""
+    return as_tensor(v)[:0].cpu().numpy().dtype
+
+
+def scaled_start(e, x0, z0, u0):
+    """A warm start in the scaled space of a preconditioned solve:
+    x~ = x / e, z~ = z / e and the scaled dual the other way, u~ = e u
+    (dg~(x~) = E dg(x), so rho u~ = E (rho u))."""
+    def f(v, op):
+        return None if v is None else op(host64(v))
+
+    return dict(x0=f(x0, lambda v: v / e), z0=f(z0, lambda v: v / e), u0=f(u0, lambda v: v * e))
+
+
+def unscale(res, e, rr):
+    """Map a preconditioned solve back: x = e x~, z = e z~, and the scaled
+    dual the other way, u = u~ / e; the scales go to ``results.extra``."""
+    ev = torch.as_tensor(e, dtype=res.xopt.dtype, device=res.xopt.device)
+    res.xopt = ev * res.xopt
+    res.zopt = ev * res.zopt
+    res.uopt = res.uopt / ev
+    res.extra = {**(res.extra or {}), "ruiz_col": e, "ruiz_row": rr}
+    return res

@@ -1,12 +1,14 @@
-"""Elementwise proximal operators (port of ``admm_tpu/ops/prox.py``:
-``soft_threshold``, ``asymmetric_soft_threshold``, ``block_soft_threshold``,
-``hinge_prox``, ``zero_one_prox``, ``huber_prox`` and ``project_nonneg``
-so far).  The fused soft-threshold + dual-update kernel of the engine's
-performance mode lives in ``ops/kernels.py``.
+"""Proximal operators (port of ``admm_tpu/ops/prox.py``, all of it).  The
+fused soft-threshold + dual-update kernel of the engine's performance mode
+lives in ``ops/kernels.py``.
 
 Thresholds, ``rho`` and the SVM's ``C`` may be Python floats or 0-d
-tensors on the operand's device; no function here reads a tensor back to
-the host, so a solve's sub-steps stay free of synchronising calls."""
+tensors on the operand's device.  No element-wise function here reads a
+tensor back to the host, so a solve's sub-steps stay free of
+synchronising calls.  The two spectral ones, ``psd_project`` and
+``covsel_eig_prox``, run ``torch.linalg.eigh`` (cuSOLVER on the card,
+see ``sym_eigh``), which checks its ``info`` on the host: one
+synchronising call each."""
 
 from __future__ import annotations
 
@@ -99,3 +101,71 @@ def project_nonneg(v):
     """Projection onto the nonnegative orthant — LP/QP-standard z-prox
     (reference zminLinearProgram, getProxOps.m:1378-1382)."""
     return torch.clamp_min(v, 0.0)
+
+
+def project_box(v, lb, ub):
+    """Projection onto {lb <= z <= ub} — bounded-QP z-prox
+    (reference zminQuadraticProgramBounded, getProxOps.m:1470-1474)."""
+    return torch.minimum(ub, torch.maximum(lb, v))
+
+
+def _sym(W):
+    return 0.5 * (W + W.transpose(-1, -2))
+
+
+# On a CUDA device torch.linalg.eigh takes cuSOLVER's Jacobi syevj for a
+# float32 matrix of order 32 to 512 (syevjBatched for batches of order 32
+# or less), and syevd otherwise.  syevj's float32 eigenpairs carry an
+# error that accumulates over the steps of a solve: a float32 max-cut SDP
+# (n = 512) ends far further from float64 with them than with LAPACK's
+# float32 syevd or with the route below (experiments/eigh_route_probe.py
+# measures each route).
+JACOBI_MAX_N = 512
+
+
+def sym_eigh(W):
+    """(eigenvalues ascending, eigenvectors) of the symmetric part of W,
+    the one eigendecomposition of both spectral proxes.
+
+    A float32 matrix on a CUDA device of order up to ``JACOBI_MAX_N``
+    (the orders torch would hand to syevj) is decomposed in float64
+    (cuSOLVER's syevd) and its factors rounded back to float32; every
+    other input goes to ``torch.linalg.eigh`` as it is.  Either way the
+    call reads cuSOLVER's ``info`` back to the host once."""
+    W = _sym(W)
+    if W.is_cuda and W.dtype == torch.float32 and W.shape[-1] <= JACOBI_MAX_N:
+        e, Q = torch.linalg.eigh(W.double())
+        return e.float(), Q.float()
+    return torch.linalg.eigh(W)
+
+
+def psd_project(W):
+    """Projection onto the positive-semidefinite cone: symmetrize, then
+    clamp the spectrum at zero (Higham 1988).  SDP z-prox; takes leading
+    batch dimensions.  Beyond-reference family — the reference's closest
+    analog is the covariance-selection spectral prox (getProxOps.m:1487-1496),
+    which uses the same eigh+reconstruct shape."""
+    e, Q = sym_eigh(W)
+    return (Q * torch.clamp_min(e, 0.0).unsqueeze(-2)) @ Q.transpose(-1, -2)
+
+
+def covsel_eig_prox(ZU_minus_S_scaled, rho, weight=1.0):
+    """Covariance-selection x-prox.
+
+    Given W = rho*(Z - U) - S, eigendecompose W = Q diag(e) Q^T and return
+    X = Q diag((e + sqrt(e^2 + 4 rho w)) / (2 rho)) Q^T
+    (reference xminCovarianceSelection, getProxOps.m:1487-1496; w = 1).
+
+    W is symmetric only up to rounding (X comes from a Q diag Q^T
+    reconstruction), and ``torch.linalg.eigh`` reads one triangle, where
+    ``jnp.linalg.eigh`` symmetrizes its input first: W is symmetrized here
+    so that both packages decompose the same matrix.
+
+    ``weight`` scales the logdet term: the prox of
+    tr(S X) - w logdet X solves rho X - w X^{-1} = W, whose spectral
+    root swaps 4 rho for 4 rho w (the consensus covsel split's per-shard
+    prox).
+    """
+    e, Q = sym_eigh(ZU_minus_S_scaled)
+    diag = (e + torch.sqrt(e * e + (4.0 * weight) * rho)) / (2.0 * rho)
+    return (Q * diag.unsqueeze(-2)) @ Q.transpose(-1, -2)

@@ -145,6 +145,38 @@ through the functions a user calls and checks what comes out:
      launch (these families run the generic step and no kernel), no
      synchronising call inside a sub-step and at most one per chunk plus
      SYNCS_OUTSIDE.
+ 11. slice 5 and the spectral half of slice 7 at matrix.py's widths in
+     f32 (``programs_phase``), the timed runs under domaxiters with unroll
+     'auto', the others at ORACLE:
+     (z1), (z2) the LP, n = 1024, D |N(0, 1)| with n/2 rows (matrix.py's
+         square D is printed beside: its f32 solve diverges), s = D |x|,
+         b in [0.5, 1.5), kkt_mode 'affine' and 'chol', PROGRAM_TIMED_STEPS
+         timed steps: objective within 1e-4 of f64 on the card;
+     (z3) the standard-form QP, P = G G^T + n I, D N(0, 1)/sqrt(n), n/2
+         rows (the square D printed beside), and (z4) the bounded QP,
+         n = 2048, box [-1, 1]: x within 5e-3 of f64 on the card;
+     (z5) covariance selection, D (4n, n) N(0, 1), lambda 0.1, n = 256,
+         eigh and ns, and (z6) n = 512, ns, ns_fast (ns_iters 14) and
+         eigh: each objective within 1e-3 of the same solve in f64 on the
+         card, ns and ns_fast within 1e-3 of eigh on the card, with the
+         float32 matmul mode that matmul_precision('default') selects
+         measured and printed;
+     (z7) the max-cut SDP (A = 'diag', 10% edges, n = 512), eigh and ns
+         (ns_iters 16): Z within 1e-4 of the same steps in f64 on the card;
+         (z8) the dense SDP, random_sdp_instance(128, 512, 32): Z within
+         1e-3 of the same steps in f64, A(X) = b within 1e4 eps of
+         rounding in f32 and f64; for both, one f32 PSD projection within
+         1e-5 of f64, torch's own f32 eigh and a bf16 input printed beside
+         as controls;
+     (z9) matrix.py's SDP gap on random_sdp_instance(16, 24, 6): eigh
+         within 1e-3, ns (ns_iters 30) within 1e-2;
+     (z10) matrix.py's badly scaled LP (48 x 144, scales 10^+-2) with
+         precondition=True within 2e-3 of scipy's HiGHS optimum, the steps
+         without preconditioning printed.
+     Every run on the main path: xopt on the card, no K1-K4 launch, no
+     synchronising call inside a sub-step except the eigh proxes' (one
+     each, cuSOLVER's info read back; counted and printed, not held), at
+     most one per chunk plus SYNCS_OUTSIDE outside.
 
 Kernel times are device times: CUDA events around replays of a CUDA
 graph that holds several calls (``graph_ms``), so that the host's time per
@@ -209,6 +241,17 @@ REG_SHAPE = (4096, 512)
 FL_N = 8192
 # matrix.py's f32 oracle settings (accuracy_matrix, _beyond_reference_accuracy).
 ORACLE = dict(maxiters=20000, abstol=1e-7, reltol=1e-6, stallwindow=100, unroll="auto")
+# (z1)-(z10): matrix.py's widths; its timed steps cut to keep the script's
+# time (LP 16000 and bounded QP 8000 to 2000).
+LP_N = 1024
+QPB_N = 2048
+PROGRAM_TIMED_STEPS = 2000
+COVSEL_N = (256, 512)  # (z5) eigh and ns, (z6) ns and ns_fast against eigh
+COVSEL_TIMED_STEPS = 200
+SDP_DIAG_N = 512
+SDP_DIAG_TIMED_STEPS = 40
+SDP_DENSE = (128, 512, 32)
+SDP_DENSE_TIMED_STEPS = 100
 # H100 SXM peaks from NVIDIA's data sheet.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -508,16 +551,16 @@ def slice_phase(dev):
 def counting_syncs():
     """Count the synchronising CUDA calls of a solve, as
     ``torch.cuda.set_sync_debug_mode("warn")`` reports them: yields a dict
-    whose "steps" counts those inside the engine's sub-steps, "chunks" the
-    chunks (each ends in one read of the stop flag) and, on exit, "solve"
-    all of the solve's, set-up included."""
+    whose "steps" counts those inside the engine's sub-steps, "substeps"
+    the sub-steps, "chunks" the chunks (each ends in one read of the stop
+    flag) and, on exit, "solve" all of the solve's, set-up included."""
     import warnings
 
     import torch
 
     from admm_tpu_torch import engine
 
-    got = {"steps": 0, "chunks": 0, "solve": 0}
+    got = {"steps": 0, "substeps": 0, "chunks": 0, "solve": 0}
     run_chunks = engine._run_chunks
     tally = [0, 0]  # warnings looked at, synchronising calls among them
     with warnings.catch_warnings(record=True) as seen:
@@ -533,6 +576,7 @@ def counting_syncs():
                 before = syncs()
                 step()
                 got["steps"] += syncs() - before
+                got["substeps"] += 1
 
             def read():
                 got["chunks"] += 1
@@ -1234,57 +1278,76 @@ def family_objective(family, D, s, x, tau=0.8, C=1.0):
     return 0.5 * np.sum(x * x) + C * np.sum(loss)
 
 
-def families_phase(dev):
-    """Slices 3 and 4, (s)-(y): none of their runs may launch K1-K4."""
+def main_path(tag, solve, eigh=False):
+    """Run ``solve`` with every kernel's count (K1-K4) at 0 just before it
+    and read just after, its synchronising calls counted, and check that
+    none launched, that its xopt is finite on the card and that no
+    synchronising call ran inside a sub-step (``eigh``: the calls of
+    ``torch.linalg.eigh``, which reads cuSOLVER's info back every call,
+    are counted and printed instead), and at most one per chunk plus
+    SYNCS_OUTSIDE outside the loop."""
     import torch
 
-    from admm_tpu_torch import (ADMMConfig, basispursuit, fusedlasso, huberfit, lad, linearsvm,
-                                quantile, totalvariation)
     from admm_tpu_torch.ops.gemv_pair import gemv_pair, resident_lasso
     from admm_tpu_torch.ops.kernels import fused_soft_threshold_dual, fused_zu_tail
     from admm_tpu_torch.ops.tridiag import cr_solve
 
     kernels = {"K1": fused_soft_threshold_dual, "K1b": fused_zu_tail, "K2": gemv_pair,
                "K3": resident_lasso, "K4": cr_solve}
+    for k in kernels.values():
+        k.launches = 0
+    with counting_syncs() as sy:
+        r = solve()
+        torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    outside = sy["solve"] - sy["steps"] - sy["chunks"]
+    print(f"  ({tag}) steps={r.steps} runtime={r.runtime:.4f}s iter/s "
+          f"{r.steps / r.runtime:.1f} (setup+solve {r.solverruntime:.4f}s); kernel "
+          f"launches {launches}; synchronising calls: {sy['steps']} inside "
+          f"{sy['substeps']} sub-steps, {sy['chunks']} chunk reads, {outside} outside the loop")
+    check(r.xopt.device.type == "cuda" and bool(torch.isfinite(r.xopt).all())
+          and not r.diverged, f"({tag}) xopt finite on the card")
+    check(not any(launches.values()), f"({tag}) no K1-K4 launch")
+    if eigh:
+        print(f"  ({tag}) eigh: {sy['steps'] / sy['substeps']:.3f} synchronising calls per "
+              f"sub-step (reported, not held)")
+    else:
+        check(sy["steps"] == 0, f"({tag}) no synchronising call inside a sub-step")
+    check(sy["solve"] <= sy["chunks"] + sy["steps"] + SYNCS_OUTSIDE,
+          f"({tag}) at most one per chunk plus {SYNCS_OUTSIDE} outside the loop")
+    return r
+
+
+def against_f64(tag, solve, bar, measure, eigh=False):
+    """The converging f32 solve on the main path and the same in f64 on
+    the card; checks measure(f32 run, f64 run) <= bar."""
+    import torch
+
+    r32 = main_path(tag, lambda: solve(torch.float32), eigh)
+    r64 = solve(torch.float64)
+    err = measure(r32, r64)
+    print(f"  ({tag}) f32: steps={r32.steps} stalled={r32.stalled}; f64: steps={r64.steps} "
+          f"stalled={r64.stalled}; error {err:.3e} (bar {bar})")
+    check(err <= bar, f"({tag}) f32 within {bar} of f64 on the card")
+    return r32, r64
+
+
+def rel(a, b):
+    """||a - b|| / ||b|| of two tensors, in f64."""
+    import torch
+
+    return float(torch.linalg.norm(a.double() - b.double()) / torch.linalg.norm(b.double()))
+
+
+def families_phase(dev):
+    """Slices 3 and 4, (s)-(y): none of their runs may launch K1-K4."""
+    import torch
+
+    from admm_tpu_torch import (ADMMConfig, basispursuit, fusedlasso, huberfit, lad, linearsvm,
+                                quantile, totalvariation)
+
     timed = ADMMConfig(maxiters=FAMILY_TIMED_STEPS, domaxiters=True, unroll="auto")
     oracle = ADMMConfig(**ORACLE)
-
-    def main_path(tag, solve):
-        """Run ``solve`` with every kernel's count at 0 just before it and
-        read just after, its synchronising calls counted, and check both
-        and its xopt."""
-        for k in kernels.values():
-            k.launches = 0
-        with counting_syncs() as sy:
-            r = solve()
-            torch.cuda.synchronize()
-        launches = {name: k.launches for name, k in kernels.items()}
-        outside = sy["solve"] - sy["steps"] - sy["chunks"]
-        print(f"  ({tag}) steps={r.steps} runtime={r.runtime:.4f}s iter/s "
-              f"{r.steps / r.runtime:.1f} (setup+solve {r.solverruntime:.4f}s); kernel "
-              f"launches {launches}; synchronising calls: {sy['steps']} inside sub-steps, "
-              f"{sy['chunks']} chunk reads, {outside} outside the loop")
-        check(r.xopt.device.type == "cuda" and bool(torch.isfinite(r.xopt).all())
-              and not r.diverged, f"({tag}) xopt finite on the card")
-        check(not any(launches.values()), f"({tag}) no K1-K4 launch")
-        check(sy["steps"] == 0, f"({tag}) no synchronising call inside a sub-step")
-        check(sy["solve"] <= sy["chunks"] + SYNCS_OUTSIDE,
-              f"({tag}) at most one per chunk plus {SYNCS_OUTSIDE} outside the loop")
-        return r
-
-    def against_f64(tag, solve, bar, measure):
-        """The converging f32 solve and the same in f64 on the card; checks
-        measure(f32 run, f64 run) <= bar."""
-        r32 = main_path(tag, lambda: solve(torch.float32))
-        r64 = solve(torch.float64)
-        err = measure(r32, r64)
-        print(f"  ({tag}) f32: steps={r32.steps} stalled={r32.stalled}; f64: steps={r64.steps} "
-              f"stalled={r64.stalled}; error {err:.3e} (bar {bar})")
-        check(err <= bar, f"({tag}) f32 within {bar} of f64 on the card")
-        return r32, r64
-
-    def rel(a, b):
-        return float(torch.linalg.norm(a.double() - b.double()) / torch.linalg.norm(b.double()))
 
     print(f"slices 3 and 4: the generic step's families in f32, {FAMILY_TIMED_STEPS} timed "
           f"steps (fused lasso {FL_TIMED_STEPS}), oracle settings {ORACLE}")
@@ -1382,6 +1445,261 @@ def families_phase(dev):
               "the one at [1, -1]")
 
 
+def medium_precision_mode(dev):
+    """What ``config.matmul_precision('default')`` (torch's 'medium') makes
+    of a float32 matmul on this card, against 'highest' and f64: the
+    relative error of a 512 x 512 product, and the mode it points to."""
+    import torch
+
+    from admm_tpu_torch.config import matmul_precision
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    a, b = (torch.randn(512, 512, device=dev, generator=g) for _ in range(2))
+    ref = a.double() @ b.double()
+    errs = {}
+    for mode in ("highest", "default"):
+        with matmul_precision(mode):
+            errs[mode] = rel(a @ b, ref)
+            torch_mode = torch.get_float32_matmul_precision()
+    name = ("full f32" if errs["default"] < 1e-5 else
+            "TF32 (tensor cores, 10-bit mantissa)" if errs["default"] < 1.5e-3 else
+            "bf16 passes")
+    print(f"  matmul_precision('default') -> torch '{torch_mode}': a 512x512 f32 product is "
+          f"{errs['default']:.3e} from f64 ('highest': {errs['highest']:.3e}), i.e. {name}")
+    return name
+
+
+def _covsel_objective(S64, lam, r):
+    """tr(S X) - logdet X + lam ||Z||_1 in NumPy f64."""
+    X, Z = (v.double().cpu().numpy() for v in (r.xopt, r.zopt))
+    sign, logdet = np.linalg.slogdet(X)
+    return np.trace(S64 @ X) - logdet + lam * np.sum(np.abs(Z)) if sign > 0 else np.inf
+
+
+def _projection_controls(tag, W64):
+    """Hold the port's f32 PSD projection of ``W64`` (``ops/prox.psd_project``)
+    within 1e-5 of the f64 one, and print two controls beside it: torch's
+    own f32 eigh (cuSOLVER's Jacobi syevj) and W rounded to bf16."""
+    import torch
+
+    from admm_tpu_torch.ops.prox import _sym, psd_project
+
+    ref = psd_project(W64)
+    port = rel(psd_project(W64.float()), ref)
+    e, Q = torch.linalg.eigh(_sym(W64.float()))
+    syevj = rel((Q * torch.clamp_min(e, 0.0).unsqueeze(-2)) @ Q.T, ref)
+    bf16 = rel(psd_project(W64.to(torch.bfloat16).double()), ref)
+    print(f"  ({tag}) one f32 PSD projection of X + U from the f64 run, against f64: "
+          f"{port:.3e} (bar 1e-5); controls: torch's f32 eigh {syevj:.3e}, W in bf16 {bf16:.3e}")
+    check(port <= 1e-5, f"({tag}) the f32 PSD projection within 1e-5 of f64")
+
+
+def programs_phase(dev):
+    """Slice 5 and the spectral half of slice 7, (z1)-(z10): none of their
+    runs may launch K1-K4."""
+    import torch
+
+    from admm_tpu_torch import (ADMMConfig, covarianceselection, linearprogram,
+                                quadraticprogram, sdp)
+    from admm_tpu_torch.config import matmul_precision
+    from admm_tpu_torch.models.sdp import random_sdp_instance
+
+    oracle = ADMMConfig(**ORACLE)
+    t0 = time.perf_counter()
+
+    def timed(steps):
+        return ADMMConfig(maxiters=steps, domaxiters=True, unroll="auto")
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in arrays]
+
+    print(f"slices 5 and 7 (spectral half): LP, QP, covariance selection and SDP in f32, "
+          f"timed under domaxiters, oracle settings {ORACLE}")
+
+    # (z1), (z2) the LP at matrix.py's width, affine and factored KKT.
+    rng = np.random.default_rng(6)
+    n = LP_N
+    x_true = np.abs(rng.standard_normal(n))
+    D = np.abs(rng.standard_normal((n // 2, n)))
+    s, b = D @ x_true, rng.random(n) + 0.5
+    Dd, sd, bd = on_card(D, s, b)
+    b64 = b.astype(np.float32).astype(np.float64)
+    lp_obj = lambda r: float(b64 @ r.xopt.double().cpu().numpy())  # noqa: E731
+    for tag, mode in (("z1", "affine"), ("z2", "chol")):
+        print(f"  ({tag}) linearprogram n={n}, D |N(0,1)| {n // 2}x{n}, kkt_mode={mode!r}")
+        main_path(f"{tag} timed", lambda: linearprogram(bd, Dd, sd, timed(PROGRAM_TIMED_STEPS),
+                                                        kkt_mode=mode))
+        r32, r64 = against_f64(
+            tag, lambda dt: linearprogram(bd.to(dt), Dd.to(dt), sd.to(dt), oracle,
+                                          kkt_mode=mode), 1e-4,
+            lambda a, c: abs(lp_obj(a) - lp_obj(c)) / abs(lp_obj(c)))
+        print(f"  ({tag}) ||x_f32 - x_f64|| / ||x_f64|| = {rel(r32.xopt, r64.xopt):.3e}; "
+              f"||D x_f32 - s|| / ||s|| = {rel(Dd @ r32.xopt, sd):.3e}")
+    # matrix.py's own LP is square (n x n): print what f32 makes of it.
+    Dsq = np.abs(rng.standard_normal((n, n)))
+    ssq = Dsq @ x_true
+    (Dsq_d, ssq_d) = on_card(Dsq, ssq)
+    info = int(torch.linalg.cholesky_ex(Dsq_d.double() @ Dsq_d.double().T)[1])
+    with matmul_precision("highest"):
+        info32 = int(torch.linalg.cholesky_ex(Dsq_d @ Dsq_d.T)[1])
+    sq = linearprogram(bd, Dsq_d, ssq_d, ADMMConfig(maxiters=200))
+    print(f"  (z2) matrix.py's square {n}x{n} D: cond(D) {np.linalg.cond(Dsq):.3e}; Cholesky "
+          f"of D D^T info f64 {info}, f32 {info32} (0: factored); an f32 solve stops after "
+          f"{sq.steps} steps, diverged={sq.diverged}, stalled={sq.stalled} (printed, not held)")
+
+    # (z3) the standard-form QP, (z4) the bounded QP.
+    G = rng.standard_normal((n, n))
+    P = G @ G.T + n * np.eye(n)
+    q = rng.standard_normal(n)
+    Dq = rng.standard_normal((n // 2, n)) / np.sqrt(n)
+    Pd, qd, Dqd, sqd = on_card(P, q, Dq, Dq @ x_true)
+    print(f"  (z3) quadraticprogram standard n={n}, P = G G^T + n I, D N(0,1)/sqrt(n) "
+          f"{n // 2}x{n}")
+    main_path("z3 timed", lambda: quadraticprogram(Pd, qd, 0.0, Dqd, sqd,
+                                                   timed(PROGRAM_TIMED_STEPS)))
+    against_f64("z3", lambda dt: quadraticprogram(Pd.to(dt), qd.to(dt), 0.0, Dqd.to(dt),
+                                                  sqd.to(dt), oracle), 5e-3,
+                lambda a, c: rel(a.xopt, c.xopt))
+    # matrix.py's QP constraint block is square too: print its f32 error.
+    Dsq = rng.standard_normal((n, n)) / np.sqrt(n)
+    Dsq_d, ssq_d = on_card(Dsq, Dsq @ x_true)
+    sq = [quadraticprogram(Pd.to(dt), qd.to(dt), 0.0, Dsq_d.to(dt), ssq_d.to(dt), oracle)
+          for dt in (torch.float32, torch.float64)]
+    print(f"  (z3) matrix.py's square {n}x{n} D: cond(D) {np.linalg.cond(Dsq):.3e}; f32 "
+          f"{sq[0].steps} steps (diverged={sq[0].diverged}, stalled={sq[0].stalled}), f64 "
+          f"{sq[1].steps}; "
+          f"||x_f32 - x_f64|| / ||x_f64|| = {rel(sq[0].xopt, sq[1].xopt):.3e} (printed, not held)")
+    n2 = QPB_N
+    G = rng.standard_normal((n2, n2))
+    Pb, qb = G @ G.T + n2 * np.eye(n2), rng.standard_normal(n2)
+    Pbd, qbd, lbd, ubd = on_card(Pb, qb, -np.ones(n2), np.ones(n2))
+    print(f"  (z4) quadraticprogram bounded n={n2}, box [-1, 1]")
+    main_path("z4 timed", lambda: quadraticprogram(Pbd, qbd, 0.0, lbd, ubd,
+                                                   timed(PROGRAM_TIMED_STEPS)))
+    against_f64("z4", lambda dt: quadraticprogram(Pbd.to(dt), qbd.to(dt), 0.0, lbd.to(dt),
+                                                  ubd.to(dt), oracle), 5e-3,
+                lambda a, c: rel(a.xopt, c.xopt))
+
+    # (z5) covariance selection at n = 256, eigh and ns; (z6) at n = 512,
+    # ns and ns_fast, with eigh as their reference on the card.  Each
+    # converging run is held against the same solve in f64 on the card.
+    mode = medium_precision_mode(dev)
+    for tag, nc, methods in (("z5", COVSEL_N[0], ("eigh", "ns")),
+                             ("z6", COVSEL_N[1], ("ns", "ns_fast", "eigh"))):
+        Dc = rng.standard_normal((4 * nc, nc)).astype(np.float32)
+        S64 = np.cov(Dc.astype(np.float64), rowvar=False)
+        (Dcd,) = on_card(Dc)
+        obj = lambda r: _covsel_objective(S64, 0.1, r)  # noqa: E731
+        runs = {}
+        for method in methods:
+            eigh = method == "eigh"
+            kw = {"ns_iters": 14} if method == "ns_fast" else {}
+            print(f"  ({tag}) covarianceselection n={nc}, D ({4 * nc}, {nc}), lambda 0.1, "
+                  f"prox_method={method!r} {kw}")
+            if tag == "z5" or not eigh:
+                main_path(f"{tag} {method} timed", lambda: covarianceselection(
+                    Dcd, 0.1, timed(COVSEL_TIMED_STEPS), prox_method=method, **kw), eigh)
+            runs[method], _ = against_f64(
+                f"{tag} {method}", lambda dt: covarianceselection(
+                    Dcd.to(dt), 0.1, oracle, prox_method=method, **kw), 1e-3,
+                lambda a, c: abs(obj(a) - obj(c)) / abs(obj(c)), eigh)
+        ref = runs["eigh"]
+        for method, r in runs.items():
+            if method == "eigh":
+                continue
+            err = abs(obj(r) - obj(ref)) / abs(obj(ref))
+            print(f"  ({tag}) {method} against eigh on the card: objective {err:.3e} (bar 1e-3),"
+                  f" ||dX|| / ||X|| {rel(r.xopt, ref.xopt):.3e}, steps {r.steps} / {ref.steps}"
+                  + (f"; square-root steps in {mode}" if method == "ns_fast" else ""))
+            check(err <= 1e-3, f"({tag}) {method} within 1e-3 of eigh")
+
+    # (z7) the max-cut SDP (diag constraint), eigh and ns; (z8) the dense
+    # constraint stack.
+    ns_ = SDP_DIAG_N
+    W = np.triu(rng.random((ns_, ns_)) < 0.1, 1).astype(np.float64)
+    W = W + W.T
+    (Cd,) = on_card(-0.25 * (np.diag(W.sum(-1)) - W))
+    ones = torch.ones(ns_, device=dev)
+    sdp_obj = lambda r: float(torch.sum(Cd.double() * r.zopt.double()))  # noqa: E731
+    # Held against the same steps in f64 on the card: ~4e-6 is what a
+    # sound f32 run reads (Newton-Schulz here, LAPACK's f32 eigh on the
+    # host), 3.5e-3 what torch's own f32 eigh (cuSOLVER's syevj) reads,
+    # which is why ops/prox.sym_eigh decomposes f32 matrices in f64.
+    for method, kw in (("eigh", {}), ("ns", {"ns_iters": 16})):
+        print(f"  (z7) sdp max-cut n={ns_}, 10% edges, A='diag', prox_method={method!r} {kw}")
+        r = main_path(f"z7 {method} timed", lambda: sdp(
+            Cd, "diag", ones, timed(SDP_DIAG_TIMED_STEPS), prox_method=method, **kw),
+            method == "eigh")
+        r64 = sdp(Cd.double(), "diag", ones.double(), timed(SDP_DIAG_TIMED_STEPS),
+                  prox_method=method, **kw)
+        err = rel(r.zopt, r64.zopt)
+        print(f"  (z7) {method}: <C, Z> = {sdp_obj(r):.6f}, the same steps in f64 "
+              f"{sdp_obj(r64):.6f}; ||Z_f32 - Z_f64|| / ||Z_f64|| = {err:.3e} (bar 1e-4)")
+        check(err <= 1e-4, f"(z7) {method}: Z within 1e-4 of the same steps in f64")
+        if method == "eigh":
+            _projection_controls("z7", r64.xopt + r64.uopt)
+    # The dense stack's drift comes from the affine projection's rounding
+    # (||C|| / rho is large beside ||X||): 3.5e-4 with LAPACK's f32 eigh on
+    # the host, 1.6e-3 with torch's f32 eigh on the card.
+    C, A, b, *_ = random_sdp_instance(*SDP_DENSE, rng, dtype=np.float32)
+    Cd, Ad, bd_ = on_card(C, A, b)
+    print(f"  (z8) sdp dense, random_sdp_instance{SDP_DENSE}: A {tuple(A.shape)}")
+    r = main_path("z8 timed", lambda: sdp(Cd, Ad, bd_, timed(SDP_DENSE_TIMED_STEPS)), True)
+    r64 = sdp(Cd.double(), Ad.double(), bd_.double(), timed(SDP_DENSE_TIMED_STEPS))
+    err = rel(r.zopt, r64.zopt)
+    print(f"  (z8) <C, Z> = {sdp_obj(r):.6f}, the same steps in f64 {sdp_obj(r64):.6f}; "
+          f"||Z_f32 - Z_f64|| / ||Z_f64|| = {err:.3e} (bar 1e-3)")
+    check(err <= 1e-3, "(z8) Z within 1e-3 of the same steps in f64")
+    _projection_controls("z8", r64.xopt + r64.uopt)
+    # X is the affine projection: A(X) = b to rounding, as a backward error.
+    Af, b64 = Ad.double().reshape(Ad.shape[0], -1), bd_.double()
+    normA = float(torch.linalg.matrix_norm(Af, 2))
+    for res in (r, r64):
+        X = res.xopt.double()
+        back = float(torch.linalg.norm(Af @ X.reshape(-1) - b64)
+                     / (normA * torch.linalg.norm(X) + torch.linalg.norm(b64)))
+        eps = torch.finfo(res.xopt.dtype).eps
+        print(f"  (z8) {res.xopt.dtype}: ||A(X) - b|| / (||A|| ||X|| + ||b||) = {back:.3e} "
+              f"= {back / eps:.0f} eps (bar 1e4 eps)")
+        check(back <= 1e4 * eps, f"(z8) {res.xopt.dtype}: A(X) = b within 1e4 eps")
+
+    # (z9) matrix.py's SDP gap oracle.
+    C, A, b, Xs, *_ = random_sdp_instance(16, 24, 6, rng, dtype=np.float32)
+    pstar = float(np.sum(C.astype(np.float64) * Xs.astype(np.float64)))
+    Cd, Ad, bd_ = on_card(C, A, b)
+    for method, bar in (("eigh", 1e-3), ("ns", 1e-2)):
+        r = main_path(f"z9 {method}", lambda: sdp(Cd, Ad, bd_, oracle, prox_method=method,
+                                                  ns_iters=30), method == "eigh")
+        gap = abs(float(np.sum(C.astype(np.float64) * r.zopt.double().cpu().numpy())) - pstar)
+        gap /= max(1.0, abs(pstar))
+        print(f"  (z9) sdp gap, random_sdp_instance(16, 24, 6), {method}: {gap:.3e} (bar {bar})")
+        check(gap <= bar, f"(z9) {method} gap within {bar}")
+
+    # (z10) matrix.py's badly scaled LP, preconditioned, against HiGHS.
+    from scipy.optimize import linprog
+
+    m, n = 48, 144
+    D = rng.standard_normal((m, n))
+    s = D @ np.abs(rng.standard_normal(n))
+    b = np.abs(rng.standard_normal(n)) + 0.1
+    Gs, Fs = 10.0 ** rng.uniform(-2, 2, m), 10.0 ** rng.uniform(-2, 2, n)
+    Dbad = (Gs[:, None] * D * Fs[None, :]).astype(np.float32)
+    sbad, bbad = (Gs * s).astype(np.float32), (Fs * b).astype(np.float32)
+    out = linprog(bbad.astype(np.float64), A_eq=Dbad.astype(np.float64),
+                  b_eq=sbad.astype(np.float64), bounds=[(0, None)] * n, method="highs")
+    Dd, sd, bd = on_card(Dbad, sbad, bbad)
+    r = main_path("z10 precondition", lambda: linearprogram(bd, Dd, sd, oracle,
+                                                            precondition=True))
+    plain = linearprogram(bd, Dd, sd, oracle)
+    err = abs(float(bbad.astype(np.float64) @ r.xopt.double().cpu().numpy()) - out.fun)
+    err /= 1.0 + abs(out.fun)
+    print(f"  (z10) preconditioned LP {m}x{n} against HiGHS ({out.fun:.6f}): {err:.3e} "
+          f"(bar 2e-3), {r.steps} steps (stalled={r.stalled}); without preconditioning "
+          f"{plain.steps} steps (stalled={plain.stalled})")
+    check(err <= 2e-3, "(z10) the preconditioned LP within 2e-3 of HiGHS")
+    print(f"  (z1)-(z10) took {time.perf_counter() - t0:.1f}s")
+
+
 def main():
     import torch
 
@@ -1411,6 +1729,7 @@ def main():
     k4_launches = tv_phase(dev)
     variants = variants_phase(dev, d_plain)
     families_phase(dev)
+    programs_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):

@@ -7,8 +7,9 @@ import numpy as np
 import pytest
 import torch
 
-from admm_tpu_torch import (ADMMConfig, admm, basispursuit, elasticnet, fusedlasso, get_prox_ops,
-                            grouplasso, huberfit, lad, lasso, linearsvm, nnls, quantile,
+from admm_tpu_torch import (ADMMConfig, admm, basispursuit, covarianceselection, elasticnet,
+                            fusedlasso, get_prox_ops, grouplasso, huberfit, lad, lasso,
+                            linearprogram, linearsvm, nnls, quadraticprogram, quantile, sdp,
                             totalvariation, totalvariation2d, unwrappedadmm)
 from admm_tpu_torch.device import resolve_device
 
@@ -44,6 +45,11 @@ _ENTRIES = {
     "quantile": lambda **kw: quantile(_DS, _SS, 0.3, _CFG, **kw),
     "linearsvm": lambda **kw: linearsvm(_DS, np.sign(_SS), 1.0, _CFG, **kw),
     "unwrappedadmm": lambda **kw: unwrappedadmm(lambda x, z, u, rho: z, _DS, _CFG, **kw),
+    "linearprogram": lambda **kw: linearprogram(np.abs(_D[0]), np.abs(_D), _S, _CFG, **kw),
+    "quadraticprogram": lambda **kw: quadraticprogram(_DS.T @ _DS, _SS[:12], 0.0, -np.ones(12),
+                                                      np.ones(12), _CFG, **kw),
+    "covarianceselection": lambda **kw: covarianceselection(_DS, 0.1, _CFG, **kw),
+    "sdp": lambda **kw: sdp(_DS.T @ _DS, "diag", np.ones(12), _CFG, **kw),
 }
 
 

@@ -5,10 +5,13 @@ plain PyTorch versions, the LASSO, group-lasso and TV slices going
 through them, and the engine variants (slice 2): one chunk of each on the
 headline problem without a synchronising call inside its steps, and each
 against the same solve on the CPU; and the families of slices 3 and 4
-(basis pursuit, fused lasso, LAD, Huber, quantile, linear SVM), which run
-no kernel: one chunk of each without a synchronising call inside it, f32
-against f64 on the card to admm_tpu/benchmarks/matrix.py's f32 bars, and
-f64 on the card against the CPU.
+(basis pursuit, fused lasso, LAD, Huber, quantile, linear SVM) and of
+slices 5 and 7 (the LP and QP on their KKT solvers, covariance selection
+and the SDP), which run no kernel: one chunk of each without a
+synchronising call inside it (the eigh paths' calls counted and
+recorded), f32 against f64 on the card to
+admm_tpu/benchmarks/matrix.py's f32 bars, and f64 on the card against the
+CPU.
 
 Every case needs a CUDA device and skips without one.  This file imports
 no JAX, so it also runs where JAX is not installed; skip the repo's
@@ -17,6 +20,7 @@ conftest (which imports JAX) there:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 """
 
+import dataclasses
 import importlib
 import warnings
 
@@ -24,11 +28,13 @@ import numpy as np
 import pytest
 import torch
 
-from admm_tpu_torch import (ADMMConfig, admm, basispursuit, elasticnet, fusedlasso, get_prox_ops,
-                            grouplasso, huberfit, lad, lasso, linearsvm, model, nnls, quantile,
+from admm_tpu_torch import (ADMMConfig, admm, basispursuit, covarianceselection, elasticnet,
+                            fusedlasso, get_prox_ops, grouplasso, huberfit, lad, lasso,
+                            linearprogram, linearsvm, model, nnls, quadraticprogram, quantile, sdp,
                             totalvariation, totalvariation2d)
 from admm_tpu_torch.benchmarks.headline import make_problem
 from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
+from admm_tpu_torch.models.sdp import random_sdp_instance
 from admm_tpu_torch.models.totalvariation import tv_system
 from admm_tpu_torch.ops.gemv_pair import (
     _gemv_pair_torch, _resident_lasso_torch, aligned_rows, gemv_pair, resident_lasso)
@@ -609,7 +615,7 @@ def test_model_on_gpu_matches_the_cpu(cuda):
 
 
 def _family_solvers():
-    """Slices 3 and 4 at small sizes: family -> solve(dtype, config,
+    """Slices 3, 4, 5 and 7 at small sizes: family -> solve(dtype, config,
     device), on numpy inputs made from one seed."""
     rng = np.random.default_rng(9)
     Dfat = rng.standard_normal((40, 160))
@@ -617,7 +623,44 @@ def _family_solvers():
     D, s = rng.standard_normal((300, 30)), rng.standard_normal(300)
     ell = np.sign(D @ rng.standard_normal(30) + 0.1 * rng.standard_normal(300))
     sig = np.repeat(rng.standard_normal(16), 32) + 0.5 * rng.standard_normal(512)
+    Dlp = np.abs(rng.standard_normal((32, 64)))
+    s_lp, b_lp = Dlp @ np.abs(rng.standard_normal(64)), rng.random(64) + 0.5
+    G = rng.standard_normal((64, 64))
+    P, q = G @ G.T / 64 + np.eye(64), 3.0 * rng.standard_normal(64)
+    box = (-0.5 * np.ones(64), 0.5 * np.ones(64))
+    Dcov = rng.standard_normal((256, 32))
+    C, A, b, *_ = random_sdp_instance(12, 16, 4, rng)
+    W = np.triu(rng.random((24, 24)) < 0.3, 1).astype(np.float64)
+    lap = np.diag((W + W.T).sum(-1)) - (W + W.T)
+    lp = lambda dt, cfg, dev, **kw: linearprogram(  # noqa: E731
+        b_lp.astype(dt), Dlp.astype(dt), s_lp.astype(dt), cfg, device=dev, **kw)
     return {
+        "linearprogram": lp,
+        "linearprogram_chol": lambda dt, cfg, dev: lp(dt, cfg, dev, kkt_mode="chol"),
+        "linearprogram_dynamic": lambda dt, cfg, dev: lp(dt, dataclasses.replace(
+            cfg, rbadaptive=True), dev),
+        "quadraticprogram": lambda dt, cfg, dev: quadraticprogram(
+            P.astype(dt), q.astype(dt), 0.5, Dlp.astype(dt), s_lp.astype(dt), cfg, device=dev),
+        "quadraticprogram_bounded": lambda dt, cfg, dev: quadraticprogram(
+            P.astype(dt), q.astype(dt), 0.5, *(v.astype(dt) for v in box), cfg, device=dev),
+        "quadraticprogram_bounded_dynamic": lambda dt, cfg, dev: quadraticprogram(
+            P.astype(dt), q.astype(dt), 0.5, *(v.astype(dt) for v in box),
+            dataclasses.replace(cfg, rbadaptive=True), device=dev),
+        "covsel_ns": lambda dt, cfg, dev: covarianceselection(Dcov.astype(dt), 0.2, cfg,
+                                                              prox_method="ns", device=dev),
+        "covsel_ns_fast": lambda dt, cfg, dev: covarianceselection(
+            Dcov.astype(dt), 0.2, cfg, prox_method="ns_fast", device=dev),
+        "sdp_dense_ns": lambda dt, cfg, dev: sdp(C.astype(dt), A.astype(dt), b.astype(dt), cfg,
+                                                 prox_method="ns", ns_iters=30, device=dev),
+        "sdp_diag_ns": lambda dt, cfg, dev: sdp((-0.25 * lap).astype(dt), "diag",
+                                                np.ones(24, dt), cfg, prox_method="ns",
+                                                ns_iters=30, device=dev),
+        "covsel_eigh": lambda dt, cfg, dev: covarianceselection(Dcov.astype(dt), 0.2, cfg,
+                                                                device=dev),
+        "sdp_dense_eigh": lambda dt, cfg, dev: sdp(C.astype(dt), A.astype(dt), b.astype(dt), cfg,
+                                                   device=dev),
+        "sdp_diag_eigh": lambda dt, cfg, dev: sdp((-0.25 * lap).astype(dt), "diag",
+                                                  np.ones(24, dt), cfg, device=dev),
         "basispursuit": lambda dt, cfg, dev: basispursuit(Dfat.astype(dt), s_bp.astype(dt), cfg,
                                                           device=dev),
         "fusedlasso": lambda dt, cfg, dev: fusedlasso(sig.astype(dt), 0.1, 0.5, cfg, device=dev),
@@ -633,17 +676,25 @@ def _family_solvers():
 # matrix.py's f32 bars on the objective, and for the fused lasso on xopt
 # (relative norm); basis pursuit is held as chip_smoke.py (s) holds it:
 # xopt at 1e-3 (the stall window stops f32 and f64 short of the optimum)
-# and the tester's constraint error at matrix.py's 1e-4.
+# and the tester's constraint error at matrix.py's 1e-4.  The LP is held
+# to its 1e-4 on the objective, the QP to its 5e-3 on x, covsel to its
+# 1e-3 and the SDP to its eigh gap bar, 1e-3, on the objective.  The eigh
+# paths (_EIGH) read cuSOLVER's info back once a call and are held apart.
 _FAMILY_BARS = {"basispursuit": ("x", 1e-3), "fusedlasso": ("x", 1e-3), "lad": ("obj", 1e-2),
-                "huberfit": ("obj", 1e-3), "quantile": ("obj", 1e-2), "linearsvm": ("obj", 1e-3)}
+                "huberfit": ("obj", 1e-3), "quantile": ("obj", 1e-2), "linearsvm": ("obj", 1e-3),
+                "linearprogram": ("obj", 1e-4), "linearprogram_chol": ("obj", 1e-4),
+                "linearprogram_dynamic": ("obj", 1e-4), "quadraticprogram": ("x", 5e-3),
+                "quadraticprogram_bounded": ("x", 5e-3),
+                "quadraticprogram_bounded_dynamic": ("x", 5e-3), "covsel_ns": ("obj", 1e-3),
+                "covsel_ns_fast": ("obj", 1e-3), "sdp_dense_ns": ("obj", 1e-3),
+                "sdp_diag_ns": ("obj", 1e-3)}
+_EIGH = {"covsel_eigh": ("obj", 1e-3), "sdp_dense_eigh": ("obj", 1e-3),
+         "sdp_diag_eigh": ("obj", 1e-3)}
 
 
-@pytest.mark.parametrize("family", sorted(_FAMILY_BARS))
-def test_family_chunk_reads_nothing_back(cuda, monkeypatch, launches, tail_launches, k2_launches,
-                                         cr_launches, family):
-    # One chunk of 8 sub-steps: no synchronising call inside them, one
-    # read of the stop flag after them, and no kernel launched.
-    K = 8
+def _chunk_syncs(monkeypatch, solve, K):
+    """Run ``solve`` with the engine's chunks counted: the synchronising
+    calls of each sub-step and the reads of the stop flag."""
     syncs, reads = [], []
     run_chunks = engine_mod._run_chunks
 
@@ -656,7 +707,7 @@ def test_family_chunk_reads_nothing_back(cuda, monkeypatch, launches, tail_launc
                     step()
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
-            syncs.extend(str(w.message) for w in seen if "called a synchronizing" in str(w.message))
+            syncs.append(sum("called a synchronizing" in str(w.message) for w in seen))
 
         def read():
             reads.append(1)
@@ -665,20 +716,62 @@ def test_family_chunk_reads_nothing_back(cuda, monkeypatch, launches, tail_launc
         return run_chunks(one_step, read, N, K_, table)
 
     monkeypatch.setattr(engine_mod, "_run_chunks", counted)
-    res = _family_solvers()[family](np.float32, ADMMConfig(maxiters=K, unroll=K), None)
-    assert syncs == [] and reads == [1]
+    return solve(), syncs, reads
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILY_BARS))
+def test_family_chunk_reads_nothing_back(cuda, monkeypatch, launches, tail_launches, k2_launches,
+                                         cr_launches, family):
+    # One chunk of 8 sub-steps: no synchronising call inside them, one
+    # read of the stop flag after them, and no kernel launched.
+    K = 8
+    res, syncs, reads = _chunk_syncs(monkeypatch, lambda: _family_solvers()[family](
+        np.float32, ADMMConfig(maxiters=K, unroll=K), None), K)
+    assert syncs == [0] * K and reads == [1]
     assert res.xopt.device.type == "cuda" and torch.isfinite(res.xopt).all()
     assert (launches(), tail_launches(), k2_launches(), cr_launches()) == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("family", sorted(_FAMILY_BARS))
+@pytest.mark.parametrize("family", sorted(_EIGH))
+def test_eigh_chunk_syncs_once_a_sub_step(cuda, monkeypatch, launches, tail_launches,
+                                          k2_launches, cr_launches, family):
+    # torch.linalg.eigh has no _ex form: cuSOLVER's info is read back on
+    # the host in every call, one synchronising call per sub-step (recorded
+    # in ROADMAP.md queue 2: a captured chunk cannot hold it).  Every
+    # sub-step makes the same count, and no kernel runs.
+    K = 8
+    res, syncs, reads = _chunk_syncs(monkeypatch, lambda: _family_solvers()[family](
+        np.float32, ADMMConfig(maxiters=K, unroll=K), None), K)
+    print(f"{family}: synchronising calls per sub-step {syncs}")
+    assert syncs == [syncs[0]] * K and 1 <= syncs[0] <= 2 and reads == [1]
+    assert res.xopt.device.type == "cuda" and torch.isfinite(res.xopt).all()
+    assert (launches(), tail_launches(), k2_launches(), cr_launches()) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("n", [16, 40, 128, 512])
+def test_f32_spectral_proxes_on_gpu_track_f64(cuda, n):
+    # torch's own f32 eigh on the card is cuSOLVER's Jacobi syevj from
+    # order 32 to 512; ops/prox.sym_eigh decomposes f32 matrices in f64
+    # there, so one f32 prox stays within 1e-5 of the f64 one (LAPACK's
+    # f32 eigh reads ~1e-6 on such matrices, a bf16 input ~1e-3).
+    from admm_tpu_torch.ops.prox import covsel_eig_prox, psd_project
+
+    G = np.random.default_rng(n).standard_normal((n, n))
+    W = torch.from_numpy((G + G.T) / np.sqrt(2 * n)).to(cuda)
+    for prox in (psd_project, lambda M: covsel_eig_prox(M, 1.0)):
+        out, ref = prox(W.float()), prox(W)
+        assert out.dtype == torch.float32
+        assert torch.linalg.norm(out.double() - ref) <= 1e-5 * torch.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("family", sorted({**_FAMILY_BARS, **_EIGH}))
 def test_family_f32_on_gpu_within_its_bar(cuda, family):
     cfg = ADMMConfig(maxiters=20000, abstol=1e-7, reltol=1e-6, stallwindow=100, unroll="auto",
                      objevals=True)
     solve = _family_solvers()[family]
     r32, r64 = solve(np.float32, cfg, cuda), solve(np.float64, cfg, cuda)
     assert r32.xopt.dtype == torch.float32 and r32.xopt.device.type == "cuda"
-    kind, bar = _FAMILY_BARS[family]
+    kind, bar = {**_FAMILY_BARS, **_EIGH}[family]
     if kind == "x":
         err = torch.linalg.norm(r32.xopt.double() - r64.xopt) / torch.linalg.norm(r64.xopt)
         if family == "basispursuit":
@@ -692,7 +785,7 @@ def test_family_f32_on_gpu_within_its_bar(cuda, family):
     assert err <= bar
 
 
-@pytest.mark.parametrize("family", sorted(_FAMILY_BARS))
+@pytest.mark.parametrize("family", sorted({**_FAMILY_BARS, **_EIGH}))
 def test_family_on_gpu_matches_the_cpu(cuda, family):
     # f64 on both devices: cuBLAS, cuSOLVER and the CPU's LAPACK round
     # differently, so the bars are those of a parity test.  The SVM's

@@ -1,9 +1,9 @@
 """The port's string registry (admm_tpu_torch/models/__init__.py:
 ``register``, ``get_prox_ops``) and its input validation
 (admm_tpu_torch/utils/validate.py: ``errorcheck``, ``slicemaker``)
-against admm_tpu's: tests/test_registry.py apart from the all-problems
-case (it needs LP, QP and covsel, slices 5 and 7), every ported family's
-registry closures against admm_tpu's on the same inputs in f64,
+against admm_tpu's: tests/test_registry.py, its all-problems case with
+``sdp`` beside its ten, every ported family's registry closures against
+admm_tpu's on the same inputs in f64,
 tests/test_validation.py::test_mismatched_shapes_raise, and the rule that
 the port imports neither JAX nor admm_tpu."""
 
@@ -32,6 +32,11 @@ def _cases():
     Dfat = rng.standard_normal((16, 32))
     s32, s16 = rng.standard_normal(32), rng.standard_normal(16)
     S = rng.standard_normal((12, 10))
+    P = rng.standard_normal((16, 16))
+    P = P @ P.T + 16 * np.eye(16)
+    W = rng.standard_normal((40, 10))
+    Csdp = rng.standard_normal((6, 6))
+    Asdp = rng.standard_normal((4, 6, 6))
     return {
         "model": (dict(P=D, Q=D[::-1].copy(), r=s32, s=s32[::-1].copy()), (16,), (16,)),
         "lasso": (dict(D=D, s=s32, lam=0.1), (16,), (16,)),
@@ -46,6 +51,12 @@ def _cases():
         "huberfit": (dict(D=D, s=s32), (16,), (32,)),
         "quantile": (dict(D=D, s=s32, tau=0.3), (16,), (32,)),
         "linearsvm": (dict(D=D, ell=np.sign(s32), C=0.5), (16,), (32,)),
+        "linearprogram": (dict(b=np.abs(s32), D=Dfat, s=s16), (32,), (32,)),
+        "quadraticprogram": (dict(P=P, q=s16, D=Dfat[:8, :16], s=s16[:8], kkt_mode="chol"),
+                             (16,), (16,)),
+        "covarianceselection": (dict(S=np.cov(W, rowvar=False), lam=0.2), (10, 10), (10, 10)),
+        "sdp": (dict(C=Csdp + Csdp.T, A=Asdp + np.swapaxes(Asdp, 1, 2), b=s16[:4]), (6, 6),
+                (6, 6)),
     }
 
 
@@ -65,6 +76,8 @@ def test_registry_closures_match_jax(family):
     # the conditioning of the setup; the others are elementwise.
     if family == "linearsvm":
         assert pf is None and jpf is None  # the x-update is unwrappedadmm's
+    elif family == "quadraticprogram":
+        assert obj is None and jobj is None  # the objective needs r: the solver's
     else:
         np.testing.assert_allclose(pf(tx, tz, tu, 1.3).numpy(), np.asarray(jpf(x, z, u, 1.3)),
                                    rtol=1e-9, atol=1e-12)
@@ -72,7 +85,38 @@ def test_registry_closures_match_jax(family):
     assert got.dtype == torch.float64 and got.device.type == "cpu"
     np.testing.assert_allclose(got.numpy(), np.asarray(jpg(x, z, u, 1.3)), rtol=1e-12,
                                atol=1e-13)
-    np.testing.assert_allclose(float(obj(tx, tz)), float(jobj(x, z)), rtol=1e-12)
+    if obj is not None:
+        np.testing.assert_allclose(float(obj(tx, tz)), float(jobj(x, z)), rtol=1e-12)
+
+
+def test_registry_all_problems_resolve():
+    # tests/test_registry.py::test_registry_all_problems_resolve, its ten
+    # cases and the SDP; each closure runs on the CPU.
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((32, 16))
+    Dfat = rng.standard_normal((16, 32))
+    s32, s16, n16 = rng.standard_normal(32), rng.standard_normal(16), rng.standard_normal(16)
+    cases = {
+        "model": dict(P=D, Q=D, r=s32, s=s32),
+        "lasso": dict(D=D, s=s32, lam=0.1),
+        "basispursuit": dict(D=Dfat, s=s16),
+        "totalvariation": dict(s=s32, lam=1.0),
+        "lad": dict(D=D, s=s32),
+        "huberfit": dict(D=D, s=s32),
+        "linearprogram": dict(b=n16, D=D, s=s32),
+        "quadraticprogram": dict(P=np.eye(16), q=n16, lb=-np.ones(16), ub=np.ones(16)),
+        "covarianceselection": dict(S=np.eye(16), lam=1.0),
+        "linearsvm": dict(D=D, ell=np.sign(s32), C=0.5),
+        "sdp": dict(C=np.eye(4), A="diag", b=np.ones(4)),
+    }
+    for name, args in cases.items():
+        out = get_prox_ops(name, device="cpu", **args)
+        assert len(out) >= 2, name
+        if name != "linearsvm":
+            assert callable(out[0]), name
+        assert callable(out[1]), name
+        jout = jax_get_prox_ops(name, **args)
+        assert [f is None for f in out] == [f is None for f in jout], name
 
 
 def test_registry_unknown_problem():
