@@ -33,40 +33,50 @@ import torch
 
 
 class AndersonWindow:
-    """The rings of one solve over leaves of ``sizes`` elements: for each
-    leaf ``(m + 2, size)`` buffers F and T whose row m + 1 is the spare
-    row of frozen sub-steps."""
+    """The window of one solve over leaves of ``sizes`` elements.  Its rings
+    (``rings``) are for each leaf ``(m + 2, size)`` buffers F and T whose
+    row m + 1 is the spare row of frozen sub-steps; the caller keeps them
+    with its other buffers and hands them to every ``step``."""
 
     def __init__(self, cfg, sizes, *, dtype, device):
         self.cfg = cfg
         self.m = m = int(cfg.anderson)
         self.R = R = m + 1
-        rows = lambda size: torch.zeros((R + 1, size), dtype=dtype, device=device)
-        self.F = [rows(size) for size in sizes]
-        self.T = [rows(size) for size in sizes]
+        self.sizes = list(sizes)
+        self.dtype, self.device = dtype, device
         self.eps = torch.finfo(dtype).eps
         self.ring = torch.arange(R, dtype=torch.int64, device=device)
         self.cols = torch.arange(m, dtype=torch.int64, device=device)
         self.eye = torch.eye(m, dtype=dtype, device=device)
         self.spare = torch.tensor(R, dtype=torch.int64, device=device)
 
-    def initial(self):
+    def rings(self, lead=()):
+        """``(F, T)``: the empty rings, one buffer per leaf in each list,
+        with the leading dimensions ``lead`` (a lane axis)."""
+        rows = lambda size: torch.zeros(tuple(lead) + (self.R + 1, size), dtype=self.dtype,
+                                        device=self.device)
+        return [rows(size) for size in self.sizes], [rows(size) for size in self.sizes]
+
+    def initial(self, lead=()):
         """``(cnt, best)`` before the first step: an empty window and an
         infinite best residual."""
-        device, dtype = self.eye.device, self.eye.dtype
-        return (torch.zeros((), dtype=torch.int64, device=device),
-                torch.full((), float("inf"), dtype=dtype, device=device))
+        return (torch.zeros(tuple(lead), dtype=torch.int64, device=self.device),
+                torch.full(tuple(lead), float("inf"), dtype=self.dtype, device=self.device))
 
-    def step(self, s_in, t_out, cnt, best, *, done, frozen=None):
+    def step(self, s_in, t_out, cnt, best, F, T, *, done, frozen=None, put=None):
         """One extrapolation.  ``s_in`` and ``t_out`` are lists of tensors,
         leaf for leaf; ``cnt`` and ``best`` the window's count and best
-        residual norm^2; ``done`` this step's stop flag.  Returns
-        ``(next, cnt_new, best_new)``: the leaves the next step starts
-        from, in ``t_out``'s shapes, and the window's new scalars, which
-        the caller keeps or discards under ``frozen`` like any state.  The
-        ring rows are written in place (to the spare row when ``frozen``).
+        residual norm^2; ``F`` and ``T`` the rings; ``done`` this step's
+        stop flag.  Returns ``(next, cnt_new, best_new, F, T)``: the leaves
+        the next step starts from, in ``t_out``'s shapes, the window's new
+        scalars, which the caller keeps or discards under ``frozen`` like
+        any state, and the rings with this step's row written (to the spare
+        row when ``frozen``).  ``put(buf, dim, slot, rows)`` writes a row;
+        the default writes in place (``index_copy_``).
         """
         cfg, m, R = self.cfg, self.m, self.R
+        if put is None:
+            put = lambda buf, dim, slot, val: buf.index_copy_(dim, slot, val)
         s = [a.reshape(-1) for a in s_in]
         t = [a.reshape(-1) for a in t_out]
         f = [ti - si for ti, si in zip(t, s)]
@@ -80,11 +90,13 @@ class AndersonWindow:
         js = (cnt - m + self.ring) % R
         mk = torch.minimum(cnt, torch.full_like(cnt, m))
         live = (self.cols >= (m - mk))[:, None]
-        dF, dT = [], []
-        for F, T, fi, ti in zip(self.F, self.T, f, t):
-            F.index_copy_(0, slot.reshape(1), fi[None])
-            T.index_copy_(0, slot.reshape(1), ti[None])
-            Fw, Tw = F.index_select(0, js), T.index_select(0, js)
+        dF, dT, F_new, T_new = [], [], [], []
+        for Fb, Tb, fi, ti in zip(F, T, f, t):
+            Fb = put(Fb, 0, slot.reshape(1), fi[None])
+            Tb = put(Tb, 0, slot.reshape(1), ti[None])
+            F_new.append(Fb)
+            T_new.append(Tb)
+            Fw, Tw = Fb.index_select(0, js), Tb.index_select(0, js)
             dF.append(torch.where(live, Fw[1:] - Fw[:-1], 0.0))
             dT.append(torch.where(live, Tw[1:] - Tw[:-1], 0.0))
         G = sum(d @ d.T for d in dF)
@@ -97,4 +109,4 @@ class AndersonWindow:
             ok = ok & torch.all(torch.isfinite(c))
         ok = ok & (mk >= 1) & ~done
         nxt = [torch.where(ok, c, ti).reshape(a.shape) for c, ti, a in zip(cand, t, t_out)]
-        return nxt, cnt + 1, best_new
+        return nxt, cnt + 1, best_new, F_new, T_new

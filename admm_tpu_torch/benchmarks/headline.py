@@ -22,7 +22,8 @@ Run: ``python -m admm_tpu_torch.benchmarks.headline [--smoke] [--device D]``.
 Prints ONE JSON line.  ``--profile`` prints a per-kernel device-time
 breakdown of a shorter solve instead (``profile``); ``--variant`` picks an
 engine variant of the headline or another family at
-``admm_tpu/benchmarks/matrix.py``'s size (``FAMILY_VARIANTS``).
+``admm_tpu/benchmarks/matrix.py``'s size (``FAMILY_VARIANTS``), or a cell of slices
+7b and 8 through its entry point (``ENTRY_VARIANTS``).
 """
 
 import argparse
@@ -259,10 +260,66 @@ def _family_setup(variant, cfg, smoke, device):
     return (*make_bp(f32(D), f32(D @ x), cfg), dict(m=n, nA=n, nB=n))
 
 
+# Slice 7b and 8 cells ``profile`` runs through their entry points, f32 at
+# admm_tpu/benchmarks/matrix.py's sizes, under domaxiters: name -> steps.
+ENTRY_VARIANTS = {"rpca": 200, "logreg": 200, "lasso_batch": 300, "tv_batch": 300,
+                  "lasso_path": 300}
+
+
+def _entry_setup(variant, smoke, device):
+    """``solve(cfg)`` of an ``ENTRY_VARIANTS`` cell, its operands float32
+    tensors on ``device``:
+    - rpca: rank 8 + 5% sparse, 256 x 256, exact SVT (matrix.py:528-539);
+    - logreg: 4096 x 256, labels from a logistic model, lam 0.1, dense
+      Newton x-prox (matrix.py:541-553);
+    - lasso_batch, lasso_path: 128 lanes on the 1500 x 5000 column-normed D
+      (matrix.py:656-681), signals X D^T + noise or 128 lambdas geomspaced
+      from 0.001 to 0.5 lambda_max;
+    - tv_batch: 128 random walks of n = 8192, lambda 1, solver 'cr' (the
+      hybrid form, K4 once a sub-step; matrix.py:683-689)."""
+    import torch
+
+    from admm_tpu_torch import lasso_batch, lasso_path, logreg, rpca, tv_batch
+
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    if variant == "rpca":
+        n = 48 if smoke else 256
+        M = f32(rng.standard_normal((n, 8)) @ rng.standard_normal((8, n))
+                + (rng.random((n, n)) < 0.05) * 5 * rng.standard_normal((n, n)))
+        return lambda cfg: rpca(M, config=cfg)
+    if variant == "logreg":
+        m, n = (256, 16) if smoke else (4096, 256)
+        D = rng.standard_normal((m, n))
+        ell = np.where(rng.random(m) < 1.0 / (1.0 + np.exp(-(D @ rng.standard_normal(n)))),
+                       1.0, -1.0)
+        D, ell = f32(D), f32(ell)
+        return lambda cfg: logreg(D, ell, 0.1, cfg)
+    if variant == "tv_batch":
+        B, n = (8, 1000) if smoke else (128, 8192)
+        S = f32(np.cumsum(rng.standard_normal((B, n)), axis=1))
+        return lambda cfg: tv_batch(S, 1.0, cfg, solver="cr")
+    B, (m, n) = (8, (48, 160)) if smoke else (128, (1500, 5000))
+    D = rng.standard_normal((m, n))
+    D /= np.sqrt(np.sum(D**2, axis=0, keepdims=True))
+    if variant == "lasso_path":
+        s = D @ (rng.standard_normal(n) * (rng.random(n) < 0.1))
+        lmax = float(np.max(np.abs(D.T @ s)))
+        lams = f32(np.geomspace(0.001 * lmax, 0.5 * lmax, B))
+        D, s = f32(D), f32(s)
+        return lambda cfg: lasso_path(D, s, lams, cfg)
+    S = (rng.standard_normal((B, n)) * (rng.random((B, n)) < 0.1)) @ D.T
+    S = S + 0.03 * rng.standard_normal((B, m))
+    lam = float(0.1 * np.median(np.max(np.abs(S @ D), axis=1)))
+    D, S = f32(D), f32(S)
+    return lambda cfg: lasso_batch(D, S, lam, cfg)
+
+
 def profile(smoke: bool = False, device: str = "cuda", iters: int = None, top: int = 12,
             variant: str = "fused"):
     """Where the time goes in the headline loop, in one of ``VARIANTS``,
-    or in a family of ``FAMILY_VARIANTS``.
+    in a family of ``FAMILY_VARIANTS`` or in a cell of ``ENTRY_VARIANTS``
+    (through its entry point; lanes' steps are sub-steps of all lanes).
     Sets up once, runs ``iters`` steps unprofiled (wall time per step),
     then the same solve under ``torch.profiler`` (device time of its
     kernels; setup is outside both).  Prints one JSON line: wall and
@@ -271,7 +328,7 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = None, top: i
     per call of K1b (the z/u pass with the step's tail,
     ``zu_tail_kernel<float, true>``) where the variant runs it, and the
     ``top`` kernels by device time.  ``iters`` defaults to 2048, or to the
-    family's own count in ``FAMILY_VARIANTS``."""
+    family's own count in ``FAMILY_VARIANTS`` or ``ENTRY_VARIANTS``."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -280,7 +337,15 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = None, top: i
     from admm_tpu_torch.config import matmul_precision
     from admm_tpu_torch.models.lasso import _fused_zu, make_prox_ops
 
-    if variant in FAMILY_VARIANTS:
+    if variant in ENTRY_VARIANTS:
+        iters = iters or ENTRY_VARIANTS[variant]
+        cfg = ADMMConfig(maxiters=iters, domaxiters=True)
+        with matmul_precision("highest"):
+            entry = _entry_setup(variant, smoke, device)
+
+        def solve():
+            return entry(cfg)
+    elif variant in FAMILY_VARIANTS:
         unroll, steps = FAMILY_VARIANTS[variant]
         iters = iters or steps
         cfg = ADMMConfig(maxiters=iters, domaxiters=True, unroll=unroll)
@@ -300,33 +365,36 @@ def profile(smoke: bool = False, device: str = "cuda", iters: int = None, top: i
         wiring = dict(m=n, nA=n, nB=n)
         hooks = Hooks(obj=obj, fused_zu=_fused_zu if fused else None)
 
-    def solve():
-        return admm(prox_f, prox_g, cfg, data=data, hooks=hooks, dtype=torch.float32, **wiring)
+    if variant not in ENTRY_VARIANTS:
+        def solve():
+            return admm(prox_f, prox_g, cfg, data=data, hooks=hooks, dtype=torch.float32,
+                        **wiring)
 
     solve()  # warm-up
     wall_us = min(solve().runtime for _ in range(2)) * 1e6 / iters
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = solve()
+    steps = int(torch.as_tensor(res.steps).max())  # lanes: every lane runs iters
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
 
-    device_us = sum(dev_us(e) for e in kernels) / res.steps
+    device_us = sum(dev_us(e) for e in kernels) / steps
     zu = [e for e in kernels if "zu_tail_kernel" in e.key]
     kernels.sort(key=dev_us, reverse=True)
     line = {
         "profile": {
             "variant": variant,
-            "steps": res.steps,
+            "steps": steps,
             "wall_us_per_step": wall_us,
-            "profiled_wall_us_per_step": res.runtime * 1e6 / res.steps,
+            "profiled_wall_us_per_step": res.runtime * 1e6 / steps,
             "device_us_per_step": device_us,
             "busy_share": device_us / wall_us,
-            "launches_per_step": sum(e.count for e in kernels) / res.steps,
+            "launches_per_step": sum(e.count for e in kernels) / steps,
             "zu_tail_kernel_us_per_call": (dev_us(zu[0]) / zu[0].count) if zu else None,
-            "top": [[e.key[:80], dev_us(e) / res.steps, e.count / res.steps]
+            "top": [[e.key[:80], dev_us(e) / steps, e.count / steps]
                     for e in kernels[:top]],
         }
     }
@@ -341,7 +409,7 @@ if __name__ == "__main__":
     ap.add_argument("--profile", action="store_true",
                     help="print a per-kernel device-time breakdown instead")
     ap.add_argument("--variant", default="fused",
-                    choices=sorted(VARIANTS) + list(FAMILY_VARIANTS),
+                    choices=sorted(VARIANTS) + list(FAMILY_VARIANTS) + list(ENTRY_VARIANTS),
                     help="the engine variant --profile runs")
     args = ap.parse_args()
     if args.profile:

@@ -3,8 +3,8 @@
 ``admm_tpu``'s solver setups leave their operands in a ``data`` dict of
 JAX arrays and solver objects.  ``numpy_state`` flattens such a dict into
 plain numpy arrays (duck-typed: it never imports JAX), and ``lasso_data``,
-``model_data``, ``tv_data``, ``tv2d_data``, ``fusedlasso_data`` and
-``program_data`` rebuild the port's ``data`` dicts from them on a given
+``model_data``, ``tv_data``, ``tv2d_data``, ``fusedlasso_data``,
+``program_data`` and ``matrix_data`` rebuild the port's ``data`` dicts from them on a given
 device.  Feeding
 the same numbers to both packages this way isolates the iteration from
 differences in the setup-time linear algebra (eigh, solve, inverse),
@@ -43,6 +43,12 @@ Flat keys:
   (static rho) or ``sol.V``/``sol.w`` (dynamic rho);
 - covariance selection: ``S``, ``lam``; the SDP: ``C``, ``b`` and, for a
   dense constraint stack, ``A`` and the Gram's Cholesky factor ``L``;
+- robust PCA: ``M``, ``lam``; matrix completion: ``M``, ``mask`` and
+  ``mu`` (noisy form); for both, with ``prox_method='rsvd'``, the sketch's
+  test matrix ``G`` (``admm_tpu`` draws it from ``PRNGKey(seed)`` inside
+  the prox, so a test puts it into the dict it flattens);
+- sparse logistic regression: ``D``, ``ell``, ``lam`` and, for the
+  Newton-CG x-prox, ``D2``;
 - optionally the warm start ``x0``, ``z0``, ``u0`` (the unwrapped
   solver's random start among them).
 
@@ -63,7 +69,8 @@ from .ops.tridiag import CyclicReductionSolver
 
 _ARRAYS = ("D", "s", "Dts", "lam", "Minv", "S", "Ur", "wr", "Uc", "wc",
            "P", "Q", "r", "Ptr", "Qts", "PtPinv", "QtQinv", "q", "t", "V", "w",
-           "Dplus", "tau", "ell", "C", "b", "lb", "ub", "A", "L")
+           "Dplus", "tau", "ell", "C", "b", "lb", "ub", "A", "L", "M", "mask", "mu", "G",
+           "D2")
 _FAT_FIELDS = ("D", "E", "rho0")
 # The solver objects carried field by field: data key -> (fields, class).
 _SOLVERS = {"wood": (("D", "V", "w"), WoodburySolver),
@@ -139,8 +146,9 @@ def lasso_data(state: dict, *, device="cpu", dtype=None):
     """Build ``(data, warm)`` for the port from a flat numpy ``state``:
     ``data`` is the dict the port's proxes take and ``warm`` holds the
     warm-start tensors ``x0``/``z0``/``u0`` present in the state.  It
-    serves every family whose state D leads: LASSO and its siblings, and
-    LAD, Huber, quantile and the linear SVM with their ``Dplus``.  Every
+    serves every family whose state D leads: LASSO and its siblings, LAD,
+    Huber, quantile and the linear SVM with their ``Dplus``, and sparse
+    logistic regression.  Every
     tensor lands on ``device`` in ``dtype`` (default: D's dtype), except
     bf16 stream arrays, which stay bf16."""
     return _data(state, "D", device, dtype)
@@ -185,6 +193,14 @@ def program_data(state: dict, *, device="cpu", dtype=None):
     ``kkt.*`` fields.  The default dtype is that of the first of P, S, C,
     b in the state."""
     return _data(state, next(k for k in ("P", "S", "C", "b") if k in state), device, dtype)
+
+
+def matrix_data(state: dict, *, device="cpu", dtype=None):
+    """``(data, warm)`` for the port's robust-PCA and matrix-completion
+    proxes (``models/rpca.py``, ``models/matrixcompletion.py``): ``M``,
+    ``lam`` or ``mask``/``mu``, and the sketch's ``G``; the default dtype
+    is M's."""
+    return _data(state, "M", device, dtype)
 
 
 def tv_data(state: dict, *, device="cpu", dtype=None):

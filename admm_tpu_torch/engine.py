@@ -24,6 +24,14 @@ records, relaxation, and the ``altu``, ``specialnorms``, ``preprocess``,
 ``obj`` and ``fused_zu`` hooks.  Only ``parallel=`` (ROADMAP.md queue 1,
 slice 10) is not ported and raises ``NotImplementedError``.
 
+``make_admm_runner`` is the functional core; with ``lanes=True`` it
+solves B independent instances as one program, the port's counterpart of
+``jax.vmap`` over ``admm_tpu``'s runner: the generic step runs under
+``torch.func.vmap`` with every buffer (history, iterate records,
+Anderson rings) a step input written out of place, every sub-step freezes
+the lanes that are done or at N steps, and the host reads one flag a
+chunk, whether every lane is frozen.
+
 When the ``fused_zu`` hook is the soft-threshold pass
 (``ops/kernels.soft_threshold_pass``, lasso's ``use_fused_kernel``) and
 the options ask for nothing beyond the standard stop, a step is ``prox_f``
@@ -283,6 +291,53 @@ def admm(
     return res
 
 
+def make_admm_runner(prox_f, prox_g, config: ADMMConfig, A, B, hooks: Hooks = Hooks(),
+                     dtype=None, has_data: bool = False, *, lanes: bool = False,
+                     mapped=()):
+    """Functional core (``admm_tpu`` engine.py:460-481): returns
+    ``run(x0, z0, u0, c) -> raw dict``, or ``run(x0, z0, u0, c, data)``
+    with ``has_data``, holding ``admm``'s outputs as tensors (``steps``,
+    ``xopt``, ``zopt``, ``uopt``, ``rho_final``, ``diverged``, ``stalled``,
+    ``hist``, ``objopt``).  The solve runs on x0's device in x0's dtype,
+    under ``config.matmul_precision``.  ``dtype`` is accepted for
+    ``admm_tpu``'s signature and ignored, as there.
+
+    ``lanes=True`` is the port's counterpart of ``jax.vmap`` over this
+    runner: x0, z0, u0 and c carry a leading axis of B independent lanes,
+    as do the keys of ``data`` named in ``mapped`` (the others are shared
+    by every lane), and every output carries the lane axis.  The lanes run
+    in one program (``torch.func.vmap`` over the sub-step), each with its
+    own steps, stop flags, rho and histories; a lane that is done keeps
+    its values while the others run on.  ``hooks.fused_zu`` and
+    ``quiet=False`` do not run on lanes and raise ``NotImplementedError``.
+    """
+    del dtype
+    config = resolve_unroll(config, "default")
+    if lanes:
+        mapped = frozenset(mapped)
+
+    def run(x0, z0, u0, c, data=None):
+        if not has_data and data is not None:
+            raise TypeError("run() got data, but the runner was made with has_data=False")
+        device, rdtype = x0.device, x0.dtype
+        A_, B_ = (as_linop(op, device=device, dtype=rdtype) for op in (A, B))
+        c_ = _as_tensor(c).to(device=device, dtype=rdtype)
+        if c_.ndim == 0:
+            c_ = c_.expand(u0.shape).contiguous()
+        if hooks.fused_zu is not None:
+            _check_fused_splitting(A_, B_, c_)
+        dims = None
+        if lanes:
+            dims = {} if data is None else {k: (0 if k in mapped else None) for k in data}
+        with matmul_precision(config.matmul_precision):
+            return _run(prox_f, prox_g, config, hooks, data, x0, z0, u0, c_, A_, B_,
+                        data_dims=dims)
+
+    if has_data:
+        return run
+    return lambda x0, z0, u0, c: run(x0, z0, u0, c)
+
+
 def _as_tensor(v):
     return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
 
@@ -317,10 +372,47 @@ def _tail_computes(cfg: ADMMConfig, hooks: Hooks) -> bool:
                 or cfg.anderson or cfg.record_iterates or hooks.specialnorms is not None)
 
 
+def _bound(fn, d):
+    """``fn`` with the solve's ``data`` bound as its trailing argument
+    (None stays None)."""
+    if fn is None or d is None:
+        return fn
+    return lambda *a: fn(*a, d)
+
+
+def _put_in_place(buf, dim, slot, val):
+    return buf.index_copy_(dim, slot, val)
+
+
+def _put_new(buf, dim, slot, val):
+    # Under vmap: in-place index_copy_ has no batching rule there and would
+    # run lane by lane; the out-of-place form batches.
+    return buf.index_copy(dim, slot, val)
+
+
 def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
-         x0, z0, u0, c, A, B) -> dict:
+         x0, z0, u0, c, A, B, data_dims=None) -> dict:
     """The loop (``admm_tpu`` engine.py:483-897).  Returns the raw result
-    dict."""
+    dict.
+
+    With ``data_dims`` (a dict of ``data``'s keys: 0 for a leaf stacked
+    over lanes, None for one the lanes share) the solve runs B independent
+    lanes: x0, z0, u0 and c carry a leading lane axis, the step runs under
+    ``torch.func.vmap``, every sub-step freezes the lanes that are done or
+    at N steps, and the host reads one flag a chunk, whether all lanes are
+    frozen (``admm_tpu``'s vmapped while_loop, engine.py:873-884).  Every
+    result then carries the lane axis."""
+    lanes = data_dims is not None
+    if lanes:
+        if not cfg.quiet:
+            raise NotImplementedError(
+                "admm_tpu_torch.engine: the per-iteration table (quiet=False) "
+                "is not ported for lanes (ROADMAP.md queue 1)")
+        if hooks.fused_zu is not None:
+            raise NotImplementedError(
+                "admm_tpu_torch.engine: hooks.fused_zu launches K1 on one "
+                "instance and does not run on lanes; pass Hooks(obj=...) only")
+    lead = tuple(x0.shape[:1]) if lanes else ()
     alg = cfg.alg
     N = int(cfg.maxiters)
     K = int(cfg.unroll)
@@ -333,57 +425,64 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
     use_aa = cfg.anderson > 0
     record = cfg.record_iterates
     device, rdtype = x0.device, x0.dtype
+    # Lanes freeze at every sub-step: they finish at different steps.
+    freeze = K > 1 or lanes
+    put = _put_new if lanes else _put_in_place
 
-    if data is not None:
-        bind = lambda fn: (lambda *a: fn(*a, data)) if fn is not None else None
-    else:
-        bind = lambda fn: fn
-    pf, pg = bind(prox_f), bind(prox_g)
-    obj_fn, altu_fn, norms_fn, fused_fn = (
-        bind(h) for h in (hooks.obj, hooks.altu, hooks.specialnorms, hooks.fused_zu))
     # Fused z+dual path applies only to the plain splitting (admm_tpu
     # engine.py:519-522).
-    use_fused = fused_fn is not None and alg == 0 and not use_relax and altu_fn is None
-    record_obj = cfg.objevals and obj_fn is not None
+    use_fused = hooks.fused_zu is not None and alg == 0 and not use_relax and hooks.altu is None
+    record_obj = cfg.objevals and hooks.obj is not None
 
     rho0 = torch.tensor(cfg.rho, dtype=rdtype, device=device)
     eps = torch.finfo(rdtype).eps
-    cnorm = _fro(c)
+    lane_fro = torch.func.vmap(_fro) if lanes else _fro
+    cnorm = lane_fro(c)
     # Static element counts M1/M2 for Boyd errors (admm.m:644-645).
-    perr_abs = math.sqrt(float(c.numel())) * cfg.abstol
+    perr_abs = math.sqrt(float(c[0].numel() if lanes else c.numel())) * cfg.abstol
     nan = torch.tensor(float("nan"), dtype=rdtype, device=device)
     n_spare = torch.tensor(N, dtype=torch.int64, device=device)
     no = torch.zeros((), dtype=torch.bool, device=device)
     scalar = lambda v: torch.as_tensor(v, dtype=rdtype, device=device)
+    sizes = [sum(v[0].numel() if lanes else v.numel() for v in (x0, z0, u0))]
 
     # Scalar traces, one row each; column N is the spare slot that frozen
-    # sub-steps write to (sliced off at the end).
+    # sub-steps write to (sliced off at the end).  Traces of other shapes:
+    # the int restart flags and the iterate records, leading axis N + 1
+    # with the same spare slot.  Every buffer carries the lane axis first.
     names = (["pnorm", "dnorm", "perr", "derr"] + (["objvals"] if record_obj else [])
              + (["Hnormsq"] if needs_h else []) + (["dvals"] if alg == 2 else [])
              + (["avals"] if alg else []))
-    hist = torch.full((len(names), N + 1), float("nan"), dtype=rdtype, device=device)
-    # Traces of other shapes: the int restart flags and the iterate
-    # records, leading axis N + 1 with the same spare slot.
-    extra = {}
+    bufs = {"hist": torch.full(lead + (len(names), N + 1), float("nan"), dtype=rdtype,
+                               device=device)}
     if alg == 2:
-        extra["restarted"] = torch.zeros(N + 1, dtype=torch.int32, device=device)
+        bufs["restarted"] = torch.zeros(lead + (N + 1,), dtype=torch.int32, device=device)
     if record:
         for name, like in (("xvals", x0), ("zvals", z0), ("uvals", u0)) + (
                 (("vvals", z0), ("uhatvals", u0)) if alg else ()):
-            extra[name] = torch.zeros((N + 1,) + tuple(like.shape), dtype=rdtype, device=device)
-        extra["wvals"] = torch.zeros((N + 1, x0.numel() + z0.numel() + u0.numel()),
+            bufs[name] = torch.zeros(lead + (N + 1,) + tuple(like.shape[len(lead):]),
                                      dtype=rdtype, device=device)
-    window = AndersonWindow(cfg, [x0.numel() + z0.numel() + u0.numel()], dtype=rdtype,
-                            device=device) if use_aa else None
+        bufs["wvals"] = torch.zeros(lead + (N + 1, sizes[0]), dtype=rdtype, device=device)
+    window = AndersonWindow(cfg, sizes, dtype=rdtype, device=device) if use_aa else None
+    if use_aa:
+        bufs["aF"], bufs["aT"] = window.rings(lead)
 
-    def step(s: _State) -> _State:
-        # frozen gates this sub-step; at K = 1 the host checks k and done
-        # before every step, so nothing is ever frozen and no select runs.
-        frozen = (s.done | (s.k >= N)) if K > 1 else None
+    def step(s: _State, bufs: dict, c, cnorm, d) -> tuple:
+        """One sub-step: the state and the buffers after it.  Pure but for
+        the buffers' writes, which are in place on one instance and new
+        tensors under vmap (``put``)."""
+        pf, pg, obj_fn, altu_fn, norms_fn, fused_fn = (
+            _bound(h, d) for h in (prox_f, prox_g, hooks.obj, hooks.altu,
+                                   hooks.specialnorms, hooks.fused_zu))
+        # frozen gates this sub-step; one instance at K = 1 has the host
+        # check k and done before every step, so nothing is ever frozen
+        # and no select runs.
+        frozen = (s.done | (s.k >= N)) if freeze else None
         k, rho = s.k, s.rho
         i = k + 1  # the reference's 1-based iteration counter
         x, z, u = s.x, s.z, s.u
         zprev = z
+        bufs = dict(bufs)
 
         # ---- x-update (admm.m:501-511) --------------------------------
         if alg == 0:
@@ -506,9 +605,9 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         acnt_new = abest_new = None
         if use_aa:
             flat = lambda a, b, c_: torch.cat((a.reshape(-1), b.reshape(-1), c_.reshape(-1)))
-            (s_next,), acnt_new, abest_new = window.step(
+            (s_next,), acnt_new, abest_new, bufs["aF"], bufs["aT"] = window.step(
                 [flat(s.x, s.z, s.u)], [flat(x, z, u)], s.acnt, s.abest,
-                done=done, frozen=frozen)
+                bufs["aF"], bufs["aT"], done=done, frozen=frozen, put=put)
             nx, nz = x.numel(), z.numel()
             x_next = s_next[:nx].reshape(x.shape)
             z_next = s_next[nx:nx + nz].reshape(z.shape)
@@ -519,9 +618,9 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         vals = ([pnorm, dnorm, perr, derr] + ([obj_fn(x, z)] if record_obj else [])
                 + ([Hsq] if needs_h else []) + ([d_new] if alg == 2 else [])
                 + ([a_new] if alg else []))
-        hist.index_copy_(1, slot, torch.stack(vals).reshape(-1, 1))
+        bufs["hist"] = put(bufs["hist"], 1, slot, torch.stack(vals).reshape(-1, 1))
         if alg == 2:
-            extra["restarted"].index_copy_(0, slot, restarted_i.reshape(1))
+            bufs["restarted"] = put(bufs["restarted"], 0, slot, restarted_i.reshape(1))
         if record:
             # Under rbadaptive u was rescaled above and rho_new*u keeps the
             # scaled-dual product rho*u_pre; elsewhere w carries the
@@ -532,7 +631,7 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
             if alg:
                 rows.update(vvals=v_new, uhatvals=uhat_new)
             for name, val in rows.items():
-                extra[name].index_copy_(0, slot, val.unsqueeze(0))
+                bufs[name] = put(bufs[name], 0, slot, val.unsqueeze(0))
 
         new = _State(
             k=k + 1, x=x_next, z=z_next, u=u_next, rho=rho_new,
@@ -542,15 +641,18 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
             done=done, diverged=s.diverged | diverged_i, stalled=s.stalled | stall_i,
         )
         if frozen is None:
-            return new
+            return new, bufs
         return _State(*(None if b is None else torch.where(frozen, a, b)
-                        for a, b in zip(s, new)))
+                        for a, b in zip(s, new))), bufs
 
+    hist = bufs["hist"]
     lam_of = getattr(hooks.fused_zu, "soft_threshold_lam", None) if use_fused else None
     table = None if cfg.quiet else hist
     if lam_of is not None and _tail_computes(cfg, hooks):
         # The soft-threshold pass: the whole tail in one fused_zu_tail.
+        obj_fn = _bound(hooks.obj, data)
         lam = lam_of(data)
+        pf = _bound(prox_f, data)
         x, z, u = x0.clone(), z0.clone(), u0.clone()  # updated in place
         st = torch.zeros(3, dtype=torch.int64, device=device)  # k, done, diverged
         tail_kw = dict(perr_abs=perr_abs, derr_abs=math.sqrt(float(z.numel())) * cfg.abstol,
@@ -570,30 +672,53 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         _run_chunks(tail_step, lambda: st[:2], N, K, table)
         steps, rho, diverged, stalled = st[0], rho0, st[2] != 0, no
     else:
-        acnt, abest = window.initial() if use_aa else (None, None)
+        full = lambda v: torch.full(lead, v, dtype=rdtype, device=device)
+        acnt, abest = window.initial(lead) if use_aa else (None, None)
         s = _State(
-            k=torch.zeros((), dtype=torch.int64, device=device),
-            x=x0, z=z0, u=u0, rho=rho0,
+            k=torch.zeros(lead, dtype=torch.int64, device=device),
+            x=x0, z=z0, u=u0, rho=full(cfg.rho),
             v=z0 if alg else None, uhat=u0 if alg else None,
-            a=scalar(1.0) if alg else None,
-            d=scalar(float("inf")) if alg == 2 else None,
+            a=full(1.0) if alg else None,
+            d=full(float("inf")) if alg == 2 else None,
             wz=z0 if needs_h else None, wu=rho0 * u0 if needs_h else None,
-            Hprev=scalar(float("inf")) if needs_h else None,
-            best_p=scalar(float("inf")) if use_stall else None,
-            since=torch.zeros((), dtype=torch.int64, device=device) if use_stall else None,
+            Hprev=full(float("inf")) if needs_h else None,
+            best_p=full(float("inf")) if use_stall else None,
+            since=torch.zeros(lead, dtype=torch.int64, device=device) if use_stall else None,
             acnt=acnt, abest=abest,
-            done=no, diverged=no, stalled=no,
+            done=torch.zeros(lead, dtype=torch.bool, device=device),
+            diverged=torch.zeros(lead, dtype=torch.bool, device=device),
+            stalled=torch.zeros(lead, dtype=torch.bool, device=device),
         )
+        if lanes:
+            sdims = _State(*(None if v is None else 0 for v in s))
+            run_step = torch.func.vmap(step, in_dims=(sdims, 0, 0, 0,
+                                                      None if data is None else data_dims),
+                                       out_dims=(sdims, 0))
+            flags = lambda: torch.stack((cur[0].k.min(),
+                                         (cur[0].done | (cur[0].k >= N)).all().long()))
+        else:
+            run_step = step
+            flags = lambda: torch.stack((cur[0].k, cur[0].done.long()))
+        cur = [s, bufs]
 
         def generic_step():
-            nonlocal s
-            s = step(s)
+            cur[0], cur[1] = run_step(cur[0], cur[1], c, cnorm, data)
 
-        _run_chunks(generic_step, lambda: torch.stack((s.k, s.done.long())), N, K, table)
+        _run_chunks(generic_step, flags, N, K, table)
+        s, bufs = cur
         steps, x, z, u, rho, diverged, stalled = s.k, s.x, s.z, s.u, s.rho, s.diverged, s.stalled
 
-    traces = {name: hist[i, :N] for i, name in enumerate(names)}
-    traces.update({name: buf[:N] for name, buf in extra.items()})
+    hist = bufs["hist"]
+    traces = {name: hist[..., i, :N] for i, name in enumerate(names)}
+    traces.update({name: buf[:, :N] if lanes else buf[:N]
+                   for name, buf in bufs.items() if name not in ("hist", "aF", "aT")})
+    if hooks.obj is None:
+        objopt = None
+    elif lanes:
+        objopt = torch.func.vmap(lambda x_, z_, d: _bound(hooks.obj, d)(x_, z_),
+                                 in_dims=(0, 0, None if data is None else data_dims))(x, z, data)
+    else:
+        objopt = _bound(hooks.obj, data)(x, z)
     return {
         "steps": steps,
         "xopt": x,
@@ -603,7 +728,7 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         "diverged": diverged,
         "stalled": stalled,
         "hist": traces,
-        "objopt": obj_fn(x, z) if obj_fn is not None else None,
+        "objopt": objopt,
     }
 
 

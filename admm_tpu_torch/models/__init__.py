@@ -5,7 +5,10 @@ Ported so far: the serial LASSO, elastic net, NNLS and group lasso, the
 model problem, 1-D and 2-D total variation, basis pursuit, the fused
 lasso, LAD, Huber fitting, quantile regression, the linear SVM and the
 serial unwrapped-ADMM solver, the standard-form LP, the QP in both
-constraint forms, covariance selection and the standard-form SDP.  Each
+constraint forms, covariance selection, the standard-form SDP, robust
+PCA, matrix completion and sparse logistic regression; the instance
+batches of every family (``batch.py``) and the regularization paths
+(``paths.py``), whose lanes run as one solve.  Each
 module exposes ``make_prox_ops(...)`` and a solver entry point with the
 reference solver's signature plus ``device=``; ``get_prox_ops`` resolves a
 family by name.
@@ -57,10 +60,13 @@ from .lad import lad  # noqa: E402
 from .lasso import lasso  # noqa: E402
 from .linearprogram import linearprogram  # noqa: E402
 from .linearsvm import linearsvm  # noqa: E402
+from .logreg import logreg  # noqa: E402
+from .matrixcompletion import matrixcompletion  # noqa: E402
 from .model import model  # noqa: E402
 from .nnls import nnls  # noqa: E402
 from .quadraticprogram import quadraticprogram  # noqa: E402
 from .quantile import quantile  # noqa: E402
+from .rpca import rpca  # noqa: E402
 from .sdp import sdp  # noqa: E402
 from .totalvariation import totalvariation  # noqa: E402
 from .totalvariation2d import totalvariation2d  # noqa: E402
@@ -87,4 +93,7 @@ __all__ = [
     "quadraticprogram",
     "covarianceselection",
     "sdp",
+    "rpca",
+    "matrixcompletion",
+    "logreg",
 ]

@@ -81,7 +81,7 @@ def _prox_g(x, z, u, rho, d):
 
 def _obj(x, z, d):
     fit = 0.5 * torch.sum((d["D"] @ x - d["s"]) ** 2)
-    norm2 = z.new_zeros(d["w"].shape[0]).index_add_(0, d["gid"], z * z)
+    norm2 = z.new_zeros(d["w"].shape[0]).index_add(0, d["gid"], z * z)
     return fit + d["lam"] * torch.sum(d["w"] * torch.sqrt(norm2))
 
 

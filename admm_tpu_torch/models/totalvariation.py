@@ -90,14 +90,16 @@ def _resolve_solver(solver, n, config):
     return solver
 
 
-def make_prox_ops(s, lam, config: ADMMConfig = ADMMConfig(), solver: str = "auto"):
+def make_prox_ops(s, lam, config: ADMMConfig = ADMMConfig(), solver: str = "auto",
+                  batched: bool = False):
     """Build (prox_f, prox_g, obj, data, D) for TV (getProxOps.m:145-199).
 
     ``s`` is a 1-D tensor; the operands land on its device in its dtype.
     ``solver``: 'dense' diagonalizes D^T D once (O(n^2) apply per
     iteration); 'cr' precomputes the cyclic-reduction elimination of the
     fixed tridiagonal system, with ``admm_tpu``'s hybrid dense tail
-    (cutoff 1023) for n > 16384, below that the pure masked form;
+    (cutoff 1023) for n > 16384 or ``batched`` (the lanes of ``tv_batch``),
+    else the pure masked form;
     'cr_masked' runs every level masked; 'auto' picks 'cr' for n > 2048
     with static rho.  'cr_packed' (``admm_tpu``'s measured negative) is
     not ported and raises.
@@ -117,8 +119,8 @@ def make_prox_ops(s, lam, config: ADMMConfig = ADMMConfig(), solver: str = "auto
 
     if solver in ("cr", "cr_masked"):
         # admm_tpu's gate: the hybrid tail pays off only at depth
-        # (n > 16384); its batched lanes (not ported) always take it.
-        cutoff = 1023 if (solver == "cr" and n > 16384) else None
+        # (n > 16384) for one signal; batched lanes always take it.
+        cutoff = 1023 if (solver == "cr" and (batched or n > 16384)) else None
         data["cr"] = CyclicReductionSolver.from_tridiag(
             *tv_system(n, config.rho), dense_cutoff=cutoff, device=s.device,
             dtype=s.dtype)

@@ -45,12 +45,14 @@ def block_soft_threshold(v, t, gid, num_groups):
     int64 tensor on ``v``'s device) scales by max(0, 1 - t_g / ||v_g||_2).
 
     The prox of ``sum_g t_g ||v_g||_2`` (group lasso).  ``t`` is scalar or
-    per-group.  ``admm_tpu``'s segment sum is an ``index_add_`` here (on
+    per-group.  ``admm_tpu``'s segment sum is an ``index_add`` here (on
     the card its atomics add in no fixed order).  Beyond the reference
     (its shrinkage family stops at elementwise soft-thresholding,
     getProxOps.m:933-938).
     """
-    norm2 = v.new_zeros(num_groups).index_add_(0, gid, v * v)
+    # Out of place: under vmap (batched lanes) an in-place add into the
+    # fresh unbatched zeros would be refused.
+    norm2 = v.new_zeros(num_groups).index_add(0, gid, v * v)
     norm = torch.sqrt(norm2)
     t = torch.broadcast_to(torch.as_tensor(t, dtype=v.dtype, device=v.device),
                            (num_groups,))
@@ -137,6 +139,32 @@ def sym_eigh(W):
         e, Q = torch.linalg.eigh(W.double())
         return e.float(), Q.float()
     return torch.linalg.eigh(W)
+
+
+# A float32 SVD on a CUDA device (``thin_svd``) is taken in float64: on an
+# H100, one f32 SVT of the robust-PCA and completion iterates lands
+# 3.5e-5-1.3e-4 from LAPACK's f64 through torch's own choice, the Jacobi
+# gesvdj, and 7.6e-8-2.3e-7 through the f64 decomposition; gesvda is as
+# accurate and 4.8-7x faster on those, but fails to converge on a matrix
+# with repeated singular values, which an SVT's low-rank output is, and
+# gesvd lands 4.6e-7-1.9e-6 from it at 0.9-2.5x the f64 time (chip_smoke.py
+# (z11)-(z12) print every route).
+
+
+def thin_svd(V, values_only=False):
+    """The thin SVD ``(U, s, Vh)`` of V (leading batch dimensions allowed),
+    or only ``s`` with ``values_only``: the one SVD of the spectral proxes
+    of robust PCA and matrix completion.  A float32 matrix on a CUDA device
+    is decomposed in float64 and its factors rounded back to float32;
+    every other input goes to ``torch.linalg.svd`` as it is.
+    ``torch.linalg.svd`` has no ``_ex`` form: on a CUDA device the call
+    reads cuSOLVER's ``info`` back to the host."""
+    if V.is_cuda and V.dtype == torch.float32:
+        out = thin_svd(V.double(), values_only)
+        return out.float() if values_only else tuple(t.float() for t in out)
+    if values_only:
+        return torch.linalg.svdvals(V)
+    return torch.linalg.svd(V, full_matrices=False)
 
 
 def psd_project(W):

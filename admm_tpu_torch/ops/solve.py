@@ -28,7 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from .gemv_pair import aligned_rows, gemv_pair
+from torch._C._functorch import is_batchedtensor
+
+from .gemv_pair import _gemv_pair_torch, aligned_rows, gemv_pair
 
 
 class SymShiftSolver:
@@ -136,7 +138,12 @@ class FatShiftSolver:
         if self.D.dtype == torch.bfloat16:
             # K2 rounds an f32 b to bf16 itself; other dtypes round once here.
             bs = b if b.dtype == torch.float32 else b.to(torch.bfloat16)
-            DtEb = gemv_pair(bs, self.E, self.Dt).to(b.dtype)
+            # Lanes of a batched solve (b under torch.func.vmap) make the
+            # pair a GEMM, which K2, a one-lane GEMV kernel, does not run:
+            # they take the plain pair, the streams upcast to f32 for
+            # products with f32 output, as admm_tpu's vmapped dots keep.
+            pair = _gemv_pair_torch if is_batchedtensor(b) else gemv_pair
+            DtEb = pair(bs, self.E, self.Dt).to(b.dtype)
         else:
             DtEb = self.D.T @ (self.E @ b)
         return b / rho0 - DtEb / (rho0 * rho0)

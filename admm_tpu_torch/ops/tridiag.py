@@ -28,6 +28,7 @@ and the TV model refuses ``solver='cr_packed'``.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -307,12 +308,16 @@ def cr_solve(bb, sol):
     ``(B, N)`` tensor of solutions and leaves ``bb`` as it was.
 
     ``bb`` must have the dtype and device of the solver's stacks.  On the
-    CPU this is ``_cr_solve_torch``.  On a CUDA device it launches the
-    kernel of ``csrc/cr_solve.cu`` (float32 or float64, contiguous
-    ``bb``, at most 65535 lanes) on the tiles of ``tile_plan``: one launch
-    for the pure masked form; for the hybrid form, a forward launch, the
-    dense tail as one ``torch.matmul``, and a back-substitution launch.
-    Anything the kernel does not take raises.
+    CPU this is ``_cr_solve_torch``.  On a CUDA device it runs the custom
+    op ``admm_tpu_torch::cr_solve``, which launches the kernel of
+    ``csrc/cr_solve.cu`` (float32 or float64, at most 65535 lanes) on the
+    tiles of ``tile_plan``: one launch for the pure masked form; for the
+    hybrid form, a forward launch, the dense tail as one
+    ``torch.matmul``, and a back-substitution launch.  Under
+    ``torch.func.vmap`` (the lanes of ``engine.make_admm_runner``) the op's
+    vmap rule folds the lane axis into the kernel's own batch axis B, so
+    the lanes' solves are one kernel solve.  Anything the kernel does not
+    take raises.
     """
     N = sol.alphas.shape[1]
     if bb.ndim != 2 or bb.shape[1] != N:
@@ -329,6 +334,48 @@ def cr_solve(bb, sol):
         raise ValueError(f"cr_solve: unsupported device {bb.device}")
     if bb.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"cr_solve: unsupported dtype {bb.dtype}")
+    _LIVE[id(sol)] = sol
+    return _cr_solve_op(bb, id(sol))
+
+
+# The solvers the custom op can name, by ``id``: an op takes no Python
+# object, so ``cr_solve`` hands it the solver's id and keeps the solver
+# here for as long as something else holds it.
+_LIVE = weakref.WeakValueDictionary()
+
+
+@torch.library.custom_op("admm_tpu_torch::cr_solve", mutates_args=())
+def _cr_solve_op(bb: torch.Tensor, solver: int) -> torch.Tensor:
+    """``cr_solve`` on real ``(B, N)`` tensors: the kernel on a CUDA
+    device, the plain version on the CPU (where only the tests call the op,
+    to reach its vmap rule)."""
+    sol = _LIVE[solver]
+    if bb.device.type == "cpu":
+        return _cr_solve_torch(bb, sol)
+    return _cr_solve_kernel(bb, sol)
+
+
+@_cr_solve_op.register_fake
+def _(bb, solver):
+    return torch.empty_like(bb)
+
+
+def _cr_solve_lanes(info, in_dims, bb, solver):
+    """The op's vmap rule: the lanes' ``(B, N)`` right-hand sides, whatever
+    their lane axes, folded into the rows of one ``(lanes * B, N)`` call."""
+    if in_dims[0] is None:
+        return _cr_solve_op(bb, solver), None
+    bb = bb.movedim(in_dims[0], 0)
+    out = _cr_solve_op(bb.reshape(-1, bb.shape[-1]).contiguous(), solver)
+    return out.reshape(bb.shape), 0
+
+
+_cr_solve_op.register_vmap(_cr_solve_lanes)
+
+
+def _cr_solve_kernel(bb, sol):
+    """Launch K4 on the CUDA ``(B, N)`` ``bb``; counts one launch."""
+    N = sol.alphas.shape[1]
     if not bb.is_contiguous():
         raise ValueError("cr_solve: the kernel needs contiguous right-hand sides")
     B, k = bb.shape[0], sol.alphas.shape[0]
@@ -355,7 +402,8 @@ def cr_solve(bb, sol):
 
 
 # Calls of ``cr_solve`` that launched the kernel in this process (one per
-# solve, however many launches the hybrid form takes).  Callers reset it
-# to 0 and read it back to show that a run went through the kernel; the
-# CPU path never counts.
+# kernel solve, however many launches the hybrid form takes, and one for
+# all the lanes of a vmapped solve).  Callers reset it to 0 and read it
+# back to show that a run went through the kernel; the CPU path never
+# counts.
 cr_solve.launches = 0

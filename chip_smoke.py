@@ -177,6 +177,48 @@ through the functions a user calls and checks what comes out:
      synchronising call inside a sub-step except the eigh proxes' (one
      each, cuSOLVER's info read back; counted and printed, not held), at
      most one per chunk plus SYNCS_OUTSIDE outside.
+ 12. slice 7b in f32 (``spectral_phase``), timed over SPECTRAL_TIMED_STEPS
+     steps under domaxiters:
+     (z11) robust PCA of rank 8 + 5% sparse at 256 x 256 (matrix.py:528-539),
+         exact SVT and the randomized SVT (rank 16): L within 1e-3 of the
+         same steps in f64 on the card; matrix.py's recovery oracle (96 x
+         96, rank 4) within 1e-3; one f32 SVT of the rpca iterate and of a
+         graded spectrum (10^0..10^-7) through every cuSOLVER route
+         and of the rank-8 f64 solution (decomposed in f64, gesvd,
+         gesvdj, gesvda, torch's choice) against LAPACK f64, with its time
+         and syncs per call: the port's route (f64, ``ops/prox.thin_svd``)
+         converges and lands within SVD_ROUTE_SLACK of the most accurate,
+         the others are printed as controls (a route that fails to
+         converge prints as failed);
+     (z12) matrix completion of rank 8 at 512 x 512, 30% observed: the exact
+         form with the randomized SVT recovers M0 within 1e-3; the exact,
+         noisy (mu 20) and randomized forms within MC_BAR of the same
+         MC_STEPS steps in f64; the route probe on the completion iterate
+         and on an 18 x 512 sketch;
+     (z13) logistic regression 4096 x 256 (matrix.py:541-570), dense Newton
+         and Newton-CG: z within 1e-3 of the same steps in f64;
+         logregtest's 256 x 24 instance at ORACLE within matrix.py's f32
+         KKT bar 5e-3; ``logreg_batch`` with 8 one-vs-all lanes, CG and
+         dense, within 1e-3 of f64.
+     The SVT runs read cuSOLVER's info back in every SVD (counted and
+     printed); every other run, no synchronising call inside a sub-step.
+ 13. slice 8 (``batch_phase``, (z14)), the lanes of matrix.py:656-800 in
+     f32, each timed under domaxiters: ``lasso_path`` (128 lambdas on the
+     1500 x 5000 headline-style D, 300 steps), ``lasso_batch`` (128
+     signals), ``tv_batch`` (128 random walks, n = 8192, solver 'cr': the
+     hybrid form), ``basispursuit_batch`` (128 at 512 x 2048),
+     ``qp_batch`` (64 QPs at n = 1024, 1000 steps), ``covsel_batch`` (32
+     at n = 128, ns and ns_fast, 200 steps) and ``sdp_batch`` (16 max-cut
+     relaxations at n = 128, eigh and ns, 100 steps): instance-iterations
+     per second, sub-steps per second and CUDA launches per step
+     (torch.profiler), synchronising calls counted (none inside a
+     sub-step but the batched eigh's); for CHECK_LANES lanes of each, the
+     f64 batch against the port's serial f64 solves on the card (equal
+     steps, x to 1e-9) and the f32 lanes against the f64 lanes within
+     matrix.py's f32 bar of the family; ``tv_batch`` launches K4 exactly
+     once per sub-step on (128, 8192), and the converging run equals the
+     run with the plain b-phase (equal per-lane steps, x within 1e-6
+     ||x||_inf).
 
 Kernel times are device times: CUDA events around replays of a CUDA
 graph that holds several calls (``graph_ms``), so that the host's time per
@@ -252,6 +294,29 @@ SDP_DIAG_N = 512
 SDP_DIAG_TIMED_STEPS = 40
 SDP_DENSE = (128, 512, 32)
 SDP_DENSE_TIMED_STEPS = 100
+# Slice 7b (z11)-(z13) and slice 8 (z14).
+RPCA_N = 256
+RPCA_RANK = 16
+SPECTRAL_TIMED_STEPS = 200
+SVD_ROUTES = ("f64", "gesvd", "gesvdj", "gesvda", None)
+SVD_ROUTE_SLACK = 2.0
+MC_N, MC_RANK, MC_P = 512, 8, 0.3
+MC_STEPS = 30
+# Set from its readings on an H100 80GB HBM3 at 700 W: 7.3e-7 (exact, noisy), 2.2e-6 (rsvd).
+MC_BAR = 1e-5
+LOGREG_SHAPE = (4096, 256)
+LANES = 128
+LANE_STEPS = 300
+PATH_SHAPE = (1500, 5000)
+TV_BATCH_N = 8192
+QP_LANES, QP_N, QP_STEPS = 64, 1024, 1000
+COVSEL_LANES, COVSEL_BN, COVSEL_STEPS = 32, 128, 200
+SDP_LANES, SDP_BN, SDP_STEPS = 16, 128, 100
+CHECK_LANES = 4
+CHECK_MAXITERS = 2000
+# The SDP lanes' checks stop early to bound the phase's time (the batched f64
+# eigh loops over the lanes' matrices; ns takes ~500 steps to converge).
+CHECK_STEPS = {"sdp_batch eigh": 50, "sdp_batch ns": 200}
 # H100 SXM peaks from NVIDIA's data sheet.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -1278,14 +1343,19 @@ def family_objective(family, D, s, x, tau=0.8, C=1.0):
     return 0.5 * np.sum(x * x) + C * np.sum(loss)
 
 
-def main_path(tag, solve, eigh=False):
+def main_path(tag, solve, eigh=False, reads="eigh", k4=False):
     """Run ``solve`` with every kernel's count (K1-K4) at 0 just before it
     and read just after, its synchronising calls counted, and check that
-    none launched, that its xopt is finite on the card and that no
+    none launched (``k4``: that K4 launched exactly once per sub-step and
+    nothing else), that its xopt is finite on the card and that no
     synchronising call ran inside a sub-step (``eigh``: the calls of
-    ``torch.linalg.eigh``, which reads cuSOLVER's info back every call,
-    are counted and printed instead), and at most one per chunk plus
-    SYNCS_OUTSIDE outside the loop."""
+    ``torch.linalg.eigh`` or, as ``reads`` names them, of
+    ``torch.linalg.svd``, which read cuSOLVER's info back every call, are
+    counted and printed instead), and at most one per chunk plus
+    SYNCS_OUTSIDE outside the loop.  A batched solve (per-lane steps)
+    prints the lanes' steps, the instance-iterations per second (the
+    lanes' steps summed over the loop's wall time) and the sub-steps per
+    second."""
     import torch
 
     from admm_tpu_torch.ops.gemv_pair import gemv_pair, resident_lasso
@@ -1301,15 +1371,29 @@ def main_path(tag, solve, eigh=False):
         torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
     outside = sy["solve"] - sy["steps"] - sy["chunks"]
-    print(f"  ({tag}) steps={r.steps} runtime={r.runtime:.4f}s iter/s "
-          f"{r.steps / r.runtime:.1f} (setup+solve {r.solverruntime:.4f}s); kernel "
-          f"launches {launches}; synchronising calls: {sy['steps']} inside "
-          f"{sy['substeps']} sub-steps, {sy['chunks']} chunk reads, {outside} outside the loop")
+    if torch.is_tensor(r.steps):
+        steps = r.steps.cpu()
+        rate = (f"{steps.numel()} lanes, steps {int(steps.min())}-{int(steps.max())}, "
+                f"runtime {r.runtime:.4f}s: inst-iter/s {float(steps.sum()) / r.runtime:.1f}, "
+                f"sub-steps/s {sy['substeps'] / r.runtime:.1f}")
+        diverged = False
+    else:
+        rate = (f"steps={r.steps} runtime={r.runtime:.4f}s iter/s {r.steps / r.runtime:.1f} "
+                f"(setup+solve {r.solverruntime:.4f}s)")
+        diverged = r.diverged
+    print(f"  ({tag}) {rate}; kernel launches {launches}; synchronising calls: {sy['steps']} "
+          f"inside {sy['substeps']} sub-steps, {sy['chunks']} chunk reads, {outside} outside "
+          f"the loop")
     check(r.xopt.device.type == "cuda" and bool(torch.isfinite(r.xopt).all())
-          and not r.diverged, f"({tag}) xopt finite on the card")
-    check(not any(launches.values()), f"({tag}) no K1-K4 launch")
+          and not diverged, f"({tag}) xopt finite on the card")
+    if k4:
+        check(launches["K4"] == sy["substeps"] and sum(launches.values()) == launches["K4"],
+              f"({tag}) K4 launched once per sub-step ({launches['K4']} for "
+              f"{sy['substeps']}), no other kernel")
+    else:
+        check(not any(launches.values()), f"({tag}) no K1-K4 launch")
     if eigh:
-        print(f"  ({tag}) eigh: {sy['steps'] / sy['substeps']:.3f} synchronising calls per "
+        print(f"  ({tag}) {reads}: {sy['steps'] / sy['substeps']:.3f} synchronising calls per "
               f"sub-step (reported, not held)")
     else:
         check(sy["steps"] == 0, f"({tag}) no synchronising call inside a sub-step")
@@ -1700,6 +1784,358 @@ def programs_phase(dev):
     print(f"  (z1)-(z10) took {time.perf_counter() - t0:.1f}s")
 
 
+def svt_route(V, thresh, route):
+    """One SVT of V through ``route``: "f64" decomposes in float64 and
+    rounds the factors back (``ops/prox.thin_svd``'s route for f32 on the
+    card); otherwise the cuSOLVER driver of that name, or torch's choice
+    for None."""
+    import torch
+
+    if route == "f64":
+        u, s, vt = (t.to(V.dtype) for t in torch.linalg.svd(V.double(), full_matrices=False))
+    else:
+        u, s, vt = torch.linalg.svd(V, full_matrices=False, driver=route)
+    return (u * torch.clamp_min(s - thresh, 0.0).unsqueeze(-2)) @ vt
+
+
+def svd_route_probe(tag, cases):
+    """The port's f32 SVT (``matrixcompletion.svt`` on ``ops/prox.thin_svd``)
+    and each route's of each case's V64, against LAPACK's f64 SVT of the
+    same matrix on the host, with its host-issued time per call (CUDA
+    events around 20 calls, each reading cuSOLVER's info back) and its
+    synchronising calls per call; ``cases`` holds (name, V64, threshold).
+    A route that fails to converge on a case (cuSOLVER's info, raised by
+    torch) is printed as failed.  Checks that the port's SVT converges and
+    lands within SVD_ROUTE_SLACK of the most accurate route's error on
+    every case; the routes are printed as controls."""
+    import warnings
+
+    import torch
+
+    from admm_tpu_torch.models.matrixcompletion import svt
+
+    routes = {r or "torch default": (lambda V, t, r=r: svt_route(V, t, r)) for r in SVD_ROUTES}
+    routes["port"] = svt
+    for name, V64, thresh in cases:
+        ref = svt_route(V64.cpu(), thresh, None)
+        V32 = V64.float()
+        out = {}
+        for route, fn in routes.items():
+            try:
+                got = fn(V32, thresh)
+            except torch.linalg.LinAlgError:
+                out[route] = (float("inf"), float("nan"), 0)
+                continue
+            err = float(torch.linalg.norm(got.double().cpu() - ref) / torch.linalg.norm(ref))
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn(V32, thresh)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = sum("called a synchronizing" in str(w.message) for w in seen)
+            out[route] = (err, time_ms(lambda: fn(V32, thresh), 20), syncs)
+        print(f"  ({tag}) SVT, {name} f32 {tuple(V64.shape)} against LAPACK f64 on the host "
+              f"(||SVT - SVT_f64|| / ||SVT_f64||, ms per call, syncs per call): "
+              + ", ".join(f"{r} " + (f"{e:.3e} {t:.3f} ms {y}" if e < float("inf") else "failed")
+                          for r, (e, t, y) in out.items()))
+        best = min(e for r, (e, _, _) in out.items() if r != "port")
+        check(out["port"][0] <= SVD_ROUTE_SLACK * best,
+              f"({tag}) {name}: the port's SVT converges within {SVD_ROUTE_SLACK}x the most "
+              f"accurate route's error")
+
+
+def _graded(n, seed):
+    """An (n, n) f64 matrix with singular values 10^0 .. 10^-7 and random
+    singular vectors: the conditioning an approximate route is weakest
+    at."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    V, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return torch.from_numpy((U * np.logspace(0, -7, n)) @ V.T)
+
+
+def launches_per_step(solve):
+    """CUDA kernel launches per step of ``solve(steps)`` under
+    torch.profiler: the launches of a 20-step run less those of a 10-step
+    run, over 10 (the set-up's launches cancel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for steps in (10, 20):
+        solve(steps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            solve(steps)
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if str(e.device_type).endswith("CUDA")))
+    return (counts[1] - counts[0]) / 10
+
+
+def spectral_phase(dev):
+    """Slice 7b, (z11)-(z13): robust PCA, matrix completion and sparse
+    logistic regression in f32 at matrix.py's widths."""
+    import torch
+
+    from admm_tpu_torch import ADMMConfig, logreg, logreg_batch, matrixcompletion, rpca
+
+    t0 = time.perf_counter()
+    oracle = ADMMConfig(**ORACLE)
+
+    def timed(steps):
+        return ADMMConfig(maxiters=steps, domaxiters=True, unroll="auto")
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in arrays]
+
+    print(f"slice 7b: robust PCA, matrix completion and logistic regression in f32, "
+          f"{SPECTRAL_TIMED_STEPS} timed steps under domaxiters")
+
+    # (z11) robust PCA, matrix.py:528-539.
+    rng = np.random.default_rng(8)
+    n = RPCA_N
+    L = rng.standard_normal((n, 8)) @ rng.standard_normal((8, n))
+    S = (rng.random((n, n)) < 0.05) * 5 * rng.standard_normal((n, n))
+    (Md,) = on_card(L + S)
+    for method, kw in (("exact", {}), ("rsvd", dict(prox_method="rsvd", rank=RPCA_RANK))):
+        print(f"  (z11) rpca {n}x{n}, rank 8 + 5% sparse, {method}")
+        r = main_path(f"z11 {method}", lambda: rpca(Md, config=timed(SPECTRAL_TIMED_STEPS), **kw),
+                      True, "svd")
+        r64 = rpca(Md.double(), config=timed(SPECTRAL_TIMED_STEPS), **kw)
+        err = rel(r.xopt, r64.xopt)
+        print(f"  (z11) {method}: ||L_f32 - L_f64|| / ||L_f64|| after the same "
+              f"{SPECTRAL_TIMED_STEPS} steps = {err:.3e} (bar 1e-3)")
+        check(err <= 1e-3, f"(z11) {method}: L within 1e-3 of the same steps in f64")
+        if method == "exact":
+            V_rpca = Md.double() - r64.zopt - r64.uopt
+    svd_route_probe("z11", [("rpca iterate", V_rpca, 1.0),
+                            ("graded spectrum", _graded(n, 1).to(dev), 1e-3),
+                            ("rank-8 SVT output", r64.xopt, 1.0)])
+    # matrix.py:1071-1080's recovery oracle.
+    L0 = rng.standard_normal((96, 4)) @ rng.standard_normal((4, 96))
+    S0 = (rng.random((96, 96)) < 0.05) * 5 * rng.standard_normal((96, 96))
+    (M96,) = on_card(L0 + S0)
+    r = main_path("z11 recovery", lambda: rpca(M96, config=oracle), True, "svd")
+    err = np.linalg.norm(r.xopt.double().cpu().numpy() - L0) / np.linalg.norm(L0)
+    print(f"  (z11) rpca 96x96 rank 4: ||L - L0|| / ||L0|| = {err:.3e} (bar 1e-3)")
+    check(err <= 1e-3, "(z11) recovery within 1e-3")
+
+    # (z12) matrix completion, 512 x 512, rank 8, 30% observed.
+    rng = np.random.default_rng(9)
+    m = MC_N
+    M0 = rng.standard_normal((m, MC_RANK)) @ rng.standard_normal((MC_RANK, m))
+    mask = rng.random((m, m)) < MC_P
+    Mo, maskd = on_card(M0 * mask, mask)
+    rec = main_path("z12 recovery", lambda: matrixcompletion(
+        Mo, maskd, config=oracle, prox_method="rsvd", rank=MC_RANK), True, "svd")
+    err = np.linalg.norm(rec.zopt.double().cpu().numpy() - M0) / np.linalg.norm(M0)
+    print(f"  (z12) matrixcompletion {m}x{m} rank {MC_RANK}, {MC_P:.0%} observed, exact form "
+          f"(rsvd rank {MC_RANK}): ||Z - M0|| / ||M0|| = {err:.3e} (bar 1e-3)")
+    check(err <= 1e-3, "(z12) exact-form recovery within 1e-3")
+    for form, mu, kw in (("exact", None, {}), ("noisy", 20.0, {}),
+                         ("rsvd", None, dict(prox_method="rsvd", rank=MC_RANK))):
+        r = main_path(f"z12 {form}", lambda: matrixcompletion(
+            Mo, maskd, mu, config=timed(MC_STEPS), **kw), True, "svd")
+        r64 = matrixcompletion(Mo.double(), maskd.double(), mu, config=timed(MC_STEPS), **kw)
+        err = rel(r.zopt, r64.zopt)
+        print(f"  (z12) {form}: ||Z_f32 - Z_f64|| / ||Z_f64|| after the same {MC_STEPS} steps "
+              f"= {err:.3e} (bar {MC_BAR})")
+        check(err <= MC_BAR, f"(z12) {form}: Z within {MC_BAR} of the same steps in f64")
+        if form == "exact":
+            V_mc = r64.xopt + r64.uopt
+    svd_route_probe("z12", [("completion iterate", V_mc, 1.0),
+                            ("rsvd sketch (18, 512)", V_mc[:18].contiguous(), 1.0)])
+
+    # (z13) logistic regression, matrix.py:541-570, and logregtest's oracle.
+    rng = np.random.default_rng(10)
+    m, n = LOGREG_SHAPE
+    D = rng.standard_normal((m, n))
+    p = 1.0 / (1.0 + np.exp(-(D @ rng.standard_normal(n))))
+    ell = np.where(rng.random(m) < p, 1.0, -1.0)
+    Dd, elld = on_card(D, ell)
+    for inner in ("newton", "newton_cg"):
+        print(f"  (z13) logreg {m}x{n}, lam 0.1, inner {inner!r}")
+        r = main_path(f"z13 {inner}", lambda: logreg(Dd, elld, 0.1,
+                                                     timed(SPECTRAL_TIMED_STEPS), inner=inner))
+        r64 = logreg(Dd.double(), elld.double(), 0.1, timed(SPECTRAL_TIMED_STEPS), inner=inner)
+        err = rel(r.zopt, r64.zopt)
+        print(f"  (z13) {inner}: ||z_f32 - z_f64|| / ||z_f64|| after the same steps = {err:.3e} "
+              f"(bar 1e-3)")
+        check(err <= 1e-3, f"(z13) {inner}: z within 1e-3 of the same steps in f64")
+    rng = np.random.default_rng(0)
+    Dk = rng.standard_normal((256, 24))
+    w = rng.standard_normal(24) * (rng.random(24) < 0.5)
+    ellk = np.where(rng.random(256) < 1.0 / (1.0 + np.exp(-(Dk @ w))), 1.0, -1.0)
+    Y = Dk * ellk[:, None]
+    lam = 0.1 * float(np.max(np.abs(Y.T @ np.full(256, 0.5))))
+    Dkd, ellkd = on_card(Dk, ellk)
+    for inner in ("newton", "newton_cg"):
+        r = main_path(f"z13 kkt {inner}", lambda: logreg(Dkd, ellkd, lam, oracle, inner=inner))
+        z = r.zopt.double().cpu().numpy()
+        g = -Y.T @ (1.0 / (1.0 + np.exp(Y @ z)))
+        act = np.abs(z) > 1e-8
+        kkt = max(float(np.max(np.abs(g[act] + lam * np.sign(z[act])))) if act.any() else 0.0,
+                  float(max(np.max(np.abs(g[~act])) - lam, 0.0)) if (~act).any() else 0.0)
+        print(f"  (z13) logregtest 256x24 f32 {inner}: KKT residual {kkt:.3e} (bar 5e-3)")
+        check(kkt <= 5e-3, f"(z13) {inner}: KKT within matrix.py's f32 bar 5e-3")
+    y8 = np.random.default_rng(11).integers(0, 8, size=m)
+    ell8 = np.stack([np.where(y8 == k, 1.0, -1.0) for k in range(8)])
+    (ell8d,) = on_card(ell8)
+    for inner in ("newton_cg", "newton"):
+        r = main_path(f"z13 batch {inner}", lambda: logreg_batch(
+            Dd, ell8d, 0.1, timed(SPECTRAL_TIMED_STEPS), inner=inner))
+        r64 = logreg_batch(Dd.double(), ell8d.double(), 0.1, timed(SPECTRAL_TIMED_STEPS),
+                           inner=inner)
+        err = rel(r.zopt, r64.zopt)
+        print(f"  (z13) logreg_batch B=8 one-vs-all {inner}: ||z_f32 - z_f64|| / ||z_f64|| "
+              f"= {err:.3e} (bar 1e-3)")
+        check(err <= 1e-3, f"(z13) logreg_batch {inner}: within 1e-3 of f64")
+    print(f"  (z11)-(z13) took {time.perf_counter() - t0:.1f}s")
+
+
+def batch_phase(dev):
+    """Slice 8, (z14): the paths and instance batches at matrix.py's sizes
+    (matrix.py:656-800); returns K4's launches in the tv_batch cell's
+    timed run."""
+    import torch
+
+    import admm_tpu_torch as T
+    from admm_tpu_torch import ADMMConfig, Hooks, admm
+    from admm_tpu_torch.models.covarianceselection import make_prox_ops as covsel_ops
+    from admm_tpu_torch.ops.tridiag import cr_solve
+
+    t0 = time.perf_counter()
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    rng = np.random.default_rng(12)
+    B = LANES
+
+    def covsel_serial(S, lam, cfg, **kw):
+        pf, pg, obj, data = covsel_ops(S, lam, cfg, **kw)
+        n = S.shape[0]
+        return admm(pf, pg, cfg, A=1.0, B=-1.0, c=0.0, shape_x=(n, n), shape_z=(n, n),
+                    hooks=Hooks(obj=obj), dtype=S.dtype, data=data)
+
+    # Each cell: (tag, timed steps, batch(operands, cfg) on lanes `idx`,
+    # serial(operands, cfg, lane), operands, the f32 bar, K4 expected,
+    # the cuSOLVER reads expected).
+    m, n = PATH_SHAPE
+    Dp = rng.standard_normal((m, n))
+    Dp /= np.sqrt(np.sum(Dp**2, axis=0, keepdims=True))
+    sp = Dp @ (rng.standard_normal(n) * (rng.random(n) < 0.1))
+    lmax = float(np.max(np.abs(Dp.T @ sp)))
+    lams = np.geomspace(0.001 * lmax, 0.5 * lmax, B)
+    Xb = rng.standard_normal((B, n)) * (rng.random((B, n)) < 0.1)
+    Sb = Xb @ Dp.T + 0.03 * rng.standard_normal((B, m))
+    lamb = float(0.1 * np.median(np.max(np.abs(Sb @ Dp), axis=1)))
+    Sig = np.cumsum(rng.standard_normal((B, TV_BATCH_N)), axis=1)
+    Dbp = rng.standard_normal(BP_SHAPE)
+    Sbp = (rng.standard_normal((B, BP_SHAPE[1])) * (rng.random((B, BP_SHAPE[1])) < 0.05)) @ Dbp.T
+    nq, mq = QP_N, QP_N // 4
+    Rq = rng.standard_normal((nq, 2 * nq))
+    Pq = Rq @ Rq.T / (2 * nq) + 0.1 * np.eye(nq)
+    Dq = rng.standard_normal((mq, nq))
+    Ssq = np.abs(rng.standard_normal((QP_LANES, nq))) @ Dq.T
+    Qsq = rng.standard_normal((QP_LANES, nq))
+    nc = COVSEL_BN
+    Zc = rng.standard_normal((COVSEL_LANES, nc, 4 * nc))
+    Sc = Zc @ np.swapaxes(Zc, 1, 2) / (4 * nc) + 0.1 * np.eye(nc)
+    Wadj = np.triu((rng.random((SDP_LANES, SDP_BN, SDP_BN)) < 0.1).astype(np.float64), 1)
+    Wadj = Wadj + np.swapaxes(Wadj, 1, 2)
+    Lap = np.stack([np.diag(w.sum(-1)) for w in Wadj]) - Wadj
+    ones = np.ones(SDP_BN)
+    cells = [
+        ("lasso_path", LANE_STEPS, (Dp, sp, lams), 1e-3,
+         lambda o, c, i: T.lasso_path(o[0], o[1], o[2][i], c),
+         lambda o, c, j: T.lasso(o[0], o[1], o[2][j], c), None),
+        ("lasso_batch", LANE_STEPS, (Dp, Sb), 1e-3,
+         lambda o, c, i: T.lasso_batch(o[0], o[1][i], lamb, c),
+         lambda o, c, j: T.lasso(o[0], o[1][j], lamb, c), None),
+        ("tv_batch", LANE_STEPS, (Sig,), 0.02,
+         lambda o, c, i: T.tv_batch(o[0][i], 1.0, c, solver="cr"),
+         lambda o, c, j: T.totalvariation(o[0][j], 1.0, c, solver="cr"), None),
+        ("basispursuit_batch", LANE_STEPS, (Dbp, Sbp), 1e-4,
+         lambda o, c, i: T.basispursuit_batch(o[0], o[1][i], c),
+         lambda o, c, j: T.basispursuit(o[0], o[1][j], c), None),
+        ("qp_batch", QP_STEPS, (Pq, Qsq, Dq, Ssq), 5e-3,
+         lambda o, c, i: T.qp_batch(o[0], o[1][i], 0.0, o[2], o[3][i], c),
+         lambda o, c, j: T.quadraticprogram(o[0], o[1][j], 0.0, o[2], o[3][j], c), None),
+        ("covsel_batch ns", COVSEL_STEPS, (Sc,), 1e-3,
+         lambda o, c, i: T.covsel_batch(o[0][i], 0.05, c),
+         lambda o, c, j: covsel_serial(o[0][j], 0.05, c, prox_method="ns"), None),
+        ("covsel_batch ns_fast", COVSEL_STEPS, (Sc,), 1e-3,
+         lambda o, c, i: T.covsel_batch(o[0][i], 0.05, c, prox_method="ns_fast", ns_iters=14),
+         lambda o, c, j: covsel_serial(o[0][j], 0.05, c, prox_method="ns_fast", ns_iters=14),
+         None),
+        ("sdp_batch eigh", SDP_STEPS, (-0.25 * Lap, ones), 1e-3,
+         lambda o, c, i: T.sdp_batch(o[0][i], "diag", o[1], c),
+         lambda o, c, j: T.sdp(o[0][j], "diag", o[1], c), "eigh"),
+        ("sdp_batch ns", SDP_STEPS, (-0.25 * Lap, ones), 1e-3,
+         lambda o, c, i: T.sdp_batch(o[0][i], "diag", o[1], c, prox_method="ns", ns_iters=16),
+         lambda o, c, j: T.sdp(o[0][j], "diag", o[1], c, prox_method="ns", ns_iters=16), None),
+    ]
+    print(f"slice 8: paths and instance batches in f32 at matrix.py's sizes (B = {B}; qp "
+          f"{QP_LANES}, covsel {COVSEL_LANES}, sdp {SDP_LANES}), timed under domaxiters; "
+          f"{CHECK_LANES} lanes of each held in f64 against the serial solve")
+    tv_launches = None
+    for tag, steps, arrays, bar, batch, serial, reads in cells:
+        t1 = time.perf_counter()
+        o32 = [f32(a) for a in arrays]
+        o64 = [a.double() for a in o32]
+        every = slice(None)
+        timed = ADMMConfig(maxiters=steps, domaxiters=True)
+        r = main_path(f"z14 {tag}", lambda: batch(o32, timed, every), reads is not None,
+                      reads, k4=tag == "tv_batch")
+        check(int(r.steps.min()) == steps, f"(z14 {tag}) every lane ran {steps} steps")
+        lanes = r.steps.numel()
+        if tag == "tv_batch":
+            tv_launches = cr_solve.launches
+        per_step = launches_per_step(lambda k: batch(
+            o32, ADMMConfig(maxiters=k, domaxiters=True), every))
+        print(f"  (z14 {tag}) {lanes} lanes: {per_step:.1f} CUDA launches per step "
+              f"(torch.profiler, 20-step run less 10-step run)")
+        # CHECK_LANES lanes in f64 against the serial f64 solves, and the
+        # same lanes in f32 against f64.
+        idx = list(range(lanes - 1, -1, -(lanes // CHECK_LANES)))[:CHECK_LANES]
+        cfg = ADMMConfig(maxiters=CHECK_STEPS.get(tag, CHECK_MAXITERS))
+        b64 = batch(o64, cfg, idx)
+        b32 = batch(o32, cfg, idx)
+        worst = 0.0
+        for k, j in enumerate(idx):
+            solo = serial(o64, cfg, j)
+            check(int(b64.steps[k]) == solo.steps,
+                  f"(z14 {tag}) lane {j}: f64 steps {int(b64.steps[k])} == serial {solo.steps}")
+            scale = float(solo.xopt.abs().max()) or 1.0
+            worst = max(worst, float((b64.xopt[k] - solo.xopt).abs().max()) / scale)
+        err = rel(b32.xopt, b64.xopt)
+        print(f"  (z14 {tag}) lanes {idx}: f64 steps {b64.steps.tolist()} (f32 "
+              f"{b32.steps.tolist()}), max|x_lane - x_serial| / ||x_serial||_inf = "
+              f"{worst:.3e} (bar 1e-9); ||x_f32 - x_f64|| / ||x_f64|| = {err:.3e} (bar {bar})")
+        check(worst <= 1e-9, f"(z14 {tag}) f64 lanes equal the serial f64 solves to 1e-9")
+        check(err <= bar, f"(z14 {tag}) f32 lanes within {bar} of f64")
+        if tag == "tv_batch":
+            # The whole batch converging, with K4 and with the plain b-phase.
+            conv = ADMMConfig(maxiters=CHECK_MAXITERS)
+            k_run = main_path("z14 tv_batch converging", lambda: batch(o32, conv, every),
+                              k4=True)
+            p_run = T.tv_batch(o32[0], 1.0, conv, solver="cr", _plain_cr=True)
+            diff = float((k_run.xopt - p_run.xopt).abs().max())
+            xinf = float(k_run.xopt.abs().max())
+            print(f"  (z14 tv_batch) plain b-phase: steps equal {torch.equal(k_run.steps, p_run.steps)}, "
+                  f"max|x_kernel - x_plain| = {diff:.3e}, ||x||_inf = {xinf:.6g}")
+            check(torch.equal(k_run.steps, p_run.steps), "(z14 tv_batch) per-lane steps equal "
+                  "with the plain b-phase")
+            check(diff <= 1e-6 * xinf, "(z14 tv_batch) x within 1e-6 ||x||_inf of the plain "
+                  "b-phase's")
+        print(f"  (z14 {tag}) took {time.perf_counter() - t1:.1f}s")
+    print(f"  (z14) took {time.perf_counter() - t0:.1f}s")
+    return tv_launches
+
+
+
 def main():
     import torch
 
@@ -1730,6 +2166,8 @@ def main():
     variants = variants_phase(dev, d_plain)
     families_phase(dev)
     programs_phase(dev)
+    spectral_phase(dev)
+    k4_batch_launches = batch_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -1757,7 +2195,8 @@ def main():
             "admm_tpu/ops/kernels.py:48", k1b_launches, k1b_err, k1b_ms, k1b_plain_ms,
             k1b_bound, None),
         row("cr_solve", "cuda", "admm_tpu_torch/csrc/cr_solve.cu",
-            "experiments/pallas_cr_kernel.py:103", k4_launches, k4_err, k4_ms,
+            "experiments/pallas_cr_kernel.py:103", {"f": k4_launches, "z14": k4_batch_launches},
+            k4_err, k4_ms,
             k4_plain_ms, k4_bound, None),
         row("gemv_pair", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
             "experiments/pallas_probe.py:52", {"k": k2_launches, **variants["k2"]}, k2_err,

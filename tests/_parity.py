@@ -29,3 +29,47 @@ def assert_same_run(res, jres, rtol=1e-9):
             continue
         scale = abs(ref[0]) or np.max(np.abs(ref))
         np.testing.assert_allclose(res.trace(name), ref, rtol=0, atol=1e-8 * scale)
+
+
+def assert_same_lanes(out, jout, rtol=1e-9):
+    """A batched run of admm_tpu_torch (``BatchResults``/``PathResults``)
+    against admm_tpu's, lane by lane: equal steps; x, z, u to ``rtol`` of
+    the lane's largest entry (u at the scale of z, as in
+    ``assert_same_run``); objopt to ``rtol``; pnorm, dnorm and objvals over
+    each lane's steps to 1e-8 of their first value (of their largest where
+    the first is zero to rounding)."""
+    steps = np.asarray(jout.steps)
+    assert out.steps.tolist() == steps.tolist()
+    for i in range(steps.shape[0]):
+        zscale = np.max(np.abs(np.asarray(jout.zopt[i])))
+        for name in ("xopt", "zopt", "uopt"):
+            ref = np.asarray(getattr(jout, name)[i])
+            scale = max(np.max(np.abs(ref)), zscale if name == "uopt" else 0.0)
+            np.testing.assert_allclose(getattr(out, name)[i].cpu().numpy(), ref, rtol=rtol,
+                                       atol=rtol * scale)
+        if jout.objopt is not None and not isinstance(jout.objopt, tuple):
+            np.testing.assert_allclose(float(out.objopt[i]), float(jout.objopt[i]), rtol=rtol,
+                                       atol=rtol)
+        for name in ("pnorm", "dnorm", "objvals"):
+            if name not in jout.hist:
+                continue
+            ref = np.asarray(jout.hist[name][i])[: steps[i]]
+            got = out.hist[name][i].cpu().numpy()[: steps[i]]
+            if np.isnan(ref).all():
+                assert np.isnan(got).all()
+                continue
+            # The first value, unless it is zero to rounding (the max-cut
+            # SDP's first pnorm): then the largest.
+            top = np.max(np.abs(ref))
+            scale = abs(ref[0]) if abs(ref[0]) > 1e-12 * top else top
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-8 * scale)
+
+
+def assert_lane_is_solo(out, i, solo, rtol=1e-9, name="xopt"):
+    """Lane ``i`` of a batched run of the port against the port's serial
+    solve of the same instance: equal steps, ``name`` to ``rtol`` of its
+    largest entry."""
+    assert int(out.steps[i]) == solo.steps
+    ref = getattr(solo, name).cpu().numpy()
+    np.testing.assert_allclose(getattr(out, name)[i].cpu().numpy(), ref, rtol=rtol,
+                               atol=rtol * np.max(np.abs(ref)))

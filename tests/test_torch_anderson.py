@@ -217,11 +217,12 @@ def test_window_matches_numpy_transcription(m):
     ref = _numpy_window(cfg, S, T)
     win = AndersonWindow(cfg, [12], dtype=torch.float64, device="cpu")
     cnt, best = win.initial()
+    F, T_ = win.rings()
     no = torch.zeros((), dtype=torch.bool)
     restarted = False
     for (s_in, t_out), (nxt_ref, cnt_ref, best_ref) in zip(zip(S, T), ref):
-        (nxt,), cnt, best = win.step([torch.from_numpy(s_in)], [torch.from_numpy(t_out)],
-                                     cnt, best, done=no)
+        (nxt,), cnt, best, F, T_ = win.step([torch.from_numpy(s_in)], [torch.from_numpy(t_out)],
+                                            cnt, best, F, T_, done=no)
         restarted |= int(cnt) == 1 and len(S) > 1
         assert int(cnt) == cnt_ref
         np.testing.assert_allclose(float(best), best_ref, rtol=1e-14)
@@ -239,19 +240,21 @@ def test_window_over_leaves_equals_one_concatenated_leaf():
     two = AndersonWindow(cfg, [3, 7], dtype=torch.float64, device="cpu")
     c1, b1 = one.initial()
     c2, b2 = two.initial()
+    F1, T1 = one.rings()
+    F2, T2 = two.rings()
     no = torch.zeros((), dtype=torch.bool)
     for s_in, t_out in zip(S, T):
-        (n1,), c1, b1 = one.step([torch.from_numpy(s_in)], [torch.from_numpy(t_out)],
-                                 c1, b1, done=no)
-        n2, c2, b2 = two.step(split(s_in), split(t_out), c2, b2, done=no)
+        (n1,), c1, b1, F1, T1 = one.step([torch.from_numpy(s_in)], [torch.from_numpy(t_out)],
+                                         c1, b1, F1, T1, done=no)
+        n2, c2, b2, F2, T2 = two.step(split(s_in), split(t_out), c2, b2, F2, T2, done=no)
         assert n2[1].shape == (7, 1) and int(c1) == int(c2)
         np.testing.assert_allclose(torch.cat([n2[0], n2[1].reshape(-1)]).numpy(), n1.numpy(),
                                    rtol=1e-10, atol=1e-12)
-    F = [f.clone() for f in two.F]
+    F = [f.clone() for f in F2]
     yes = torch.ones((), dtype=torch.bool)
-    two.step(split(S[0]), split(T[0]), c2, b2, done=no, frozen=yes)
-    for before, after in zip(F, two.F):
+    two.step(split(S[0]), split(T[0]), c2, b2, F2, T2, done=no, frozen=yes)
+    for before, after in zip(F, F2):
         assert torch.equal(before[:-1], after[:-1])  # only the spare row moved
     # Done: the candidate is refused and the plain output passes through.
-    nxt, _, _ = two.step(split(S[1]), split(T[1]), c2, b2, done=yes)
+    nxt, _, _, _, _ = two.step(split(S[1]), split(T[1]), c2, b2, F2, T2, done=yes)
     assert torch.equal(torch.cat([nxt[0], nxt[1].reshape(-1)]), torch.from_numpy(T[1]))

@@ -7,10 +7,12 @@ import numpy as np
 import pytest
 import torch
 
+import admm_tpu_torch as T
 from admm_tpu_torch import (ADMMConfig, admm, basispursuit, covarianceselection, elasticnet,
                             fusedlasso, get_prox_ops, grouplasso, huberfit, lad, lasso,
-                            linearprogram, linearsvm, nnls, quadraticprogram, quantile, sdp,
-                            totalvariation, totalvariation2d, unwrappedadmm)
+                            linearprogram, linearsvm, logreg, matrixcompletion, nnls,
+                            quadraticprogram, quantile, rpca, sdp, totalvariation,
+                            totalvariation2d, unwrappedadmm)
 from admm_tpu_torch.device import resolve_device
 
 torch.set_num_threads(1)
@@ -50,6 +52,21 @@ _ENTRIES = {
                                                       np.ones(12), _CFG, **kw),
     "covarianceselection": lambda **kw: covarianceselection(_DS, 0.1, _CFG, **kw),
     "sdp": lambda **kw: sdp(_DS.T @ _DS, "diag", np.ones(12), _CFG, **kw),
+    "rpca": lambda **kw: rpca(_D, config=_CFG, **kw),
+    "matrixcompletion": lambda **kw: matrixcompletion(_D, _D > 0, config=_CFG, **kw),
+    "logreg": lambda **kw: logreg(_DS, np.sign(_SS), 0.1, _CFG, **kw),
+}
+# The lanes' entry points (slice 8): every lane runs the 3 steps.
+_LANES = {
+    "lasso_batch": lambda **kw: T.lasso_batch(_D, np.stack([_S, -_S]), 0.1, _CFG, **kw),
+    "tv_batch": lambda **kw: T.tv_batch(np.stack([_S, -_S]), 0.5, _CFG, **kw),
+    "rpca_batch": lambda **kw: T.rpca_batch(np.stack([_D, -_D]), config=_CFG, **kw),
+    "logreg_batch": lambda **kw: T.logreg_batch(_DS, np.sign(np.stack([_SS, -_SS])), 0.1, _CFG,
+                                                **kw),
+    "lasso_path": lambda **kw: T.lasso_path(_D, _S, [0.1, 0.2], _CFG, **kw),
+    "tv_path": lambda **kw: T.tv_path(_S, [0.1, 0.2], _CFG, **kw),
+    "qp_batch": lambda **kw: T.qp_batch(_DS.T @ _DS, np.stack([_SS[:12], -_SS[:12]]), 0.0,
+                                        -np.ones(12), np.ones(12), _CFG, **kw),
 }
 
 
@@ -63,6 +80,18 @@ def test_numpy_inputs_without_a_device_need_the_card(no_card, entry):
 def test_device_cpu_solves_on_the_cpu(no_card, entry):
     res = _ENTRIES[entry](device="cpu")
     assert res.steps == 3 and res.xopt.device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", sorted(_LANES))
+def test_lanes_without_a_device_need_the_card(no_card, entry):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _LANES[entry]()
+
+
+@pytest.mark.parametrize("entry", sorted(_LANES))
+def test_lanes_with_device_cpu_solve_on_the_cpu(no_card, entry):
+    res = _LANES[entry](device="cpu")
+    assert res.steps.tolist() == [3, 3] and res.xopt.device.type == "cpu"
 
 
 def test_registry_places_like_a_solver(no_card):

@@ -7,7 +7,9 @@ headline problem without a synchronising call inside its steps, and each
 against the same solve on the CPU; and the families of slices 3 and 4
 (basis pursuit, fused lasso, LAD, Huber, quantile, linear SVM) and of
 slices 5 and 7 (the LP and QP on their KKT solvers, covariance selection
-and the SDP), which run no kernel: one chunk of each without a
+and the SDP, robust PCA, matrix completion and logistic regression) and
+the lanes of slice 8 (batches and paths), which run no kernel but the
+TV lanes' K4: one chunk of each without a
 synchronising call inside it (the eigh paths' calls counted and
 recorded), f32 against f64 on the card to
 admm_tpu/benchmarks/matrix.py's f32 bars, and f64 on the card against the
@@ -808,3 +810,112 @@ def test_registry_closures_on_gpu(cuda):
                                                                          dtype=torch.float64)
     out = pg(pf(x, z, z, 1.0), z, z, 1.0)
     assert out.device.type == "cuda" and torch.isfinite(out).all()
+
+
+# --- slices 7b and 8: the serial spectral families and the lanes ---------
+
+def _batch_solvers():
+    """The lanes (and the serial slice 7b families) at small sizes in f32
+    on the card: {name: (solve(cfg), cuSOLVER reads expected per
+    sub-step)}."""
+    import admm_tpu_torch as T
+
+    rng = np.random.default_rng(30)
+    dev = torch.device("cuda")
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    D, S = f32(rng.standard_normal((40, 96))), f32(rng.standard_normal((4, 40)))
+    Sig = f32(np.cumsum(rng.standard_normal((4, 3000)), axis=1))
+    Zc = rng.standard_normal((4, 16, 64))
+    Sc = f32(Zc @ np.swapaxes(Zc, 1, 2) / 64 + 0.1 * np.eye(16))
+    Ms = f32(rng.standard_normal((3, 24, 5)) @ rng.standard_normal((3, 5, 20)))
+    Dl = f32(rng.standard_normal((120, 10)))
+    ells = f32(np.sign(rng.standard_normal((3, 120))))
+    svd = lambda *shape: _svd_syncs(shape)  # noqa: E731
+    return {
+        "lasso_batch": (lambda c: T.lasso_batch(D, S, 0.1, c), 0),
+        "lasso_path": (lambda c: T.lasso_path(D, S[0], f32([0.05, 0.1, 0.2]), c), 0),
+        "tv_batch": (lambda c: T.tv_batch(Sig, 1.0, c, solver="cr"), 0),
+        "covsel_batch_ns": (lambda c: T.covsel_batch(Sc, 0.05, c), 0),
+        "logreg_batch_dense": (lambda c: T.logreg_batch(Dl, ells, 0.1, c, inner="newton"), 0),
+        "logreg_batch_cg": (lambda c: T.logreg_batch(Dl, ells, 0.1, c), 0),
+        "logreg_dense": (lambda c: T.logreg(Dl, ells[0], 0.1, c), 0),
+        "rpca_batch_rsvd": (lambda c: T.rpca_batch(Ms, config=c, prox_method="rsvd", rank=5),
+                            svd(3, 15, 20)),
+        "rpca_exact": (lambda c: T.rpca(Ms[0], config=c), svd(24, 20)),
+        "rpca_batch_exact": (lambda c: T.rpca_batch(Ms, config=c), svd(3, 24, 20)),
+        "matrixcompletion_exact": (lambda c: T.matrixcompletion(Ms[0], Ms[0] > 0, config=c),
+                                   svd(24, 20)),
+    }
+
+
+def _svd_syncs(shape):
+    """The synchronising calls of one ``ops/prox.thin_svd`` of an f32
+    matrix (stack) of ``shape`` on the card."""
+    from admm_tpu_torch.ops.prox import thin_svd
+
+    V = torch.randn(shape, device="cuda")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            thin_svd(V)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in seen)
+
+
+@pytest.mark.parametrize("name", ["lasso_batch", "lasso_path", "tv_batch", "covsel_batch_ns",
+                                  "logreg_batch_dense", "logreg_batch_cg", "logreg_dense",
+                                  "rpca_batch_rsvd", "rpca_exact", "rpca_batch_exact",
+                                  "matrixcompletion_exact"])
+def test_lanes_chunk_reads_nothing_back(cuda, monkeypatch, name):
+    # One chunk of 8 sub-steps (K = 8): one read of the stop flag after
+    # them, and no synchronising call inside them except the SVD's
+    # (torch.linalg.svd has no _ex form: cuSOLVER's info read back every
+    # call): each sub-step of the SVT proxes makes exactly the calls of
+    # one thin_svd of its shape (the randomized SVT's is the sketch's),
+    # the QRs none.  logreg's dense Newton solves through cholesky_ex and
+    # reads nothing.
+    solve, per_step = _batch_solvers()[name]
+    assert name.startswith(("rpca", "matrixcompletion")) == (per_step > 0)
+    K = 8
+    res, syncs, reads = _chunk_syncs(monkeypatch, lambda: solve(
+        ADMMConfig(maxiters=K, unroll=K, domaxiters=True)), K)
+    assert reads == [1]
+    assert syncs == [per_step] * K, syncs
+    assert res.xopt.device.type == "cuda" and torch.isfinite(res.xopt).all()
+
+
+def test_tv_batch_launches_k4_once_per_substep(cuda, cr_launches):
+    # B = 8 lanes of n = 3000 (hybrid, cutoff 1023): one K4 solve of all
+    # lanes a sub-step, so the count grows by the sub-steps run.
+    import admm_tpu_torch as T
+
+    rng = np.random.default_rng(31)
+    S = torch.as_tensor(np.cumsum(rng.standard_normal((8, 3000)), axis=1), dtype=torch.float32,
+                        device=cuda)
+    res = T.tv_batch(S, 1.0, ADMMConfig(maxiters=40, domaxiters=True), solver="cr")
+    assert cr_launches() == 40 and res.steps.tolist() == [40] * 8
+    plain = T.tv_batch(S, 1.0, ADMMConfig(maxiters=40, domaxiters=True), solver="cr",
+                       _plain_cr=True)
+    assert cr_launches() == 40
+    scale = float(plain.xopt.abs().max())
+    assert float((res.xopt - plain.xopt).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("cutoff", [None, 1023])
+def test_cr_op_vmap_rule_gives_the_bits_of_a_direct_call(cuda, cr_launches, cutoff):
+    # K4's custom op under torch.func.vmap folds the lanes into one
+    # (B, N) launch: the same bits as a direct (B, N) call, one launch.
+    from admm_tpu_torch.ops import tridiag
+
+    sol = CyclicReductionSolver.from_tridiag(*tv_system(5000, 1.0), dense_cutoff=cutoff,
+                                             device=cuda, dtype=torch.float32)
+    N = sol.alphas.shape[1]
+    bb = torch.randn((16, N), generator=torch.Generator().manual_seed(4)).to(cuda)
+    direct = cr_solve(bb, sol)
+    assert cr_launches() == 1
+    lanes = torch.func.vmap(lambda b: cr_solve(b[None], sol)[0])(bb)
+    assert cr_launches() == 2
+    assert torch.equal(lanes, direct)
+    assert torch.equal(tridiag._cr_solve_op(bb, id(sol)), direct)

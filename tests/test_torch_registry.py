@@ -57,6 +57,9 @@ def _cases():
         "covarianceselection": (dict(S=np.cov(W, rowvar=False), lam=0.2), (10, 10), (10, 10)),
         "sdp": (dict(C=Csdp + Csdp.T, A=Asdp + np.swapaxes(Asdp, 1, 2), b=s16[:4]), (6, 6),
                 (6, 6)),
+        "rpca": (dict(M=S), (12, 10), (12, 10)),
+        "matrixcompletion": (dict(M=S, mask=S > 0), (12, 10), (12, 10)),
+        "logreg": (dict(D=D, ell=np.sign(s32), lam=0.1), (16,), (16,)),
     }
 
 
