@@ -34,6 +34,7 @@ whole fat-LASSO iteration in one launch.
 """
 
 from .config import ADMMConfig
+from .diff import make_implicit_batch_solver, make_implicit_solver
 from .engine import Hooks, admm, make_admm_runner
 from .linop import FnOp
 from .models import (basispursuit, covarianceselection, elasticnet, fusedlasso, get_prox_ops,
@@ -48,6 +49,7 @@ from .models.batch import (BatchResults, QPStructure, basispursuit_batch, covsel
                            tv2d_batch, tv_batch)
 from .models.paths import PathResults, covsel_path, lasso_path, linearsvm_c_path, tv_path
 from .results import ADMMResults
+from . import testers, utils  # noqa: E402,F401  (subpackage access)
 
 __all__ = ["ADMMConfig", "ADMMResults", "BatchResults", "FnOp", "Hooks", "PathResults",
            "QPStructure", "admm", "basispursuit", "basispursuit_batch", "covarianceselection",
@@ -55,7 +57,8 @@ __all__ = ["ADMMConfig", "ADMMResults", "BatchResults", "FnOp", "Hooks", "PathRe
            "fusedlasso_batch", "get_prox_ops", "grouplasso", "grouplasso_batch", "huberfit",
            "huberfit_batch", "lad", "lad_batch", "lasso", "lasso_batch", "lasso_path",
            "linearprogram", "linearsvm", "linearsvm_c_path", "logreg", "logreg_batch",
-           "lp_batch", "make_admm_runner", "matrixcompletion", "matrixcompletion_batch",
+           "lp_batch", "make_admm_runner", "make_implicit_batch_solver",
+           "make_implicit_solver", "matrixcompletion", "matrixcompletion_batch",
            "model", "model_batch", "nnls", "nnls_batch", "qp_batch", "qp_structure",
            "quadraticprogram", "quantile", "quantile_batch", "rpca", "rpca_batch", "sdp",
            "sdp_batch", "svm_batch", "totalvariation", "totalvariation2d", "tv2d_batch",

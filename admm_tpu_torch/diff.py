@@ -1,0 +1,671 @@
+"""Differentiable ADMM: implicit differentiation through the fixed point
+(port of ``admm_tpu/diff.py``: the serial and the instance-batched
+solvers).
+
+The solution map ``data -> (x*, z*, u*)`` is differentiable by the
+implicit function theorem at the ADMM fixed point
+
+    w* = F(w*, data),      w = (x, z, u),
+
+where ``F`` is ONE standard (alg 0) ADMM iteration in the engine's step
+order (x-prox, optional relaxation, z-prox, dual update).  The solve is a
+``torch.autograd.Function`` (``_Implicit``):
+
+  * its forward runs the engine's runner (``make_admm_runner``) without
+    gradients, so its outputs are ``admm``'s, bit for bit;
+  * ``mode='vjp'`` gives it a backward: the adjoint fixed point
+    wbar = cot + (dF/dw)^T wbar, with (dF/dw)^T one ``torch.func.vjp`` of F
+    at w*, then one VJP of F with respect to the data;
+  * ``mode='jvp'`` gives it a forward-mode rule: the tangent fixed point
+    wdot = (dF/dw) wdot + (dF/ddata) data_dot, with dF/dw taken once at w*
+    as the VJP of F's VJP (``_forward_map``: a forward-mode rule cannot
+    nest forward AD, so ``torch.func.linearize`` cannot run there).
+
+It takes the ``setup_context`` form, so ``loss.backward()``,
+``torch.autograd.forward_ad``, ``torch.func.grad``, ``vjp``, ``jvp``,
+``jacrev`` and ``jacfwd`` all run over it.  A solver used under the other
+mode's transform raises a ``RuntimeError`` that names the mode to rebuild
+with (``admm_tpu`` fails there with an opaque transpose error).  Gradients
+flow to every floating tensor leaf of ``data`` (flattened with
+``torch.utils._pytree``) and to ``c``; other leaves (operators, solver
+objects, numbers) are constants, and so are the initial iterates.
+
+The linear fixed point is solved by Neumann iteration, ``NEUMANN_CHUNK``
+steps per host read with every step after the stop frozen on the device
+(so the result equals a step-by-step loop bit for bit), or by restarted
+GMRES of the port's own (``_gmres``; torch has none).  A solve is policed
+with one host read: a diverged one (relative residual^2 above 1e10, or not
+finite) is NaN-poisoned and named on stderr, an unconverged one warned
+about.  Under ``torch.func.vmap`` of a backward or tangent (``jacrev``,
+``jacfwd``) the cotangents become lanes of one solve, each lane frozen at
+its own stop.
+
+``make_implicit_batch_solver`` solves B instances as lanes of one runner
+(``lanes=True``); its backward is the lanes' fixed point through one VJP
+of the vmapped F, each lane frozen when its own Neumann test is met, as
+``admm_tpu``'s batched ``while_loop`` selects finished lanes away.  On the
+card, every kernel F reaches runs in the backward too: the TV x-prox's
+cyclic-reduction solve (K4) has its own backward and forward-mode rules,
+so an adjoint step of the lanes is one K4 solve.
+
+Restrictions (checked at factory time, as in ``admm_tpu``): the standard
+iteration (``fast=False``) and static rho; relaxation is supported.  Not
+ported yet: ``make_implicit_consensus_solver`` and
+``make_implicit_unwrapped_solver`` (ROADMAP.md queue 1, slice 10).
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from .config import ADMMConfig, matmul_precision
+from .device import resolve_device
+from .engine import Hooks, make_admm_runner
+from .linop import ScaledIdentityOp, as_linop
+
+# Neumann steps per host read; the steps past the stop are frozen.
+NEUMANN_CHUNK = 8
+# jax.scipy.sparse.linalg.gmres's default restart length.
+GMRES_RESTART = 20
+
+# Relative residual^2 above which a backward solve is declared DIVERGED
+# and NaN-poisoned (admm_tpu/diff.py:182: the Neumann blow-up exit fires
+# at 1e12), and the softer bar of a loud-but-unpoisoned warning.
+_DIVERGED_REL2 = 1e10
+_UNCONVERGED_REL2 = 1e-8
+
+_VMAP_SERIAL = (
+    "admm_tpu_torch.diff: torch.func.vmap over a serial implicit solve cannot "
+    "run its data-dependent loop; solve B instances with "
+    "make_implicit_batch_solver (lanes of one program, per-lane gradients)")
+_VMAP_LANES = (
+    "admm_tpu_torch.diff: torch.func.vmap over make_implicit_batch_solver's solve "
+    "(jacrev, jacfwd, a nested vmap) is not supported; its lanes are the batch")
+
+
+def _sum2(t, lanes):
+    """sum(t^2), per lane (leading axis) when ``lanes``."""
+    sq = t * t
+    return sq.reshape(sq.shape[0], -1).sum(1) if lanes else sq.sum()
+
+
+def _lane(flag, t):
+    """A flag, one per lane or 0-d, broadcast against ``t``."""
+    return flag.reshape(flag.shape + (1,) * (t.ndim - flag.ndim))
+
+
+def _neumann(apply_J, rhs, tol, maxiters, lanes, stats):
+    """v = rhs + J v by the geometric series (``admm_tpu``'s recurrence,
+    blow-up exit at 1e12 scale^2 and seed delta^2 = scale^2,
+    admm_tpu/diff.py:137-161).  Steps run in chunks of NEUMANN_CHUNK with
+    one host read after each; a step whose lane has stopped keeps its
+    values.  Returns (v, delta^2, scale^2, steps), the last three per lane
+    or 0-d."""
+    scale2 = sum(_sum2(r, lanes) for r in rhs) + 1e-30
+    # tol rounded to the solve's dtype, then squared, as admm_tpu does; a
+    # fill, not a copy from the host, so the solve reads nothing back here.
+    tol2 = torch.full_like(scale2, tol) ** 2 * scale2
+    blow2 = 1e12 * scale2
+    k = torch.zeros(scale2.shape, dtype=torch.int64, device=scale2.device)
+    v, delta2 = rhs, scale2
+
+    def running():
+        return ((k < maxiters) & (delta2 > tol2) & torch.isfinite(delta2)
+                & (delta2 <= blow2))
+
+    while True:
+        for _ in range(NEUMANN_CHUNK):
+            live = running()
+            new = tuple(r + j for r, j in zip(rhs, apply_J(v)))
+            d2 = sum(_sum2(a - b, lanes) for a, b in zip(new, v))
+            v = tuple(torch.where(_lane(live, a), a, b) for a, b in zip(new, v))
+            delta2 = torch.where(live, d2, delta2)
+            k = k + live.long()
+            stats["applies"] += 1
+        stats["reads"] += 1
+        if not bool(running().any()):
+            return v, delta2, scale2, k
+
+
+def _gmres(apply_J, rhs, tol, maxiters, lanes, stats):
+    """(I - J) v = rhs by restarted GMRES, one Krylov space per lane,
+    following ``jax.scipy.sparse.linalg.gmres`` as admm_tpu calls it
+    (admm_tpu/diff.py:165-172): restart GMRES_RESTART, x0 = rhs, stop at
+    ||r|| <= tol ||rhs|| (atol 0), ``maxiters`` restart cycles, a full
+    Arnoldi cycle with twice-run classical Gram-Schmidt and the small
+    least-squares problem by its normal equations, and the true residual
+    after every cycle.  One host read per cycle.  Returns (v, ||r||^2,
+    scale^2, cycles)."""
+    L = rhs[0].shape[0] if lanes else 1
+    shapes = [tuple(r.shape[1:] if lanes else r.shape) for r in rhs]
+    sizes = [int(np.prod(s)) for s in shapes]
+    lead = (L,) if lanes else ()
+
+    def pack(vs):
+        return torch.cat([t.reshape(L, -1) for t in vs], dim=1)
+
+    def unpack(X):
+        return tuple(p.reshape(lead + s) for p, s in zip(torch.split(X, sizes, dim=1), shapes))
+
+    def mv(X):
+        return X - pack(apply_J(unpack(X)))
+
+    def normalize(X, thresh):
+        norm = torch.linalg.vector_norm(X, dim=-1)
+        use = norm > thresh
+        unit = X / torch.where(use, norm, 1.0)[:, None]
+        return torch.where(use[:, None], unit, 0.0), torch.where(use, norm, 0.0)
+
+    b = pack(rhs)
+    eps = torch.finfo(b.dtype).eps
+    m = GMRES_RESTART
+    atol = tol * torch.linalg.vector_norm(b, dim=-1)
+    x = b
+    r = b - mv(x)
+    unit, rnorm = normalize(r, eps)
+    stats["applies"] += 1
+    cycles = 0
+    while cycles < maxiters:
+        live = rnorm > atol
+        stats["reads"] += 1
+        if not bool(live.any()):
+            break
+        V = b.new_zeros((L, m + 1, b.shape[1]))
+        V[:, 0] = unit
+        H = torch.eye(m, m + 1, dtype=b.dtype, device=b.device).repeat(L, 1, 1)
+        ok = torch.ones(L, dtype=torch.bool, device=b.device)
+        for j in range(m):
+            w = mv(V[:, j])
+            w0 = torch.linalg.vector_norm(w, dim=-1)
+            h = torch.zeros_like(V[:, :, 0])
+            for _ in range(2):
+                hj = torch.einsum("lkn,ln->lk", V, w)
+                w = w - torch.einsum("lkn,lk->ln", V, hj)
+                h = h + hj
+            unit_v, norm_v = normalize(w, eps * w0)
+            h[:, j + 1] = norm_v
+            V[:, j + 1] = torch.where(ok[:, None], unit_v, V[:, j + 1])
+            H[:, j] = torch.where(ok[:, None], h, H[:, j])
+            ok = ok & (norm_v != 0)
+        stats["applies"] += m
+        beta = b.new_zeros((L, m + 1, 1))
+        beta[:, 0, 0] = rnorm
+        Ht = H.mT
+        y = torch.linalg.solve_ex(Ht.mT @ Ht, Ht.mT @ beta)[0][..., 0]
+        x = torch.where(live[:, None], x + torch.einsum("lkn,lk->ln", V[:, :m], y), x)
+        r = b - mv(x)
+        unit, rnorm = normalize(r, eps)
+        stats["applies"] += 1
+        cycles += 1
+    err2 = (r * r).sum(1)
+    scale2 = sum(_sum2(t, lanes) for t in rhs) + 1e-30
+    steps = torch.full_like(err2, cycles, dtype=torch.int64)
+    return unpack(x), (err2 if lanes else err2[0]), scale2, (steps if lanes else steps[0])
+
+
+def _police(v, err2, scale2, steps, what, stats):
+    """NaN-poison a diverged solve and warn about an unconverged one
+    (admm_tpu/diff.py:193-232), per lane; the relative residuals and
+    steps come to the host in one read."""
+    rel2 = err2 / scale2
+    diverged = ~torch.isfinite(rel2) | (rel2 > _DIVERGED_REL2)
+    host = torch.cat((rel2.reshape(-1).double(), steps.reshape(-1).double())).cpu().numpy()
+    stats["reads"] += 1
+    r, stats["steps"] = host[:rel2.numel()], host[rel2.numel():].astype(int).tolist()
+    bad = ~np.isfinite(r) | (r > _DIVERGED_REL2)
+    soft = ~bad & (r > _UNCONVERGED_REL2)
+    worst = float(np.nanmax(np.where(np.isfinite(r), r, np.inf)))
+    if bad.any():
+        lanes = "" if r.size == 1 else f" ({int(bad.sum())}/{r.size} lanes)"
+        print(f"admm_tpu_torch.diff: {what} linear solve DIVERGED{lanes}; "
+              "affected gradients are NaN. The iteration map is not "
+              "contractive at this fixed point (check rho / problem "
+              "scaling), or try vjp_method='gmres' "
+              f"(worst relative residual^2 {worst:.3e})", file=sys.stderr)
+    elif soft.any():
+        print(f"admm_tpu_torch.diff: {what} linear solve did not reach "
+              "tolerance (raise vjp_maxiters or loosen vjp_tol); "
+              "gradients may be inaccurate "
+              f"(worst relative residual^2 {worst:.3e})", file=sys.stderr)
+    return tuple(torch.where(_lane(diverged, t), torch.full_like(t, float("nan")), t)
+                 for t in v)
+
+
+def _forward_map(f, w):
+    """v -> (df/dw) v at ``w``, by reverse over reverse: u -> (df/dw)^T u
+    is linear, and its VJP is the JVP.  A forward-mode rule cannot nest
+    forward AD (``torch.func.jvp`` and ``linearize`` refuse inside
+    ``torch.autograd.forward_ad``), so the tangent solves take this form;
+    each application is one backward of the VJP's graph."""
+    out, pull = torch.func.vjp(f, w)
+    _, push = torch.func.vjp(lambda u: pull(u)[0], tuple(torch.zeros_like(o) for o in out))
+    return lambda v: push(v)[0]
+
+
+class _Job:
+    """One backward (``kind='adjoint'``) or tangent (``'tangent'``) linear
+    solve of a problem: J built at w*, the fixed point solved, policed."""
+
+    def __init__(self, problem, kind):
+        self.problem = problem
+        self.kind = kind
+
+    def run(self, rhs, wstar, theta, shared):
+        """Solve for the cotangents or tangents ``rhs``.  ``shared``: they
+        carry a leading axis of lanes that share one J (``torch.func.vmap``
+        over a serial backward or tangent)."""
+        p = self.problem
+        f = lambda w: p.one_iter(w, theta)  # noqa: E731
+        with matmul_precision("highest"):
+            if self.kind == "adjoint":
+                _, pull = torch.func.vjp(f, tuple(wstar))
+                apply_J = lambda v: pull(v)[0]  # noqa: E731
+            else:
+                apply_J = _forward_map(f, tuple(wstar))
+            if shared:
+                apply_J = torch.func.vmap(apply_J)
+            solve = _neumann if p.method == "neumann" else _gmres
+            stats = p.stats
+            stats.update(applies=0, reads=0, steps=None)
+            v, err2, scale2, steps = solve(apply_J, tuple(rhs), p.tol, p.maxiters,
+                                           p.lanes or shared, stats)
+            what = f"engine {'adjoint (VJP)' if self.kind == 'adjoint' else 'tangent (JVP)'}"
+            return _police(v, err2, scale2, steps, what, stats)
+
+
+class _LinearFixedPoint(torch.autograd.Function):
+    """A backward or tangent linear solve as a Function of its right-hand
+    sides, so that its loop runs on plain tensors under every transform,
+    and under ``torch.func.vmap`` (``jacrev``, ``jacfwd``) the vmapped
+    right-hand sides become the lanes of one solve (``vmap``)."""
+
+    @staticmethod
+    def forward(job, n, *tensors):
+        return job.run(tensors[:n], tensors[n:n + 3], tensors[n + 3:], shared=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("admm_tpu_torch.diff: the backward of an implicit solve "
+                           "is not differentiable again")
+
+    @staticmethod
+    def vmap(info, in_dims, job, n, *tensors):
+        if job.problem.lanes:
+            raise RuntimeError(_VMAP_LANES)
+        if any(d is not None for d in in_dims[2 + n:]):
+            raise RuntimeError(_VMAP_SERIAL)
+        B = info.batch_size
+        rhs = tuple(t.expand((B,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
+                    for t, d in zip(tensors[:n], in_dims[2:2 + n]))
+        out = job.run(rhs, tensors[n:n + 3], tensors[n + 3:], shared=True)
+        return out, (0,) * len(out)
+
+
+class _Problem:
+    """What the Function of one solve call needs besides its tensors:
+    the runner, the stationary map over the tensors of theta = (c, *data
+    leaves), the mode and the linear solve's settings."""
+
+    def __init__(self, runner, one_iter, rebuild, mode, method, tol, maxiters, stats,
+                 lanes=False, leaf_dims=None):
+        self.runner = runner
+        self._one_iter = one_iter
+        self.rebuild = rebuild
+        self.mode = mode
+        self.method = method
+        self.tol = tol
+        self.maxiters = maxiters
+        self.stats = stats
+        self.lanes = lanes
+        self.leaf_dims = leaf_dims
+
+    def forward(self, c, w0, leaves):
+        raw = self.runner(*w0, c, self.rebuild(leaves))
+        return raw["xopt"], raw["zopt"], raw["uopt"]
+
+    def one_iter(self, w, theta):
+        """F(w, theta) with theta = (c, *leaves); on lanes the vmapped map,
+        lanes in w and in the mapped leaves, c shared."""
+        if not self.lanes:
+            return self._one_iter(tuple(w), theta[0], self.rebuild(theta[1:]))
+        f = lambda w_, c_, ls: self._one_iter(w_, c_, self.rebuild(ls))  # noqa: E731
+        return torch.func.vmap(f, in_dims=(0, None, tuple(self.leaf_dims)))(
+            tuple(w), theta[0], tuple(theta[1:]))
+
+    def _sub(self, theta, idx):
+        """F at w* as a function of the theta entries ``idx``."""
+        def f(wstar, *sub):
+            th = list(theta)
+            for i, t in zip(idx, sub):
+                th[i] = t
+            return self.one_iter(wstar, th)
+        return f
+
+    def vjp(self, needs, theta, wstar, cots):
+        cots = tuple(torch.zeros_like(w) if g is None else g for g, w in zip(cots, wstar))
+        wbar = _LinearFixedPoint.apply(_Job(self, "adjoint"), 3, *cots, *wstar, *theta)
+        idx = [i for i, need in enumerate(needs) if need]
+        bars = [None] * len(theta)
+        if idx:
+            f = self._sub(theta, idx)
+            with matmul_precision("highest"):
+                _, pull = torch.func.vjp(lambda *sub: f(wstar, *sub), *(theta[i] for i in idx))
+                for i, g in zip(idx, pull(wbar)):
+                    bars[i] = g
+        return bars
+
+    def jvp(self, theta, wstar, tangents):
+        idx = [i for i, t in enumerate(tangents) if t is not None]
+        if not idx:
+            return tuple(torch.zeros_like(w) for w in wstar)
+        f = self._sub(theta, idx)
+        with matmul_precision("highest"):
+            push = _forward_map(lambda sub: f(wstar, *sub), tuple(theta[i] for i in idx))
+            rhs = push(tuple(tangents[i] for i in idx))
+        return _LinearFixedPoint.apply(_Job(self, "tangent"), 3, *rhs, *wstar, *theta)
+
+
+def _wrong_mode(have, want):
+    return RuntimeError(
+        f"admm_tpu_torch.diff: this implicit solver was built with mode={have!r} "
+        f"and cannot run under {'reverse' if want == 'vjp' else 'forward'}-mode "
+        f"differentiation; rebuild it with mode={want!r}")
+
+
+class _Implicit(torch.autograd.Function):
+    """The solution map ``(c, x0, z0, u0, *leaves) -> (x*, z*, u*)`` of one
+    solve call (its ``_Problem`` first)."""
+
+    @staticmethod
+    def forward(problem, c, x0, z0, u0, *leaves):
+        return problem.forward(c, (x0, z0, u0), leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        problem = inputs[0]
+        ctx.problem = problem
+        ctx.n_theta = 1 + len(inputs) - 5
+        keep = (inputs[1], *inputs[5:], *output)
+        if problem.mode == "vjp":
+            ctx.save_for_backward(*keep)
+        else:
+            ctx.save_for_forward(*keep)
+
+    @staticmethod
+    def backward(ctx, gx, gz, gu):
+        p = ctx.problem
+        if p.mode != "vjp":
+            raise _wrong_mode(p.mode, "vjp")
+        saved = ctx.saved_tensors
+        theta, wstar = saved[:ctx.n_theta], saved[ctx.n_theta:]
+        needs = (ctx.needs_input_grad[1],) + tuple(ctx.needs_input_grad[5:])
+        bars = p.vjp(needs, theta, wstar, (gx, gz, gu))
+        return (None, bars[0], None, None, None, *bars[1:])
+
+    @staticmethod
+    def jvp(ctx, _problem, c_t, x0_t, z0_t, u0_t, *leaf_t):
+        p = ctx.problem
+        if p.mode != "jvp":
+            raise _wrong_mode(p.mode, "jvp")
+        saved = ctx.saved_tensors
+        theta, wstar = saved[:ctx.n_theta], saved[ctx.n_theta:]
+        return p.jvp(theta, wstar, (c_t, *leaf_t))
+
+    @staticmethod
+    def vmap(info, in_dims, problem, *args):
+        if any(d is not None for d in in_dims[1:]):
+            raise RuntimeError(_VMAP_LANES if problem.lanes else _VMAP_SERIAL)
+        return _Implicit.apply(problem, *args), (None, None, None)
+
+
+def _check_diffable_config(config, mode, vjp_method):
+    if config.alg != 0:
+        raise ValueError(
+            "implicit differentiation needs the standard iteration "
+            "(fast=False, accelerated=False); the IFT is stated for a "
+            "stationary map and the momentum state is not part of w")
+    if config.dynamic_rho:
+        raise ValueError("implicit differentiation needs static rho "
+                         "(adaptive=False, rbadaptive=False)")
+    if vjp_method not in ("neumann", "gmres"):
+        raise ValueError(f"unknown vjp_method {vjp_method!r}")
+    if mode not in ("vjp", "jvp"):
+        raise ValueError(f"unknown mode {mode!r} (want 'vjp' or 'jvp')")
+
+
+def _flatten(data):
+    """(tensor leaves, rebuild): ``rebuild(tensors)`` is ``data`` with its
+    tensor leaves replaced, in order, the other leaves kept."""
+    flat, spec = pytree.tree_flatten(data)
+    pos = [i for i, leaf in enumerate(flat) if isinstance(leaf, torch.Tensor)]
+
+    def rebuild(tensors):
+        out = list(flat)
+        for i, t in zip(pos, tensors):
+            out[i] = t
+        return pytree.tree_unflatten(out, spec)
+
+    return [flat[i] for i in pos], rebuild
+
+
+class _Factory:
+    """What ``make_implicit_solver`` and ``make_implicit_batch_solver``
+    share: the config checks, the shapes, the runner and the map F."""
+
+    def __init__(self, prox_f, prox_g, config, A, B, nA, nB, m, shape_x, shape_z, dtype,
+                 mode, vjp_method, vjp_maxiters, vjp_tol, device, lanes=False, mapped=()):
+        _check_diffable_config(config, mode, vjp_method)
+        self.prox_f, self.prox_g, self.config = prox_f, prox_g, config
+        self.A, self.B, self.m = A, B, m
+        self.relax = float(config.relax)
+        self.rho = float(config.rho)
+        self.mode, self.method = mode, vjp_method
+        self.maxiters, self.tol = int(vjp_maxiters), float(vjp_tol)
+        self.dtype, self.device = dtype, device
+        self.lanes, self.mapped = lanes, frozenset(mapped)
+        # Shape resolution (admm_tpu/diff.py:366-382).
+        A0, B0 = as_linop(A), as_linop(B)
+        if nA is None and isinstance(A0, ScaledIdentityOp) and m is not None:
+            nA = m
+        if nB is None and isinstance(B0, ScaledIdentityOp) and m is not None:
+            nB = m
+        if shape_x is None:
+            if nA is None:
+                raise ValueError("provide nA, shape_x, or m")
+            shape_x = (nA,)
+        if shape_z is None:
+            if nB is None:
+                raise ValueError("provide nB, shape_z, or m")
+            shape_z = (nB,)
+        self.shape_x, self.shape_z = tuple(shape_x), tuple(shape_z)
+        self.runner = make_admm_runner(prox_f, prox_g, config, A0, B0, hooks=Hooks(),
+                                       has_data=True, lanes=lanes, mapped=self.mapped)
+        self.stats = {"applies": 0, "reads": 0, "steps": None}
+
+    def one_iter(self, A_op, B_op):
+        """F(w, c, data): one standard ADMM iteration in the engine's step
+        order (admm_tpu/diff.py:388-403), under the config's matmul
+        precision."""
+        prox_f, prox_g, relax, use_relax = self.prox_f, self.prox_g, self.relax, self.relax != 1.0
+        rho, precision = self.rho, self.config.matmul_precision
+
+        def F(w, c_arr, data):
+            x, z, u = w
+            with matmul_precision(precision):
+                rho_ = torch.full((), rho, dtype=x.dtype, device=x.device)
+                x1 = prox_f(x, z, u, rho_, data)
+                if use_relax:
+                    Axh = relax * A_op.mv(x1) - (1.0 - relax) * (B_op.mv(z) - c_arr)
+                    z1 = prox_g(Axh, z, u, rho_, data)
+                    u1 = u + (Axh + B_op.mv(z1) - c_arr)
+                else:
+                    z1 = prox_g(x1, z, u, rho_, data)
+                    u1 = u + (A_op.mv(x1) + B_op.mv(z1) - c_arr)
+            return (x1, z1, u1)
+
+        return F
+
+    def solve(self, data, c=0.0, x0=None, z0=None, u0=None):
+        leaves, rebuild = _flatten(data)
+        device = resolve_device(self.device, x0, z0, u0, c, *leaves)
+        dt = self.dtype
+        if dt is None:
+            dt = next((torch.as_tensor(cand).dtype for cand in (x0, z0, u0)
+                       if cand is not None and hasattr(cand, "dtype")), None)
+        if dt is None:
+            dt = next((t.dtype for t in leaves if t.is_floating_point()),
+                      torch.get_default_dtype())
+        A_op = as_linop(self.A, device=device, dtype=dt)
+        B_op = as_linop(self.B, device=device, dtype=dt)
+        c_arr = torch.as_tensor(c) if not isinstance(c, torch.Tensor) else c
+        c_arr = c_arr.to(device=device, dtype=dt)
+        if c_arr.ndim == 0:
+            shape_c = A_op.out_shape(self.shape_x)
+            if shape_c is None:
+                if self.m is None:
+                    raise ValueError("c is scalar and A is matrix-free: provide m")
+                shape_c = (self.m,)
+            c_arr = c_arr.expand(shape_c)
+        c_arr = c_arr.contiguous()
+        lead = ()
+        leaf_dims = None
+        if self.lanes:
+            if not isinstance(data, dict):
+                raise TypeError("make_implicit_batch_solver: data must be a dict")
+            # Per leaf of data, in flattening order: whether its key is mapped.
+            marks = pytree.tree_leaves({k: pytree.tree_map(lambda _, k=k: k in self.mapped, v)
+                                        for k, v in data.items()})
+            leaf_dims = [0 if mark else None
+                         for mark, leaf in zip(marks, pytree.tree_leaves(data))
+                         if isinstance(leaf, torch.Tensor)]
+            sizes = {int(t.shape[0]) for t, d in zip(leaves, leaf_dims) if d == 0}
+            if len(sizes) != 1:
+                raise ValueError(f"make_implicit_batch_solver: the mapped leaves need one "
+                                 f"leading lane axis, got sizes {sorted(sizes)}")
+            lead = (sizes.pop(),)
+
+        def init(v, shape):
+            if v is None:
+                return torch.zeros(lead + shape, dtype=dt, device=device)
+            v = torch.as_tensor(v) if not isinstance(v, torch.Tensor) else v
+            return v.to(device=device, dtype=dt)
+
+        w0 = (init(x0, self.shape_x), init(z0, self.shape_z), init(u0, tuple(c_arr.shape)))
+        runner = self.runner
+        if self.lanes:
+            B = lead[0]
+            runner = lambda x_, z_, u_, c_, d_: self.runner(  # noqa: E731
+                x_, z_, u_, c_.expand((B,) + tuple(c_.shape)), d_)
+        problem = _Problem(runner, self.one_iter(A_op, B_op), rebuild, self.mode, self.method,
+                           self.tol, self.maxiters, self.stats, lanes=self.lanes,
+                           leaf_dims=leaf_dims)
+        return _Implicit.apply(problem, c_arr, *w0, *leaves)
+
+
+def make_implicit_solver(
+    prox_f: Callable,
+    prox_g: Callable,
+    config: ADMMConfig = ADMMConfig(),
+    *,
+    A=1.0,
+    B=-1.0,
+    nA: Optional[int] = None,
+    nB: Optional[int] = None,
+    m: Optional[int] = None,
+    shape_x=None,
+    shape_z=None,
+    dtype=None,
+    mode: str = "vjp",
+    vjp_method: str = "neumann",
+    vjp_maxiters: int = 500,
+    vjp_tol: float = 1e-9,
+    device=None,
+):
+    """Build a differentiable solution map ``solve(data, c=0.0) -> (x, z, u)``
+    (``admm_tpu/diff.py:314-441``).
+
+    ``prox_f(xhat, z, u, rho, data) -> x`` and ``prox_g(...) -> z`` follow
+    the engine's data convention.  Gradients flow to every floating tensor
+    leaf of ``data`` and to ``c``; ``A`` and ``B`` are constants (put
+    constraint data that needs a gradient into ``data`` and use a
+    matrix-free prox).
+
+    ``mode``: ``'vjp'`` (default) for ``backward``, ``torch.func.grad``,
+    ``vjp`` and ``jacrev``; ``'jvp'`` for ``torch.func.jvp``, ``jacfwd``
+    and ``torch.autograd.forward_ad``.  ``vjp_method`` (``'neumann'`` or
+    ``'gmres'``), ``vjp_tol`` and ``vjp_maxiters`` govern the linear solve
+    in either mode (``vjp_maxiters`` counts GMRES's restart cycles).
+
+    Returns ``solve(data, c=0.0, x0=None, z0=None, u0=None)``.  It runs on
+    ``device``, or on the device of the first tensor among x0, z0, u0, c
+    and ``data``'s leaves, or on the CUDA device (``device.resolve_device``);
+    in ``dtype``, or x0's, z0's or u0's, or that of ``data``'s first
+    floating leaf, or torch's default.  ``solve.stats`` holds the last
+    backward or tangent solve's ``steps`` (per lane), J applications
+    (``applies``) and host ``reads``.  Initial iterates get no gradient.
+    ``torch.func.vmap`` over ``solve`` raises: use
+    ``make_implicit_batch_solver``.
+    """
+    fac = _Factory(prox_f, prox_g, config, A, B, nA, nB, m, shape_x, shape_z, dtype, mode,
+                   vjp_method, vjp_maxiters, vjp_tol, device)
+
+    def solve(data, c=0.0, x0=None, z0=None, u0=None):
+        return fac.solve(data, c, x0, z0, u0)
+
+    solve.stats = fac.stats
+    return solve
+
+
+def make_implicit_batch_solver(
+    prox_f: Callable,
+    prox_g: Callable,
+    config: ADMMConfig = ADMMConfig(),
+    *,
+    mapped=(),
+    mode: str = "vjp",
+    vjp_method: str = "neumann",
+    vjp_maxiters: int = 500,
+    vjp_tol: float = 1e-9,
+    **solver_kwargs,
+):
+    """Differentiable instance-batched solves (``admm_tpu/diff.py:637-678``):
+    B problems against shared operators, each lane with its own adjoint or
+    tangent solve.
+
+    ``mapped`` names the keys of the dict ``data`` whose leaves carry a
+    leading (B, ...) lane axis; the others are shared by every lane.  The
+    forward is one lanes runner (``make_admm_runner(lanes=True)``); the
+    backward is the lanes' fixed point through one VJP of the vmapped
+    iteration map, each lane frozen at its own stop, so lane i's gradient
+    is the serial solve's.  ``c`` is shared by the lanes.
+
+    Returns ``solve(data, c=0.0, x0=None, z0=None, u0=None) -> (X, Z, U)``
+    with (B, ...) outputs (x0, z0, u0, when given, carry the lane axis).
+    The other keyword arguments (``A``, ``B``, ``nA``, ``nB``, ``m``,
+    ``shape_x``, ``shape_z``, ``dtype``, ``device``) are
+    ``make_implicit_solver``'s.
+    """
+    kw = {"A": 1.0, "B": -1.0, "nA": None, "nB": None, "m": None, "shape_x": None,
+          "shape_z": None, "dtype": None, "device": None}
+    unknown = set(solver_kwargs) - set(kw)
+    if unknown:
+        raise TypeError(f"make_implicit_batch_solver: unexpected arguments {sorted(unknown)}")
+    kw.update(solver_kwargs)
+    fac = _Factory(prox_f, prox_g, config, kw["A"], kw["B"], kw["nA"], kw["nB"], kw["m"],
+                   kw["shape_x"], kw["shape_z"], kw["dtype"], mode, vjp_method,
+                   vjp_maxiters, vjp_tol, kw["device"], lanes=True, mapped=mapped)
+
+    def solve(data, c=0.0, x0=None, z0=None, u0=None):
+        return fac.solve(data, c, x0, z0, u0)
+
+    solve.stats = fac.stats
+    return solve

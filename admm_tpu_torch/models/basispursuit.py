@@ -72,13 +72,15 @@ def basispursuit(D=None, s=None, config: ADMMConfig = ADMMConfig(), *,
     Constraint wiring: A = 1, B = -1, c = 0 in R^n.  ``D`` and ``s`` are
     numpy arrays or tensors; the solve runs in D's dtype on ``device``, or
     on D's device when D is a tensor, or on the CUDA device
-    (``device.resolve_device``).  The zero-argument demo mode (slice 11)
-    is not ported yet and raises ``NotImplementedError``.
+    (``device.resolve_device``).  Called with no arguments it runs its
+    tester's demo instance (``testers.problems``) on ``device``.
     """
     if D is None:
-        raise NotImplementedError(
-            "basispursuit() demo mode needs the testers of ROADMAP.md queue 1, "
-            "slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import basispursuittest
+
+        res, _test = basispursuittest(quiet=False, device=device)
+        return res
     check_data_vector(D, s)
     config = merge_config(config, overrides, body="gemv")
     D, s, device = place_data(D, s, device)

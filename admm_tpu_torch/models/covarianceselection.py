@@ -129,14 +129,16 @@ def covarianceselection(D=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
     ``prox_method='ns'`` selects the matmul-only Newton-Schulz x-prox (no
     eigh and no host read inside the loop); ``'ns_fast'`` also runs the
     square-root steps at reduced float32 matmul precision with 2
-    full-precision residual corrections (``make_prox_ops``).  The
-    zero-argument demo mode (slice 11) is not ported yet and raises
-    ``NotImplementedError``.
+    full-precision residual corrections (``make_prox_ops``).  Called
+    with no arguments it runs its tester's demo instance
+    (``testers.problems``) on ``device``.
     """
     if D is None:
-        raise NotImplementedError(
-            "covarianceselection() demo mode needs the testers of ROADMAP.md "
-            "queue 1, slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import covarianceselectiontest
+
+        res, _test = covarianceselectiontest(quiet=False, device=device)
+        return res
     config = merge_config(config, overrides, body="heavy")
     device = resolve_device(device, D)
     S = empirical_covariance(as_tensor(D).to(device))

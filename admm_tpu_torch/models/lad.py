@@ -68,14 +68,15 @@ def lad(D=None, s=None, config: ADMMConfig = ADMMConfig(), *,
     """Solve least absolute deviations (reference solvers/lad.m:51).
 
     Constraint wiring matches lad.m:140-145: A = D, B = -1, c = s.
-    ``D``, ``s`` and ``device`` work as in ``lasso``.  The zero-argument
-    demo mode (slice 11) is not ported yet and raises
-    ``NotImplementedError``.
+    ``D``, ``s`` and ``device`` work as in ``lasso``.  Called with no
+    arguments it runs its tester's demo instance (``testers.problems``).
     """
     if D is None:
-        raise NotImplementedError(
-            "lad() demo mode needs the testers of ROADMAP.md queue 1, "
-            "slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import ladtest
+
+        res, _test = ladtest(quiet=False, device=device)
+        return res
     config = merge_config(config, overrides, body="gemv")
     D, s, device = place_data(D, s, device)
     prox_f, prox_g, obj, data = make_prox_ops(D, s, config)

@@ -133,13 +133,16 @@ def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
     branch's two stream matrices in bf16 with f32 accumulation
     (``FatShiftSolver``; the K2 kernel on a CUDA device); the other
     branches ignore it, as in ``admm_tpu``.  ``parallel=True`` (slice 10)
-    and the zero-argument demo mode (slice 11) are not ported yet and
-    raise ``NotImplementedError``.
+    is not ported yet and raises ``NotImplementedError``.  Called with no
+    arguments it runs its tester's demo instance (``testers.problems``)
+    on ``device``.
     """
     if D is None:
-        raise NotImplementedError(
-            "lasso() demo mode needs the testers of ROADMAP.md queue 1, "
-            "slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import lassotest
+
+        res, _test = lassotest(quiet=False, device=device)
+        return res
     if parallel:
         raise NotImplementedError(
             "lasso(parallel=True) needs the consensus runner of ROADMAP.md "

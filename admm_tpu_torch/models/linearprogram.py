@@ -110,13 +110,15 @@ def linearprogram(b=None, D=None, s=None, config: ADMMConfig = ADMMConfig(),
     are unscaled back; residual traces and the Boyd stop act in the scaled
     space (the OSQP convention); ``results.extra`` carries the scales.
     ``altproxg`` and warm starts then also live in the scaled space
-    (x~ = x / e).  The zero-argument demo mode (slice 11) is not ported
-    yet and raises ``NotImplementedError``.
+    (x~ = x / e).  Called with no arguments it runs its tester's demo
+    instance (``testers.problems``) on ``device``.
     """
     if b is None:
-        raise NotImplementedError(
-            "linearprogram() demo mode needs the testers of ROADMAP.md queue 1, "
-            "slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import linearprogramtest
+
+        res, _test = linearprogramtest(quiet=False, device=device)
+        return res
     check_data_vector(D, s)
     device = resolve_device(device, D, b, s)
     if precondition:

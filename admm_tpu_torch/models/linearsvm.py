@@ -102,13 +102,16 @@ def linearsvm(
     refused there, as in ``admm_tpu``.  ``D``, ``ell`` and ``device`` work
     as ``D``, ``s`` and ``device`` of ``lasso``; the random start is
     ``unwrapped.random_start``'s.  ``parallel=True`` (with ``nshards`` and
-    ``mesh``; slice 10) and the zero-argument demo mode (slice 11) are not
-    ported yet and raise ``NotImplementedError``.
+    ``mesh``; slice 10) is not ported yet and raises
+    ``NotImplementedError``.  Called with no arguments it runs its
+    tester's demo instance (``testers.problems``) on ``device``.
     """
     if D is None:
-        raise NotImplementedError(
-            "linearsvm() demo mode needs the testers of ROADMAP.md queue 1, "
-            "slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import linearsvmtest
+
+        res, _, _test = linearsvmtest(quiet=False, device=device)
+        return res
     check_data_vector(D, ell, sname="ell")
     config = merge_config(config, overrides, body="gemv")
     if parallel:

@@ -195,13 +195,15 @@ def logreg(D=None, ell=None, lam=0.1, config: ADMMConfig = ADMMConfig(), *,
     dense-Hessian Newton x-prox for the matrix-free Jacobi-PCG one.  ``D``
     and ``ell`` are numpy arrays or tensors; the solve runs in D's dtype
     on ``device``, or on D's device when D is a tensor, or on the CUDA
-    device (``device.resolve_device``).  The zero-argument demo mode
-    (slice 11) is not ported yet and raises ``NotImplementedError``.
+    device (``device.resolve_device``).  Called with no
+    arguments it runs its tester's demo instance (``testers.problems``).
     """
     if D is None:
-        raise NotImplementedError(
-            "logreg() demo mode needs the testers of ROADMAP.md queue 1, "
-            "slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import logregtest
+
+        res, _test = logregtest(quiet=False, device=device)
+        return res
     config = merge_config(config, overrides, body="heavy")
     check_data_vector(D, ell, "D", "ell")
     if not np.all(np.isin(host64(ell), (-1.0, 1.0))):

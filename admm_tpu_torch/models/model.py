@@ -86,13 +86,15 @@ def model(P=None, Q=None, r=None, s=None, config: ADMMConfig = ADMMConfig(), *,
     Constraint wiring matches model.m:129-134: A = 1, B = -1, c = 0 in R^n.
     P, Q, r and s are numpy arrays or tensors; the solve runs in P's dtype
     on ``device``, or on P's device when P is a tensor, or on the CUDA
-    device (``device.resolve_device``).  The zero-argument demo mode
-    (slice 11) is not ported yet and raises ``NotImplementedError``.
+    device (``device.resolve_device``).  Called with no
+    arguments it runs its tester's demo instance (``testers.problems``).
     """
     if P is None:
-        raise NotImplementedError(
-            "model() demo mode needs the testers of ROADMAP.md queue 1, "
-            "slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import modeltest
+
+        res, _test = modeltest(quiet=False, device=device)
+        return res
     config = merge_config(config, overrides, body="gemv")
     (P, Q, r, s), device = _place(P, Q, r, s, device)
     n = P.shape[1]

@@ -158,13 +158,15 @@ def quadraticprogram(
     badly scaled data.  xopt/zopt/uopt are unscaled back; residual
     traces and the Boyd stop act in the scaled space (OSQP convention);
     ``results.extra`` carries the scales; altproxg/warm starts then
-    live in the scaled space (x~ = x / e).  The zero-argument demo mode
-    (slice 11) is not ported yet and raises ``NotImplementedError``.
+    live in the scaled space (x~ = x / e).  Called with no
+    arguments it runs its tester's demo instance (``testers.problems``).
     """
     if P is None:
-        raise NotImplementedError(
-            "quadraticprogram() demo mode needs the testers of ROADMAP.md queue 1, "
-            "slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import quadraticprogramtest
+
+        res, _test = quadraticprogramtest(quiet=False, device=device)
+        return res
     _check_constraints(cons1, cons2)
     device = resolve_device(device, P, q, cons1, cons2)
     standard = np.ndim(cons1) == 2

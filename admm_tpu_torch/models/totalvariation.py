@@ -163,13 +163,15 @@ def totalvariation(s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
 
     ``_plain_cr`` is for tests only: it runs the cyclic-reduction b-phase
     through the plain PyTorch version even on a CUDA device, so that a
-    run can be held against the kernel's.  The zero-argument demo mode
-    (slice 11) is not ported yet and raises ``NotImplementedError``.
+    run can be held against the kernel's.  Called with no
+    arguments it runs its tester's demo instance (``testers.problems``).
     """
     if s is None:
-        raise NotImplementedError(
-            "totalvariation() demo mode needs the testers of ROADMAP.md "
-            "queue 1, slice 11, which are not ported yet")
+        # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
+        from ..testers.problems import totalvariationtest
+
+        res, _test = totalvariationtest(quiet=False, device=device)
+        return res
     device = resolve_device(device, s)
     s = as_tensor(s).to(device)
     n = s.shape[0]

@@ -14,6 +14,11 @@ synchronise; each C function returns ``cudaGetLastError()`` after its
 launch, and a nonzero code raises here.  The callers (``ops/tridiag.py``,
 ``ops/gemv_pair.py``, ``ops/kernels.py``) check device, dtype, shape and
 contiguity before they get here.
+
+A launch through ctypes is invisible to autograd: its output would come
+back without a ``grad_fn``, and a gradient through it would silently
+miss its term.  So every wrapper that launches through here, except K4's
+(whose custom op carries its own rules), first calls ``refuse_autograd``.
 """
 
 from __future__ import annotations
@@ -103,6 +108,30 @@ def library() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def _traced(t) -> bool:
+    """Whether autograd or a ``torch.func`` transform would follow ``t``:
+    it requires grad with grad mode on, carries a forward-mode tangent, or
+    is wrapped by a transform (grad, vjp, jvp, vmap)."""
+    if torch._C._functorch.is_functorch_wrapped_tensor(t):
+        return True
+    if t.requires_grad and torch.is_grad_enabled():
+        return True
+    return torch.autograd.forward_ad.unpack_dual(t).tangent is not None
+
+
+def refuse_autograd(what, *tensors, missing=None):
+    """Raise ``NotImplementedError`` when autograd or a ``torch.func``
+    transform follows any of ``tensors`` (None entries are skipped): the
+    kernel ``what`` has no derivative rules, and its result would come
+    back detached.  ``missing`` names what is not ported yet."""
+    if any(t is not None and _traced(t) for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the kernel has no derivative rules"
+            + (f" ({missing})" if missing else "")
+            + "; under autograd or torch.func its result would lose the gradient. "
+            "Solve without gradients, or on the CPU, where the plain version runs")
 
 
 def _ptr(t):

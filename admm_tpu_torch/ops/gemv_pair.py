@@ -23,7 +23,10 @@ updating z and u in place and returning the ``(K, 2)`` history
 On CPU tensors both run their plain PyTorch versions (``_gemv_pair_torch``,
 ``_resident_lasso_torch``).  On CUDA tensors they launch the hand-written
 CUDA C++ kernels of ``csrc/gemv_pair.cu`` (built by ``ops/_cuda.py``) or
-raise; there is no fallback.  Kernel and plain version agree to the f32
+raise; there is no fallback.  Neither kernel has derivative rules: off the
+CPU an operand that autograd or a ``torch.func`` transform follows raises
+``NotImplementedError`` (``_cuda.refuse_autograd``); K2's backward is
+queued in ROADMAP.md.  Kernel and plain version agree to the f32
 summation rounding of the dots, not bit for bit.
 """
 
@@ -100,6 +103,8 @@ def gemv_pair(b, E, Dt, K=1):
         raise ValueError(f"gemv_pair: empty E {tuple(E.shape)}")
     if b.device.type == "cpu":
         return _gemv_pair_torch(b, E, Dt, K)
+    _cuda.refuse_autograd("gemv_pair", b, E, Dt,
+                          missing="K2's backward is not ported, ROADMAP.md queue 3")
     if b.device.type != "cuda":
         raise ValueError(f"gemv_pair: unsupported device {b.device}")
     _check_rows("gemv_pair E", E)
@@ -160,6 +165,7 @@ def resident_lasso(z, u, Dts, E, Dt, rho, kappa, K):
     rho, kappa = float(rho), float(kappa)
     if z.device.type == "cpu":
         return _resident_lasso_torch(z, u, Dts, E, Dt, rho, kappa, K)
+    _cuda.refuse_autograd("resident_lasso", z, u, Dts, E, Dt)
     if z.device.type != "cuda":
         raise ValueError(f"resident_lasso: unsupported device {z.device}")
     if z.dtype != torch.float32:

@@ -21,7 +21,9 @@ On CUDA tensors both launch the hand-written CUDA C++ kernel of
 on CPU tensors they run the plain PyTorch versions ``_fused_torch`` and
 ``_fused_zu_tail_torch``.  There is no fallback between the two: a CUDA
 tensor never reaches a plain version, and a kernel that fails to build or
-launch raises.
+launch raises.  The kernel has no derivative rules: off the CPU, an
+operand that autograd or a ``torch.func`` transform follows raises
+``NotImplementedError`` (``_cuda.refuse_autograd``).
 """
 
 from __future__ import annotations
@@ -90,6 +92,8 @@ def fused_soft_threshold_dual(x, u, t):
     """
     if x.device.type == "cpu":
         return _fused_torch(x, u, t)
+    _cuda.refuse_autograd("fused_soft_threshold_dual", x, u,
+                          t if isinstance(t, torch.Tensor) else None)
     if x.device.type != "cuda":
         raise ValueError(f"fused_soft_threshold_dual: unsupported device {x.device}")
     if not (isinstance(t, torch.Tensor) and t.ndim == 0):
@@ -189,6 +193,7 @@ def fused_zu_tail(x_new, x, z, u, lam, rho, state, hist, *, perr_abs, derr_abs, 
                              derr_abs=derr_abs, reltol=reltol, domaxiters=domaxiters,
                              nodualerror=nodualerror, nanguard=nanguard)
         return
+    _cuda.refuse_autograd("fused_zu_tail", x_new, x, z, u, lam, rho)
     if x.device.type != "cuda":
         raise ValueError(f"fused_zu_tail: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.float64):

@@ -16,7 +16,15 @@ only the b-phase over the system padded to N = 2^L - 1 with identity rows:
 sides.  On a CPU tensor it runs the plain PyTorch version
 ``_cr_solve_torch``; on a CUDA tensor it launches the hand-written CUDA
 C++ kernel of ``csrc/cr_solve.cu`` (built by ``ops/_cuda.py``) or raises.
-The two round identically, so on the card they agree bit for bit.  The
+The two round identically, so on the card they agree bit for bit.
+
+On the card the solve is differentiable: x = T^-1 b is linear in b, so
+its backward is the solve T^-T g (the solver of the transposed bands,
+``transposed``; TV's system is symmetric and reuses its own) and its
+forward-mode rule the solve T^-1 b', both kernel solves, and both fold
+the lanes of ``torch.func.vmap`` into one kernel call
+(``cr_solve_op``).  The coefficient stacks are constants: they get no
+gradient.  The
 kernel's tile plan (``tile_plan``) and compacted coefficient stacks
 (``compact_stacks``) are built here, in Python, so the CPU tests reach
 them.
@@ -61,7 +69,7 @@ class CyclicReductionSolver:
     """
 
     def __init__(self, alphas, betas, a_lv, c_lv, d_lv, masks_f, masks_b, n,
-                 Tinv=None, cut_stride=1):
+                 Tinv=None, cut_stride=1, bands=None):
         self.alphas = alphas    # (k, N) forward elimination coefficients
         self.betas = betas      # (k, N)
         self.a_lv = a_lv        # (k, N) sub-diagonal entering each level
@@ -73,6 +81,8 @@ class CyclicReductionSolver:
         self.Tinv = Tinv        # (M, M) inverse of the level-k system, or None
         self.cut_stride = cut_stride  # 2^k; 1 = pure masked CR
         self._compact = None    # the kernel's stacks (compact_stacks)
+        self._bands = bands     # (dl, d, du, dense_cutoff) of from_tridiag
+        self._transposed = None  # the solver of T^T (transposed)
 
     @classmethod
     def from_tridiag(cls, dl, d, du, dense_cutoff=None, *, device="cpu",
@@ -162,8 +172,26 @@ class CyclicReductionSolver:
         return cls(
             pack(alphas), pack(betas), pack(a_lv), pack(c_lv), pack(d_lv),
             pack(masks_f, torch.bool), pack(masks_b, torch.bool), n,
-            Tinv=Tinv, cut_stride=stride,
+            Tinv=Tinv, cut_stride=stride, bands=(dl, d0, du, dense_cutoff),
         )
+
+    def transposed(self) -> "CyclicReductionSolver":
+        """The solver of T^T, for the solve's backward: this solver itself
+        when the bands are each other's transpose (dl[1:] == du[:-1], as
+        TV's are), else one built from the swapped bands at the first call
+        and kept."""
+        if self._transposed is None:
+            if self._bands is None:
+                raise ValueError("transposed: the solver was not built by from_tridiag")
+            dl, d, du, cutoff = self._bands
+            if np.array_equal(dl[1:], du[:-1]):
+                self._transposed = self
+            else:
+                # T^T[i, i-1] = T[i-1, i] = du[i-1]; T^T[i, i+1] = T[i+1, i] = dl[i+1].
+                self._transposed = CyclicReductionSolver.from_tridiag(
+                    np.r_[0.0, du[:-1]], d, np.r_[dl[1:], 0.0], cutoff,
+                    device=self.alphas.device, dtype=self.alphas.dtype)
+        return self._transposed
 
     def solve(self, b, *, plain=False):
         """Solve T x = b for ``b`` of shape ``(..., n)``: the leading
@@ -316,8 +344,9 @@ def cr_solve(bb, sol):
     ``torch.matmul``, and a back-substitution launch.  Under
     ``torch.func.vmap`` (the lanes of ``engine.make_admm_runner``) the op's
     vmap rule folds the lane axis into the kernel's own batch axis B, so
-    the lanes' solves are one kernel solve.  Anything the kernel does not
-    take raises.
+    the lanes' solves are one kernel solve.  Under autograd and
+    ``torch.func`` it is differentiable in ``bb`` (``cr_solve_op``).
+    Anything the kernel does not take raises.
     """
     N = sol.alphas.shape[1]
     if bb.ndim != 2 or bb.shape[1] != N:
@@ -334,8 +363,19 @@ def cr_solve(bb, sol):
         raise ValueError(f"cr_solve: unsupported device {bb.device}")
     if bb.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"cr_solve: unsupported dtype {bb.dtype}")
+    return cr_solve_op(bb, sol)
+
+
+def cr_solve_op(bb, sol):
+    """The custom op ``admm_tpu_torch::cr_solve`` on ``(B, N)`` ``bb`` with
+    its rules (``_CRSolve``): the backward T^-T g and the forward-mode
+    rule T^-1 b' are solves of the same op, and under ``torch.func.vmap``
+    the lanes fold into one call.  On a CUDA tensor every one of them is
+    a kernel solve; on a CPU tensor the op runs the plain version, which
+    is how the tests reach the rules.  ``cr_solve`` calls it for CUDA
+    tensors."""
     _LIVE[id(sol)] = sol
-    return _cr_solve_op(bb, id(sol))
+    return _CRSolve.apply(bb, id(sol))
 
 
 # The solvers the custom op can name, by ``id``: an op takes no Python
@@ -371,6 +411,39 @@ def _cr_solve_lanes(info, in_dims, bb, solver):
 
 
 _cr_solve_op.register_vmap(_cr_solve_lanes)
+
+
+class _CRSolve(torch.autograd.Function):
+    """The op with its gradient rules.  x = T^-1 b is linear in b: the
+    backward is ``cr_solve_op(g, sol.transposed())``, the forward-mode
+    rule ``cr_solve_op(b', sol)``; both are again this Function, so they
+    differentiate and batch like the forward.  ``vmap`` folds the lanes
+    into the rows of one ``(lanes * B, N)`` call, as ``_cr_solve_lanes``
+    does for the op alone, so a vmapped VJP or JVP is one solve too."""
+
+    @staticmethod
+    def forward(bb, solver):
+        return _cr_solve_op(bb, solver)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sol = _LIVE[inputs[1]]
+
+    @staticmethod
+    def backward(ctx, g):
+        return cr_solve_op(g.contiguous(), ctx.sol.transposed()), None
+
+    @staticmethod
+    def jvp(ctx, bdot, _):
+        return cr_solve_op(bdot.contiguous(), ctx.sol)
+
+    @staticmethod
+    def vmap(info, in_dims, bb, solver):
+        if in_dims[0] is None:
+            return _CRSolve.apply(bb, solver), None
+        bb = bb.movedim(in_dims[0], 0)
+        out = _CRSolve.apply(bb.reshape(-1, bb.shape[-1]).contiguous(), solver)
+        return out.reshape(bb.shape), 0
 
 
 def _cr_solve_kernel(bb, sol):

@@ -219,6 +219,35 @@ through the functions a user calls and checks what comes out:
      once per sub-step on (128, 8192), and the converging run equals the
      run with the plain b-phase (equal per-lane steps, x within 1e-6
      ||x||_inf).
+ 14. slice 9 and slice 11's single-device half (``hypergradient_phase``,
+     (z15)), after one untimed warm-up:
+     (z15a) the TV hypergradient d MSE(x*, truth) / d(lam, s) through
+         ``make_implicit_solver`` (Neumann, ``mode='vjp'``) on
+         ``staircase_pair(65536)``, lam 0.5, the hybrid cyclic reduction,
+         f32: K4 in the forward, K4 in the backward once per J^T
+         application plus 3 (the linearization at w*, the data VJP's
+         primal and pullback) and no other kernel, the backward's host
+         reads its only synchronising calls; the same gradients with the
+         plain b-phase (``_prox_f_cr_plain``, no K4) within 1e-5, f32
+         within 1e-3 of f64 on the card, the f64 d/dlam within 2e-4 of a
+         central difference of two f64 solves, and ``mode='jvp'`` within
+         1e-6 of ``mode='vjp'`` in f64; wall times, adjoint steps and host
+         reads printed;
+     (z15b) per-lane d loss_i / d lam_i through ``make_implicit_batch_solver``
+         on 128 random walks plus noise (n = 8192, ``tv_batch``'s hybrid
+         form), f64: K4 once per J^T application of all lanes plus 2, lanes
+         0, 63 and 127 equal to the serial f64 gradients to 1e-9;
+     (z15c) d sum(x*^2) / d lam of the headline LASSO (1500 x 5000, the
+         cuBLAS pair, no kernel) in f32 within 1e-3 of f64; with bf16
+         streams (K2, no backward yet) the gradient raises the guard's
+         ``NotImplementedError``;
+     (z15d) every tester of ``testers/problems.py`` passes its default
+         instance on the card in f64, ``solvertester('lasso', 4, 6,
+         trials=2, seed=0)`` reports no failure, ``showresults`` prints its
+         text, ``iteration_rate`` and ``trace`` run (the trace goes to
+         build/z15_trace/).
+     K4's launches in (z15a)'s f32 and (z15b)'s forward and backward join
+     its row of the JSON line (``launches_by_path``).
 
 Kernel times are device times: CUDA events around replays of a CUDA
 graph that holds several calls (``graph_ms``), so that the host's time per
@@ -317,6 +346,18 @@ CHECK_MAXITERS = 2000
 # The SDP lanes' checks stop early to bound the phase's time (the batched f64
 # eigh loops over the lanes' matrices; ns takes ~500 steps to converge).
 CHECK_STEPS = {"sdp_batch eigh": 50, "sdp_batch ns": 200}
+# (z15): slice 9's implicit differentiation and slice 11's harness.  The
+# f32 stop and adjoint tolerances sit above f32's floor (an f32 Neumann
+# adjoint of the headline lasso stalls near 1e-6 relative), f64's far below.
+HG_N = 65536
+HG_LANES, HG_LANE_N = 128, 8192
+HG_CHECK = (0, 63, 127)
+HG_MAXITERS = 5000
+HG_STOP = {"float32": dict(abstol=1e-6, reltol=1e-6), "float64": dict(abstol=1e-10, reltol=1e-10)}
+HG_VJP_TOL = {"float32": 1e-5, "float64": 1e-10}
+HG_VJP_MAXITERS = 5000
+HG_LANE_TOL = 1e-12  # (z15b)'s f64 stop and adjoint tolerance
+HG_FD_H = 2e-5
 # H100 SXM peaks from NVIDIA's data sheet.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -1181,12 +1222,17 @@ def k4_phase(dev):
     return worst, *times[(1, 65536)]
 
 
-def staircase(n, seed=0):
-    """admm_tpu/benchmarks/matrix.py's TV signal: blocks of 64 plus noise
-    of standard deviation 0.5, in float32."""
+def staircase_pair(n, seed=0):
+    """admm_tpu/benchmarks/matrix.py's TV signal: (blocks of 64, the blocks
+    plus noise of standard deviation 0.5), in float32."""
     rng = np.random.default_rng(seed)
     stair = np.repeat(rng.standard_normal(max(n // 64, 1)), 64)[:n]
-    return (stair + 0.5 * rng.standard_normal(n)).astype(np.float32)
+    return stair.astype(np.float32), (stair + 0.5 * rng.standard_normal(n)).astype(np.float32)
+
+
+def staircase(n, seed=0):
+    """The noisy signal of ``staircase_pair``."""
+    return staircase_pair(n, seed)[1]
 
 
 def numpy_tv_steps(sig, lam, cfg):
@@ -1358,14 +1404,8 @@ def main_path(tag, solve, eigh=False, reads="eigh", k4=False):
     second."""
     import torch
 
-    from admm_tpu_torch.ops.gemv_pair import gemv_pair, resident_lasso
-    from admm_tpu_torch.ops.kernels import fused_soft_threshold_dual, fused_zu_tail
-    from admm_tpu_torch.ops.tridiag import cr_solve
-
-    kernels = {"K1": fused_soft_threshold_dual, "K1b": fused_zu_tail, "K2": gemv_pair,
-               "K3": resident_lasso, "K4": cr_solve}
-    for k in kernels.values():
-        k.launches = 0
+    kernels = kernel_counts()
+    reset_counts()
     with counting_syncs() as sy:
         r = solve()
         torch.cuda.synchronize()
@@ -2136,6 +2176,272 @@ def batch_phase(dev):
 
 
 
+@contextlib.contextmanager
+def syncs_in():
+    """Count the synchronising CUDA calls of a block, as
+    torch.cuda.set_sync_debug_mode("warn") reports them: yields a dict
+    whose "n" is set on exit."""
+    import warnings
+
+    import torch
+
+    got = {"n": 0}
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield got
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            got["n"] = sum("called a synchronizing" in str(w.message) for w in seen)
+
+
+def kernel_counts():
+    """Every kernel wrapper's launch count (K1-K4), as a dict."""
+    from admm_tpu_torch.ops.gemv_pair import gemv_pair, resident_lasso
+    from admm_tpu_torch.ops.kernels import fused_soft_threshold_dual, fused_zu_tail
+    from admm_tpu_torch.ops.tridiag import cr_solve
+
+    return {"K1": fused_soft_threshold_dual, "K1b": fused_zu_tail, "K2": gemv_pair,
+            "K3": resident_lasso, "K4": cr_solve}
+
+
+def reset_counts():
+    for k in kernel_counts().values():
+        k.launches = 0
+
+
+def read_counts():
+    return {name: k.launches for name, k in kernel_counts().items()}
+
+
+def forward_and_backward(loss, *args):
+    """``loss(*args)``'s value and its gradient with respect to every arg
+    through ``torch.func.vjp``, with the kernels' launches, the wall times
+    and the synchronising calls of the forward and of the backward
+    counted apart."""
+    import torch
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val, pull = torch.func.vjp(loss, *args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd = read_counts()
+    reset_counts()
+    with syncs_in() as sy:
+        grads = pull(torch.ones_like(val))
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return val, grads, {"fwd": fwd, "bwd": read_counts(), "t_fwd": t1 - t0, "t_bwd": t2 - t1,
+                        "bwd_syncs": sy["n"]}
+
+
+def hypergradient_phase(dev):
+    """Slice 9 and the single-device half of slice 11, (z15a)-(z15d):
+    hypergradients through ``make_implicit_solver`` and
+    ``make_implicit_batch_solver`` on the card, K4's backward and tangent
+    among them, and the tester harness.  Returns K4's launches by path."""
+    import torch
+
+    from admm_tpu_torch import (ADMMConfig, lasso, make_implicit_batch_solver,
+                                make_implicit_solver, testers)
+    from admm_tpu_torch.benchmarks.headline import make_problem
+    from admm_tpu_torch.linop import DiffOp
+    from admm_tpu_torch.models.lasso import make_prox_ops as lasso_ops
+    from admm_tpu_torch.models.totalvariation import _prox_f_cr_plain, make_prox_ops
+    from admm_tpu_torch.utils import showresults
+    from admm_tpu_torch.utils.profiling import iteration_rate, trace
+
+    t0 = time.perf_counter()
+    name = lambda dt: str(dt).split(".")[-1]  # noqa: E731
+    launches = {}
+
+    def rel_err(a, b):
+        return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+
+    # (z15a) the TV hypergradient at n = 65536, the hybrid cyclic reduction.
+    n = HG_N
+    truth, sig = staircase_pair(n)
+
+    def tv(dtype, plain=False, mode="vjp"):
+        cfg = ADMMConfig(maxiters=HG_MAXITERS, unroll="auto", **HG_STOP[name(dtype)])
+        pf, pg, _, data, _ = make_prox_ops(torch.from_numpy(sig).to(dev, dtype), TV_LAM, cfg,
+                                           solver="cr")
+        check(data["cr"].Tinv is not None, f"(z15a) n={n} 'cr' is the hybrid form")
+        solve = make_implicit_solver(_prox_f_cr_plain if plain else pf, pg, cfg, A=DiffOp(n),
+                                     nA=n, nB=n, mode=mode, vjp_tol=HG_VJP_TOL[name(dtype)],
+                                     vjp_maxiters=HG_VJP_MAXITERS)
+        t = torch.from_numpy(truth).to(dev, dtype)
+        loss = lambda lam, s: torch.mean((solve(dict(data, lam=lam, s=s))[0] - t) ** 2)  # noqa: E731
+        return solve, data, loss
+
+    runs = {}
+    _, _, loss = tv(torch.float32)  # warm-up: the first call pays the card's lazy set-up
+    forward_and_backward(loss, torch.tensor(TV_LAM, device=dev),
+                         torch.from_numpy(sig).to(dev))
+    for dtype, plain in ((torch.float32, False), (torch.float32, True), (torch.float64, False)):
+        solve, data, loss = tv(dtype, plain)
+        val, (g_lam, g_s), c = forward_and_backward(loss, data["lam"], data["s"])
+        st = solve.stats
+        tag = f"{name(dtype)}{' plain b-phase' if plain else ''}"
+        print(f"  (z15a) {tag}: loss {float(val):.8g}, dloss/dlam {float(g_lam):.8g}, "
+              f"||dloss/ds|| {float(torch.linalg.norm(g_s)):.6g}; forward {c['t_fwd']:.3f}s, "
+              f"K4 {c['fwd']['K4']}; backward {c['t_bwd']:.3f}s, {st['steps'][0]} adjoint "
+              f"steps, {st['applies']} J^T applications, K4 {c['bwd']['K4']}, host reads "
+              f"{st['reads']} ({c['bwd_syncs']} synchronising calls)")
+        if plain:
+            check(c["fwd"]["K4"] == 0 and c["bwd"]["K4"] == 0,
+                  "(z15a) the plain b-phase launches no K4")
+        else:
+            check(c["fwd"]["K4"] > 0, f"(z15a) {tag} forward through K4")
+            check(c["bwd"]["K4"] == st["applies"] + 3,
+                  f"(z15a) {tag} backward: K4 once per J^T application plus 3 "
+                  f"({c['bwd']['K4']} for {st['applies']})")
+            check(sum(v for k, v in c["bwd"].items() if k != "K4") == 0,
+                  f"(z15a) {tag} backward launches no other kernel")
+            check(c["bwd_syncs"] == st["reads"],
+                  f"(z15a) {tag} backward: its {st['reads']} host reads are its only "
+                  f"synchronising calls")
+        check(bool(torch.isfinite(g_s).all()) and bool(torch.isfinite(g_lam)),
+              f"(z15a) {tag} gradients finite")
+        runs[tag] = (g_lam, g_s, c, solve, data, loss)
+        if tag == "float32":
+            launches["z15a forward"], launches["z15a backward"] = c["fwd"]["K4"], c["bwd"]["K4"]
+    k32, p32, k64 = (runs[t] for t in ("float32", "float32 plain b-phase", "float64"))
+    e_lam = abs(float(k32[0] - p32[0])) / abs(float(p32[0]))
+    e_s = rel_err(k32[1], p32[1])
+    print(f"  (z15a) f32 kernel against the plain b-phase: dlam {e_lam:.3e}, ds {e_s:.3e} "
+          f"(bar 1e-5)")
+    check(max(e_lam, e_s) <= 1e-5, "(z15a) f32 gradients through K4 within 1e-5 of the plain "
+          "b-phase's")
+    e_lam = abs(float(k32[0]) - float(k64[0])) / abs(float(k64[0]))
+    e_s = rel_err(k32[1], k64[1])
+    print(f"  (z15a) f32 against f64: dlam {e_lam:.3e}, ds {e_s:.3e} (bar 1e-3)")
+    check(max(e_lam, e_s) <= 1e-3, "(z15a) f32 gradients within 1e-3 of f64")
+    g_lam64, _, _, _, data64, loss64 = k64
+    with torch.no_grad():
+        lam = float(data64["lam"])
+        fd = (loss64(data64["lam"] + HG_FD_H, data64["s"])
+              - loss64(data64["lam"] - HG_FD_H, data64["s"])) / (2 * HG_FD_H)
+    e_fd = abs(float(g_lam64) - float(fd)) / abs(float(fd))
+    print(f"  (z15a) f64 dloss/dlam {float(g_lam64):.10g} against a central difference "
+          f"(h {HG_FD_H} at lam {lam}) {float(fd):.10g}: {e_fd:.3e} (bar 2e-4)")
+    check(abs(float(g_lam64) - float(fd)) <= 2e-4 * abs(float(fd)) + 1e-8,
+          "(z15a) f64 dloss/dlam within 2e-4 of finite differences")
+    solve_j, data_j, loss_j = tv(torch.float64, mode="jvp")
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, dot = torch.func.jvp(lambda l: loss_j(l, data_j["s"]), (data_j["lam"],),
+                            (torch.ones_like(data_j["lam"]),))
+    torch.cuda.synchronize()
+    e_j = abs(float(dot) - float(g_lam64)) / abs(float(g_lam64))
+    print(f"  (z15a) f64 mode='jvp': {float(dot):.12g} in {time.perf_counter() - t1:.3f}s "
+          f"({solve_j.stats['steps'][0]} tangent steps, K4 {read_counts()['K4']}); against "
+          f"mode='vjp' {e_j:.3e} (bar 1e-6)")
+    check(e_j <= 1e-6, "(z15a) f64 forward mode within 1e-6 of reverse mode")
+
+    # (z15b) per-lane hypergradients on tv_batch's lanes, f64.
+    B, n = HG_LANES, HG_LANE_N
+    rng = np.random.default_rng(15)
+    W = np.cumsum(rng.standard_normal((B, n)), axis=1)
+    S = torch.from_numpy(W + 0.5 * rng.standard_normal((B, n))).to(dev)
+    Wt = torch.from_numpy(W).to(dev)
+    lams = torch.from_numpy(np.geomspace(0.25, 4.0, B)).to(dev)
+    cfg = ADMMConfig(maxiters=HG_MAXITERS, abstol=HG_LANE_TOL, reltol=HG_LANE_TOL, unroll="auto")
+    pf, pg, _, data, _ = make_prox_ops(S[0], 1.0, cfg, solver="cr", batched=True)
+    kw = dict(A=DiffOp(n), nA=n, nB=n, vjp_tol=HG_LANE_TOL, vjp_maxiters=HG_VJP_MAXITERS)
+    batch = make_implicit_batch_solver(pf, pg, cfg, mapped={"s", "lam"}, **kw)
+    loss_b = lambda l: torch.sum(torch.mean((batch(dict(data, s=S, lam=l))[0] - Wt) ** 2, dim=1))  # noqa: E731
+    _, (g,), c = forward_and_backward(loss_b, lams)
+    st = batch.stats
+    print(f"  (z15b) {B} lanes n={n} f64: forward {c['t_fwd']:.3f}s, K4 {c['fwd']['K4']}; "
+          f"backward {c['t_bwd']:.3f}s, adjoint steps {min(st['steps'])}-{max(st['steps'])}, "
+          f"{st['applies']} J^T applications, K4 {c['bwd']['K4']}, host reads {st['reads']} "
+          f"({c['bwd_syncs']} synchronising calls)")
+    check(c["bwd"]["K4"] == st["applies"] + 2,
+          f"(z15b) backward: one K4 solve of all {B} lanes per J^T application plus 2 "
+          f"({c['bwd']['K4']} for {st['applies']})")
+    check(c["bwd_syncs"] == st["reads"],
+          f"(z15b) backward: its {st['reads']} host reads are its only synchronising calls")
+    launches["z15b forward"], launches["z15b backward"] = c["fwd"]["K4"], c["bwd"]["K4"]
+    serial = make_implicit_solver(pf, pg, cfg, **kw)
+    for i in HG_CHECK:
+        gi = torch.func.grad(lambda li: torch.mean(
+            (serial(dict(data, s=S[i], lam=li))[0] - Wt[i]) ** 2))(lams[i])
+        e = abs(float(g[i]) - float(gi)) / abs(float(gi))
+        print(f"  (z15b) lane {i}: lanes {float(g[i]):.15g}, serial {float(gi):.15g}, rel {e:.3e}")
+        check(e <= 1e-9, f"(z15b) lane {i} equals the serial f64 gradient to 1e-9")
+
+    # (z15c) the LASSO hypergradient at the headline width (cuBLAS, no kernel).
+    D, s, lam = make_problem()
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        cfg = ADMMConfig(maxiters=HG_MAXITERS, unroll="auto", **HG_STOP[name(dtype)])
+        Dd, sd = (torch.from_numpy(a).to(dev, dtype) for a in (D, s))
+        pf, pg, _, data = lasso_ops(Dd, sd, lam, cfg)
+        m_ = D.shape[1]
+        solve = make_implicit_solver(pf, pg, cfg, nA=m_, nB=m_, m=m_,
+                                     vjp_tol=HG_VJP_TOL[name(dtype)], vjp_maxiters=HG_VJP_MAXITERS)
+        val, (g_l,), c = forward_and_backward(
+            lambda l: torch.sum(solve(dict(data, lam=l))[0] ** 2), data["lam"])
+        grads[dtype] = float(g_l)
+        print(f"  (z15c) lasso {D.shape[0]}x{m_} {name(dtype)}: dloss/dlam {float(g_l):.10g}; "
+              f"forward {c['t_fwd']:.3f}s, backward {c['t_bwd']:.3f}s, {solve.stats['steps'][0]} "
+              f"adjoint steps, host reads {solve.stats['reads']}; kernel launches {c['bwd']}")
+        check(not any(c["fwd"].values()) and not any(c["bwd"].values()),
+              f"(z15c) {name(dtype)} runs no kernel")
+    e = abs(grads[torch.float32] - grads[torch.float64]) / abs(grads[torch.float64])
+    print(f"  (z15c) f32 against f64: {e:.3e} (bar 1e-3)")
+    check(e <= 1e-3, "(z15c) f32 dloss/dlam within 1e-3 of f64")
+    cfg = ADMMConfig(maxiters=200, **HG_STOP["float32"])
+    pf, pg, _, data = lasso_ops(*(torch.from_numpy(a).to(dev) for a in (D, s)), lam, cfg,
+                                stream_dtype=torch.bfloat16)
+    m_ = D.shape[1]
+    solve = make_implicit_solver(pf, pg, cfg, nA=m_, nB=m_, m=m_)
+    try:
+        torch.func.grad(lambda l: torch.sum(solve(dict(data, lam=l))[0] ** 2))(data["lam"])
+        refused = ""
+    except NotImplementedError as err:
+        refused = str(err)
+    print(f"  (z15c) bf16 streams under torch.func.grad: {refused[:100]!r}")
+    check("K2's backward" in refused, "(z15c) bf16-stream gradient refused by K2's guard")
+
+    # (z15d) the harness on the card, f64.
+    t1 = time.perf_counter()
+    for tester in (testers.modeltest, testers.lassotest, testers.basispursuittest,
+                   testers.totalvariationtest, testers.ladtest, testers.huberfittest,
+                   testers.linearprogramtest, testers.quadraticprogramtest,
+                   lambda: testers.quadraticprogramtest(form="bounded"),
+                   testers.covarianceselectiontest, testers.logregtest):
+        res, test = tester()
+        check(res.xopt.device.type == "cuda" and not test["failed"],
+              f"(z15d) {test['solver']}{' ' + test.get('form', '') if 'form' in test else ''} "
+              f"tester passes on the card ({res.steps} steps) {test['failreason']}")
+    res_h, res_01, test = testers.linearsvmtest()
+    check(not test["failed"], "(z15d) linearsvm tester passes on the card")
+    rep = testers.solvertester("lasso", 4, 6, trials=2, seed=0)
+    print("  (z15d) " + rep.summary().replace("\n", "\n  (z15d) "))
+    check(not rep.any_failed, "(z15d) solvertester('lasso', 4, 6, trials=2) reports no failure")
+    res, test = testers.lassotest()
+    text = showresults(res, test, print_fn=lambda *_: None)
+    print("  (z15d) " + text.replace("\n", "\n  (z15d) "))
+    check("ADMM results" in text and "PASSED: True" in text, "(z15d) showresults prints its text")
+    Dh, sh = (torch.from_numpy(a).to(dev) for a in make_problem(smoke=True)[:2])
+    rate = iteration_rate(lambda: lasso(Dh, sh, 0.1, ADMMConfig(maxiters=100, domaxiters=True)))
+    logdir = ROOT / "build" / "z15_trace"
+    with trace(str(logdir)):
+        lasso(Dh, sh, 0.1, ADMMConfig(maxiters=20, domaxiters=True))
+    size = (logdir / "trace.json").stat().st_size
+    print(f"  (z15d) iteration_rate {rate:.2f} solves/s; trace.json {size} bytes; harness "
+          f"{time.perf_counter() - t1:.1f}s")
+    check(rate > 0 and size > 0, "(z15d) iteration_rate and trace run")
+    print(f"  (z15) took {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main():
     import torch
 
@@ -2168,6 +2474,7 @@ def main():
     programs_phase(dev)
     spectral_phase(dev)
     k4_batch_launches = batch_phase(dev)
+    k4_hg_launches = hypergradient_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -2195,7 +2502,8 @@ def main():
             "admm_tpu/ops/kernels.py:48", k1b_launches, k1b_err, k1b_ms, k1b_plain_ms,
             k1b_bound, None),
         row("cr_solve", "cuda", "admm_tpu_torch/csrc/cr_solve.cu",
-            "experiments/pallas_cr_kernel.py:103", {"f": k4_launches, "z14": k4_batch_launches},
+            "experiments/pallas_cr_kernel.py:103",
+            {"f": k4_launches, "z14": k4_batch_launches, **k4_hg_launches},
             k4_err, k4_ms,
             k4_plain_ms, k4_bound, None),
         row("gemv_pair", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",

@@ -919,3 +919,116 @@ def test_cr_op_vmap_rule_gives_the_bits_of_a_direct_call(cuda, cr_launches, cuto
     assert cr_launches() == 2
     assert torch.equal(lanes, direct)
     assert torch.equal(tridiag._cr_solve_op(bb, id(sol)), direct)
+
+
+# ---- slice 9: K4's gradient rules, the kernels' autograd guard, the
+# implicit solvers on the card.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cutoff", [None, 63, 1023])
+@pytest.mark.parametrize("system", [_tv_system, _random_system])
+def test_cr_backward_and_tangent_go_through_the_kernel(cuda, cr_launches, dtype, cutoff, system):
+    # The VJP is a kernel solve of the transposed system and the tangent a
+    # kernel solve of the system: the plain version's bits on the same
+    # solvers, one launch each, and autograd through the plain version
+    # within rounding.
+    from admm_tpu_torch.ops.tridiag import cr_solve_op
+
+    sol = CyclicReductionSolver.from_tridiag(*system(3000), dense_cutoff=cutoff, device=cuda,
+                                             dtype=dtype)
+    N = sol.alphas.shape[1]
+    gen = torch.Generator().manual_seed(7)
+    bb, g, bdot = (torch.randn((3, N), generator=gen, dtype=dtype).to(cuda) for _ in range(3))
+    _, pull = torch.func.vjp(lambda b: cr_solve_op(b, sol), bb)
+    base = cr_launches()
+    got = pull(g)[0]
+    assert cr_launches() == base + 1
+    assert torch.equal(got, _cr_solve_torch(g, sol.transposed()))
+    _, plain_pull = torch.func.vjp(lambda b: _cr_solve_torch(b, sol), bb)
+    ref = plain_pull(g)[0]
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    base = cr_launches()
+    _, tangent = torch.func.jvp(lambda b: cr_solve_op(b, sol), (bb,), (bdot,))
+    assert cr_launches() == base + 2  # the primal and its tangent
+    assert torch.equal(tangent, _cr_solve_torch(bdot, sol))
+    assert float(tangent.abs().max()) > 0
+
+
+def test_kernel_wrappers_refuse_autograd_on_gpu(cuda, launches, tail_launches, k2_launches):
+    # A ctypes launch would return a result without a grad_fn: each
+    # wrapper raises instead, before launching.
+    gen = torch.Generator().manual_seed(8)
+    x, u = (torch.randn(64, generator=gen).to(cuda) for _ in range(2))
+    t = torch.tensor(0.3, device=cuda)
+    with pytest.raises(NotImplementedError, match="derivative rules"):
+        fused_soft_threshold_dual(x.requires_grad_(), u, t)
+    with pytest.raises(NotImplementedError, match="derivative rules"):
+        torch.func.grad(lambda a: fused_soft_threshold_dual(a, u, t)[0].sum())(x.detach())
+    E = aligned_rows(torch.randn((16, 64), generator=gen).to(cuda))
+    Dt = aligned_rows(torch.randn((64, 16), generator=gen).to(cuda))
+    b = torch.randn(64, generator=gen).to(cuda)
+    with pytest.raises(NotImplementedError, match="K2's backward"):
+        gemv_pair(b, E.requires_grad_(), Dt)
+    with pytest.raises(NotImplementedError, match="K2's backward"):
+        torch.func.grad(lambda bb: gemv_pair(bb, E.detach(), Dt).sum())(b)
+    z = torch.zeros(64, device=cuda)
+    with pytest.raises(NotImplementedError, match="derivative rules"):
+        resident_lasso(z, z.clone(), b.requires_grad_(), E.detach(), Dt, 1.0, 0.1, 1)
+    assert launches() == 0 and tail_launches() == 0 and k2_launches() == 0
+    # Without gradients they launch as before.
+    with torch.no_grad():
+        gemv_pair(b, E, Dt)
+    assert k2_launches() == 1
+
+
+def test_tv_lanes_backward_is_one_k4_launch_per_adjoint_step(cuda, cr_launches):
+    # make_implicit_batch_solver on tv_batch's lanes (hybrid form): every
+    # solve of the backward is one K4 launch of all lanes, and the lanes'
+    # gradients equal the same solves' on the CPU.
+    from admm_tpu_torch import make_implicit_batch_solver
+    from admm_tpu_torch.linop import DiffOp
+    from admm_tpu_torch.models.totalvariation import make_prox_ops
+
+    n, B = 3000, 4
+    rng = np.random.default_rng(9)
+    W = np.cumsum(rng.standard_normal((B, n)), axis=1)
+    S = W + 0.5 * rng.standard_normal((B, n))
+    lams = np.geomspace(0.5, 2.0, B)
+    cfg = ADMMConfig(maxiters=3000, abstol=1e-10, reltol=1e-10, unroll="auto")
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        St, Wt, lt = (torch.from_numpy(a).to(dev) for a in (S, W, lams))
+        pf, pg, _, data, _ = make_prox_ops(St[0], 1.0, cfg, solver="cr", batched=True)
+        batch = make_implicit_batch_solver(pf, pg, cfg, mapped={"s", "lam"}, A=DiffOp(n),
+                                           nA=n, nB=n, vjp_tol=1e-10)
+        loss = lambda l: torch.sum(torch.mean(  # noqa: E731
+            (batch(dict(data, s=St, lam=l))[0] - Wt) ** 2, dim=1))
+        _, pull = torch.func.vjp(loss, lt)
+        before = cr_launches()
+        grads.append(pull(torch.ones((), dtype=lt.dtype, device=dev))[0].cpu())
+        if dev.type == "cuda":
+            assert cr_launches() - before == batch.stats["applies"] + 2
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), rtol=1e-9)
+
+
+def test_implicit_solver_on_gpu_matches_the_cpu(cuda):
+    # The serial solver (both modes) on the headline-style lasso proxes, no
+    # kernel on the path: the card's gradient equals the CPU's in f64.
+    from admm_tpu_torch import make_implicit_solver
+    from admm_tpu_torch.models.lasso import make_prox_ops
+
+    rng = np.random.default_rng(10)
+    D, s = rng.standard_normal((40, 120)), rng.standard_normal(40)
+    cfg = ADMMConfig(maxiters=4000, abstol=1e-11, reltol=1e-11, unroll="auto")
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        pf, pg, _, data = make_prox_ops(*(torch.from_numpy(a).to(dev) for a in (D, s)), 0.3, cfg)
+        for mode in ("vjp", "jvp"):
+            solve = make_implicit_solver(pf, pg, cfg, nA=120, nB=120, m=120, mode=mode)
+            f = lambda l: torch.sum(solve(dict(data, lam=l))[0] ** 2)  # noqa: E731
+            lam = data["lam"]
+            got[dev.type, mode] = float(torch.func.grad(f)(lam) if mode == "vjp" else
+                                        torch.func.jvp(f, (lam,), (torch.ones_like(lam),))[1])
+    for mode in ("vjp", "jvp"):
+        np.testing.assert_allclose(got["cuda", mode], got["cpu", mode], rtol=1e-9)

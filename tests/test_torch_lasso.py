@@ -158,7 +158,13 @@ def test_unported_lasso_modes_raise(kw, exc, match):
 
 
 def test_lasso_demo_mode_raises():
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    # The zero-argument demo runs its tester on the card by default; where
+    # no card is visible it raises the placement error that names
+    # device="cpu" (the CPU demo: tests/test_torch_demo_mode.py).
+    if torch.cuda.is_available():
+        assert lasso().steps > 0
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         lasso()
 
 

@@ -111,7 +111,13 @@ def test_model_accepts_tensors_and_float32():
 
 
 def test_model_demo_mode_raises():
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    # The zero-argument demo runs its tester on the card by default; where
+    # no card is visible it raises the placement error that names
+    # device="cpu" (the CPU demo: tests/test_torch_demo_mode.py).
+    if torch.cuda.is_available():
+        assert model().steps > 0
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         model()
 
 

@@ -190,6 +190,10 @@ def test_refusals():
             quantile(D, s, tau, device="cpu")
     with pytest.raises(ValueError, match="at least as many rows"):
         lad(D.T, s[:12], device="cpu")
+    # The zero-argument demos run their testers on the card by default;
+    # where no card is visible they raise the placement error naming
+    # device="cpu" (the CPU demos: tests/test_torch_demo_mode.py).
     for fn in (lad, huberfit):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            fn()
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                fn()
