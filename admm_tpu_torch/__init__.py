@@ -4,7 +4,8 @@ A second package beside ``admm_tpu``, which stays the reference.  Module
 names mirror ``admm_tpu``'s so each counterpart is easy to find.  The port
 imports ``torch`` and never ``jax``.
 
-Ported so far (ROADMAP.md, queue 1, slices 1 to 8):
+Ported so far (ROADMAP.md, queue 1: slices 1 to 9, 11 and 11b; slice 10,
+the distributed layer, is not):
 the engine with all of its serial variants (fast and accelerated ADMM,
 H-norm stops, adaptive and residual-balancing rho, the stall detector,
 Anderson acceleration, iterate records and every hook) and ``FnOp``; the
@@ -34,9 +35,10 @@ whole fat-LASSO iteration in one launch.
 """
 
 from .config import ADMMConfig
-from .diff import make_implicit_batch_solver, make_implicit_solver
-from .engine import Hooks, admm, make_admm_runner
-from .linop import FnOp
+from .diff import (make_implicit_batch_solver, make_implicit_consensus_solver,
+                   make_implicit_solver, make_implicit_unwrapped_solver)
+from .engine import Constraint, Hooks, admm, make_admm_runner
+from .linop import DenseOp, DiffOp, FnOp, ScaledIdentityOp, as_linop
 from .models import (basispursuit, covarianceselection, elasticnet, fusedlasso, get_prox_ops,
                      grouplasso, huberfit, lad, lasso, linearprogram, linearsvm, logreg,
                      matrixcompletion, model, nnls, quadraticprogram, quantile, rpca, sdp,
@@ -51,14 +53,16 @@ from .models.paths import PathResults, covsel_path, lasso_path, linearsvm_c_path
 from .results import ADMMResults
 from . import testers, utils  # noqa: E402,F401  (subpackage access)
 
-__all__ = ["ADMMConfig", "ADMMResults", "BatchResults", "FnOp", "Hooks", "PathResults",
-           "QPStructure", "admm", "basispursuit", "basispursuit_batch", "covarianceselection",
+__all__ = ["ADMMConfig", "ADMMResults", "BatchResults", "Constraint", "DenseOp", "DiffOp",
+           "FnOp", "Hooks", "PathResults", "QPStructure", "ScaledIdentityOp", "admm",
+           "as_linop", "basispursuit", "basispursuit_batch", "covarianceselection",
            "covsel_batch", "covsel_path", "elasticnet", "elasticnet_batch", "fusedlasso",
            "fusedlasso_batch", "get_prox_ops", "grouplasso", "grouplasso_batch", "huberfit",
            "huberfit_batch", "lad", "lad_batch", "lasso", "lasso_batch", "lasso_path",
            "linearprogram", "linearsvm", "linearsvm_c_path", "logreg", "logreg_batch",
            "lp_batch", "make_admm_runner", "make_implicit_batch_solver",
-           "make_implicit_solver", "matrixcompletion", "matrixcompletion_batch",
+           "make_implicit_consensus_solver", "make_implicit_solver",
+           "make_implicit_unwrapped_solver", "matrixcompletion", "matrixcompletion_batch",
            "model", "model_batch", "nnls", "nnls_batch", "qp_batch", "qp_structure",
            "quadraticprogram", "quantile", "quantile_batch", "rpca", "rpca_batch", "sdp",
            "sdp_batch", "svm_batch", "totalvariation", "totalvariation2d", "tv2d_batch",

@@ -1,6 +1,8 @@
-"""Device time of a call on a CUDA device, with the host's time per call
-taken out: the call captured in a CUDA graph, the graph replayed between
-two CUDA events.  Used by ``chip_smoke.py`` and the kernel experiments."""
+"""Timing on the card.  ``graph_ms``: device time of a call on a CUDA
+device, with the host's time per call taken out: the call captured in a
+CUDA graph, the graph replayed between two CUDA events (``chip_smoke.py``
+and the kernel experiments).  ``best_of``: a solver's loop time, best of
+3 after a warm-up (``benchmarks/matrix.py``)."""
 
 from __future__ import annotations
 
@@ -31,3 +33,12 @@ def graph_ms(fn, reps, per_graph=10):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (replays * per_graph)
+
+
+def best_of(solve, reps=3):
+    """``admm_tpu``'s ``_run_twice``: one warm-up solve (the first call pays
+    the card's lazy set-up; its step count read to the host), then the
+    fastest of ``reps`` solves by ``runtime``, the engine's loop time on
+    the host clock between two ``torch.cuda.synchronize`` calls."""
+    solve().steps
+    return min((solve() for _ in range(reps)), key=lambda r: r.runtime)

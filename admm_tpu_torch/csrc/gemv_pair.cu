@@ -67,7 +67,9 @@
 // Rounding: b and t are rounded to the stream type with
 // __float2bfloat16_rn, round to nearest even like JAX's astype and
 // torch's .to(torch.bfloat16); an f32 b with bf16 streams is rounded the
-// same way while it is loaded.  The dots accumulate in f32 with FMA in an
+// same way while it is loaded.  K2's backward runs the transposed pair
+// x = E^T (D g) in bmode 2, where JAX's transpose of the same products
+// rounds: g read in f32, D g rounded, the f32 result rounded as written.  The dots accumulate in f32 with FMA in an
 // order of their own, so they agree with the plain versions
 // (ops/gemv_pair.py) to summation rounding, not bit for bit.  K3's
 // elementwise steps use the __*_rn intrinsics in the plain version's order
@@ -377,7 +379,7 @@ struct Product {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSm)
-gemv_pair_kernel(const void* __restrict__ b, int b32, const T* __restrict__ E,
+gemv_pair_kernel(const void* __restrict__ b, int bmode, const T* __restrict__ E,
                  int64_t lde, const T* __restrict__ Dt, int64_t ldd, float* t, float* x,
                  int m, int n, int K, int vec) {
   __shared__ float red[kWarps * kBatch * kWarps];
@@ -394,13 +396,17 @@ gemv_pair_kernel(const void* __restrict__ b, int b32, const T* __restrict__ E,
   auto wide = [](const float* p) { return sizeof(T) == 2 ? aligned16(p) : nullptr; };
   auto as_is = [](float v) { return v; };
   auto rounded = [](float v) { return round_to<T>(v); };
+  // bmode 2 (the transposed pair of K2's backward): x rounded as written.
+  auto store_x = [&](int r, float v) { x[r] = bmode == 2 ? round_to<T>(v) : v; };
   pa.prefetch(ring);
   for (int k = 0; k < K; ++k) {
-    // t = E b, with b the input at step 0 (rounded to the stream type if
-    // it comes in f32, read as it is if it comes in the stream type) and
+    // t = E b, with b the input at step 0 (read as it is if it comes in
+    // the stream type or in bmode 2, else rounded to the stream type) and
     // the previous x rounded to the stream type after that.
-    if (k == 0 && !b32) {
+    if (k == 0 && bmode == 0) {
       pa.run(ring, sv, red, [&](int j) { return to_float(bt[j]); }, as_is, nullptr, store_t);
+    } else if (k == 0 && bmode == 2) {
+      pa.run(ring, sv, red, [&](int j) { return __ldcg(bf + j); }, as_is, wide(bf), store_t);
     } else {
       const float* src = k > 0 ? x : bf;
       pa.run(ring, sv, red, [&](int j) { return __ldcg(src + j); }, rounded, wide(src),
@@ -408,8 +414,7 @@ gemv_pair_kernel(const void* __restrict__ b, int b32, const T* __restrict__ E,
     }
     pb.prefetch(ring);
     grid.sync();
-    pb.run(ring, sv, red, [&](int i) { return __ldcg(t + i); }, rounded, wide(t),
-           [&](int r, float v) { x[r] = v; });
+    pb.run(ring, sv, red, [&](int i) { return __ldcg(t + i); }, rounded, wide(t), store_x);
     if (k + 1 < K) {
       pa.prefetch(ring);
       grid.sync();
@@ -548,7 +553,7 @@ int finish(cudaError_t launch_err) {
 }
 
 template <typename T>
-int launch_pair(const void* b, int b32, const void* E, int64_t lde, const void* Dt,
+int launch_pair(const void* b, int bmode, const void* E, int64_t lde, const void* Dt,
                        int64_t ldd, void* t, void* x, int m, int n, int K,
                        cudaStream_t stream) {
   auto kernel = gemv_pair_kernel<T>;
@@ -561,7 +566,7 @@ int launch_pair(const void* b, int b32, const void* E, int64_t lde, const void* 
   float* tp = static_cast<float*>(t);
   float* xp = static_cast<float*>(x);
   int vec = vec_flags<T>(E, lde, Dt, ldd);
-  void* args[] = {&b, &b32, &Ep, &lde, &Dp, &ldd, &tp, &xp, &m, &n, &K, &vec};
+  void* args[] = {&b, &bmode, &Ep, &lde, &Dp, &ldd, &tp, &xp, &m, &n, &K, &vec};
   return finish(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                             dim3(blocks), dim3(kThreads), args,
                                             smem, stream));
@@ -577,14 +582,17 @@ int launch_pair(const void* b, int b32, const void* E, int64_t lde, const void* 
 
 // K2.  bf16 selects __nv_bfloat16 streams (else float).  The row-major E
 // (m x n, row stride lde) and D^T (n x m, row stride ldd) are in the
-// stream type; b (n) too, or in f32 when b32 is set (then rounded to the
-// stream type as it is read); t (m) is f32 scratch; x (n) receives the
-// f32 result of the K-th step.  b and x may not overlap.
-extern "C" int admm_gemv_pair(int bf16, const void* b, int b32, const void* E,
+// stream type; b (n) is in the stream type (bmode 0) or in f32, then
+// rounded to the stream type as it is read (bmode 1) or read as it is
+// with x rounded to the stream type as it is written (bmode 2: the
+// transposed pair of K2's backward, ops/gemv_pair.py); t (m) is f32
+// scratch; x (n) receives the f32 result of the K-th step.  b and x may
+// not overlap.
+extern "C" int admm_gemv_pair(int bf16, const void* b, int bmode, const void* E,
                               int64_t lde, const void* Dt, int64_t ldd, void* t,
                               void* x, int m, int n, int K, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_pair<__nv_bfloat16>(b, b32, E, lde, Dt, ldd, t, x, m, n, K, s)
+  return bf16 ? launch_pair<__nv_bfloat16>(b, bmode, E, lde, Dt, ldd, t, x, m, n, K, s)
                      : launch_pair<float>(b, 1, E, lde, Dt, ldd, t, x, m, n, K, s);
 }
 

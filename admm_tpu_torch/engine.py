@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -68,6 +68,14 @@ def _fro2(v):
 
 def _fro(v):
     return torch.sqrt(_fro2(v))
+
+
+class Constraint(NamedTuple):
+    """The constraint A x + B z = c (reference admm.m:79-245)."""
+
+    A: Any  # LinOp
+    B: Any  # LinOp
+    c: Any  # tensor, same shape as A@x
 
 
 class Hooks(NamedTuple):
@@ -308,8 +316,10 @@ def make_admm_runner(prox_f, prox_g, config: ADMMConfig, A, B, hooks: Hooks = Ho
     by every lane), and every output carries the lane axis.  The lanes run
     in one program (``torch.func.vmap`` over the sub-step), each with its
     own steps, stop flags, rho and histories; a lane that is done keeps
-    its values while the others run on.  ``hooks.fused_zu`` and
-    ``quiet=False`` do not run on lanes and raise ``NotImplementedError``.
+    its values while the others run on.  ``quiet=False`` prints the rows
+    ``admm_tpu``'s vmapped table prints (``_run_chunks``).
+    ``hooks.fused_zu`` does not run on lanes and raises
+    ``NotImplementedError``.
     """
     del dtype
     config = resolve_unroll(config, "default")
@@ -404,10 +414,6 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
     result then carries the lane axis."""
     lanes = data_dims is not None
     if lanes:
-        if not cfg.quiet:
-            raise NotImplementedError(
-                "admm_tpu_torch.engine: the per-iteration table (quiet=False) "
-                "is not ported for lanes (ROADMAP.md queue 1)")
         if hooks.fused_zu is not None:
             raise NotImplementedError(
                 "admm_tpu_torch.engine: hooks.fused_zu launches K1 on one "
@@ -647,7 +653,7 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
 
     hist = bufs["hist"]
     lam_of = getattr(hooks.fused_zu, "soft_threshold_lam", None) if use_fused else None
-    table = None if cfg.quiet else hist
+    table = None if cfg.quiet else (lambda: hist)
     if lam_of is not None and _tail_computes(cfg, hooks):
         # The soft-threshold pass: the whole tail in one fused_zu_tail.
         obj_fn = _bound(hooks.obj, data)
@@ -704,7 +710,12 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         def generic_step():
             cur[0], cur[1] = run_step(cur[0], cur[1], c, cnorm, data)
 
-        _run_chunks(generic_step, flags, N, K, table)
+        if lanes and table is not None:
+            # The lanes write their history out of place: read the current one.
+            _run_chunks(generic_step, flags, N, K, lambda: cur[1]["hist"],
+                        lane_k=lambda: cur[0].k)
+        else:
+            _run_chunks(generic_step, flags, N, K, table)
         s, bufs = cur
         steps, x, z, u, rho, diverged, stalled = s.k, s.x, s.z, s.u, s.rho, s.diverged, s.stalled
 
@@ -732,28 +743,59 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
     }
 
 
-def _run_chunks(step, flags, N, K, table=None):
+def _table_row(i, p, d, pe, de):
+    print(f"{i}\tpnorm {p:.4e}\tperr {pe:.4e}\tdnorm {d:.4e}\tderr {de:.4e}")
+
+
+def _run_chunks(step, flags, N, K, table=None, lane_k=None):
     """Run chunks of K steps until ``flags()``, the int64 device tensor
     ``(k, done)``, says the solve is done or at N steps; its one host read
-    per chunk is the only one.  With ``table`` (``quiet=False``) the read
-    also carries the chunk's columns of the first four rows of the
-    history, and the per-iteration table (admm.m:318-330, 661-673) prints
-    one row for each live step of the chunk, in ``admm_tpu``'s format."""
+    per chunk is the only one.  With ``table`` (``quiet=False``; it
+    returns the history buffer) the read also carries the chunk's columns
+    of the first four rows of the history, and the per-iteration table
+    (admm.m:318-330, 661-673) prints one row for each live step of the
+    chunk, in ``admm_tpu``'s format.
+
+    ``lane_k`` (lanes; it returns the lanes' step counters) prints what
+    ``admm_tpu``'s vmapped table prints: under vmap its ``lax.cond`` on
+    the live mask becomes a select, so every lane prints a row at every
+    sub-step the lanes run.  A live lane prints its step; a frozen one
+    (done, or at N steps) prints the step it would take next from its
+    frozen state, whose values the freeze select sends to the history's
+    spare column N.  Lanes print in lane order at each sub-step (JAX
+    prints them in an order of its own)."""
     k0 = 0
     while True:
+        kb = lane_k() if lane_k is not None else None
         for _ in range(K):
             step()
         if table is None:
             k_host, done_host = flags().tolist()
-        else:
+        elif lane_k is None:
             hi = min(k0 + K, N)
-            got = torch.cat((flags().double(), table[:4, k0:hi].double().reshape(-1))).tolist()
+            got = torch.cat((flags().double(), table()[:4, k0:hi].double().reshape(-1))).tolist()
             k_host, done_host = int(got[0]), got[1]
             cols = [got[2 + r * (hi - k0): 2 + (r + 1) * (hi - k0)] for r in range(4)]
             for j in range(k_host - k0):
-                p, d, pe, de = (row[j] for row in cols)
-                print(f"{k0 + j + 1}\tpnorm {p:.4e}\tperr {pe:.4e}\tdnorm {d:.4e}"
-                      f"\tderr {de:.4e}")
+                _table_row(k0 + j + 1, *(row[j] for row in cols))
             k0 = k_host
+        else:
+            hist = table()[:, :4]
+            B = hist.shape[0]
+            idx = (kb[:, None] + torch.arange(K, device=kb.device)).clamp(max=N)
+            chunk = hist.gather(2, idx[:, None, :].expand(B, 4, K))  # (B, 4, K)
+            got = torch.cat((flags().double(), kb.double(), lane_k().double(),
+                             chunk.double().reshape(-1), hist[:, :, N].double().reshape(-1)))
+            got = got.tolist()
+            k_host, done_host = int(got[0]), got[1]
+            k_before, k_after = got[2:2 + B], got[2 + B:2 + 2 * B]
+            live, spare = got[2 + 2 * B:2 + 2 * B + 4 * B * K], got[2 + 2 * B + 4 * B * K:]
+            for j in range(K):
+                for b in range(B):
+                    if k_before[b] + j < k_after[b]:
+                        vals = live[b * 4 * K + j::K][:4]
+                        _table_row(int(k_before[b]) + j + 1, *vals)
+                    else:
+                        _table_row(int(k_after[b]) + 1, *spare[4 * b:4 * b + 4])
         if done_host or k_host >= N:
             return

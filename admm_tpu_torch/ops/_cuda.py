@@ -18,7 +18,8 @@ contiguity before they get here.
 A launch through ctypes is invisible to autograd: its output would come
 back without a ``grad_fn``, and a gradient through it would silently
 miss its term.  So every wrapper that launches through here, except K4's
-(whose custom op carries its own rules), first calls ``refuse_autograd``.
+and K2's (whose ``autograd.Function``s carry their own rules), first calls
+``refuse_autograd``.
 """
 
 from __future__ import annotations
@@ -163,16 +164,19 @@ def _check(lib, err, what):
                            f"({lib.admm_cuda_error_string(err).decode()})")
 
 
-def gemv_pair(b, E, Dt, t, x, K):
+def gemv_pair(b, E, Dt, t, x, K, exact=False):
     """Launch K2 (``csrc/gemv_pair.cu``) on the current stream: K steps of
     ``x = Dt (E b)``.  ``E`` ``(m, n)`` and ``Dt`` ``(n, m)`` are of one
     stream dtype (float32 or bfloat16) with unit column stride; ``b``
     ``(n,)`` is contiguous, in the stream dtype or float32; ``t`` ``(m,)``
-    and ``x`` ``(n,)`` are contiguous float32.  All on one CUDA device."""
+    and ``x`` ``(n,)`` are contiguous float32.  All on one CUDA device.
+    ``exact`` (a float32 b): b is read as it is and x rounded to the
+    stream dtype as it is written (the kernel's bmode 2)."""
     lib = library()
     m, n = E.shape
+    bmode = 2 if exact else int(b.dtype == torch.float32)
     err = lib.admm_gemv_pair(
-        int(E.dtype == torch.bfloat16), b.data_ptr(), int(b.dtype == torch.float32),
+        int(E.dtype == torch.bfloat16), b.data_ptr(), bmode,
         E.data_ptr(), E.stride(0), Dt.data_ptr(), Dt.stride(0), t.data_ptr(),
         x.data_ptr(), m, n, K, torch.cuda.current_stream(b.device).cuda_stream)
     _check(lib, err, "gemv_pair")

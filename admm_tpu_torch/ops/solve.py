@@ -28,9 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from torch._C._functorch import is_batchedtensor
-
-from .gemv_pair import _gemv_pair_torch, aligned_rows, gemv_pair
+from .gemv_pair import StreamPair, aligned_rows
 
 
 class SymShiftSolver:
@@ -104,11 +102,16 @@ class FatShiftSolver:
     both products accumulate in f32, E b is rounded to bf16 before the
     second product, and D^T (E b) stays f32.  ``torch.matmul`` on bf16
     operands would round that output to bf16, so the pair runs through
-    ``ops/gemv_pair.gemv_pair`` at K = 1: the CUDA C++ kernel K2 on the
-    card, or its plain version on the CPU.  The kernel reads E and D^T as
-    row-major rows, so bf16 keeps ``Dt``, a row-major copy of D^T, and E
-    in row-major form (``torch.linalg.solve`` returns it column-major).
-    f32 and f64 streams stay ``torch.matmul``.
+    ``ops/gemv_pair.StreamPair`` at K = 1: the CUDA C++ kernel K2 on the
+    card, or its plain version on the CPU; lanes (b under
+    ``torch.func.vmap``) take the plain version.  The kernel reads E and
+    D^T as row-major rows, so bf16 keeps ``Dt``, a row-major copy of D^T,
+    and E in row-major form (``torch.linalg.solve`` returns it
+    column-major).  Under autograd and ``torch.func`` the pair is
+    differentiable in b (D and E are constants): its backward is one K2
+    launch of the transposed pair, on D and a row-major copy of E^T built
+    at the first backward and kept.  f32 and f64 streams stay
+    ``torch.matmul``.
     """
 
     def __init__(self, D, E, rho0):
@@ -118,6 +121,7 @@ class FatShiftSolver:
         if D.dtype == torch.bfloat16:
             self.E = aligned_rows(E)
             self.Dt = aligned_rows(D.T)
+            self.pair = StreamPair(self.E, self.Dt, Dt_T=D)
 
     @classmethod
     def from_matrix(cls, D, rho0, stream_dtype=None) -> "FatShiftSolver":
@@ -138,12 +142,7 @@ class FatShiftSolver:
         if self.D.dtype == torch.bfloat16:
             # K2 rounds an f32 b to bf16 itself; other dtypes round once here.
             bs = b if b.dtype == torch.float32 else b.to(torch.bfloat16)
-            # Lanes of a batched solve (b under torch.func.vmap) make the
-            # pair a GEMM, which K2, a one-lane GEMV kernel, does not run:
-            # they take the plain pair, the streams upcast to f32 for
-            # products with f32 output, as admm_tpu's vmapped dots keep.
-            pair = _gemv_pair_torch if is_batchedtensor(b) else gemv_pair
-            DtEb = pair(bs, self.E, self.Dt).to(b.dtype)
+            DtEb = self.pair(bs).to(b.dtype)
         else:
             DtEb = self.D.T @ (self.E @ b)
         return b / rho0 - DtEb / (rho0 * rho0)

@@ -239,15 +239,36 @@ through the functions a user calls and checks what comes out:
          0, 63 and 127 equal to the serial f64 gradients to 1e-9;
      (z15c) d sum(x*^2) / d lam of the headline LASSO (1500 x 5000, the
          cuBLAS pair, no kernel) in f32 within 1e-3 of f64; with bf16
-         streams (K2, no backward yet) the gradient raises the guard's
-         ``NotImplementedError``;
+         streams within 2e-2 of f32, K2 in the forward and in the
+         backward once per J^T application (its transposed pair) plus 2,
+         no other kernel there;
      (z15d) every tester of ``testers/problems.py`` passes its default
          instance on the card in f64, ``solvertester('lasso', 4, 6,
          trials=2, seed=0)`` reports no failure, ``showresults`` prints its
          text, ``iteration_rate`` and ``trace`` run (the trace goes to
          build/z15_trace/).
-     K4's launches in (z15a)'s f32 and (z15b)'s forward and backward join
-     its row of the JSON line (``launches_by_path``).
+     K4's launches in (z15a)'s f32 and (z15b)'s forward and backward, and
+     K2's in (z15c)'s bf16 forward and backward, join their rows of the
+     JSON line (``launches_by_path``).
+ 15. slice 11b (``slice11b_phase``, (z16)) through the CLI and the examples:
+     (z16a) ``python -m admm_tpu_torch matrix --steps 50``: every
+         single-device timing row of admm_tpu/benchmarks/matrix.py at its
+         width (its 40-16000 timed steps cut to at most 50), each printed
+         with its bound, ran to a finite result; the sharded rows marked
+         "slice 10"; K1b, K2 and K4 launched on their rows (the fused, the
+         bf16-stream and the cyclic-reduction TV rows);
+     (z16b) the same command's f32 accuracy rows at their own settings,
+         each within admm_tpu's bar (``_F32_ERRTOL``, unchanged);
+     (z16c) ``sweep --smoke``: the ten families, exit 0 only when all pass;
+     (z16d) ``mnistsvm()`` at its defaults (6000 x 400, ten digits, hinge
+         and 0-1 loss on ``svm_batch``'s lanes), a lane equal to the serial
+         solve in f64;
+     (z16e) each other example once at its defaults (the acceleration
+         example's step caps cut from 20000 / 40000 to 6000 / 20000), with
+         its own test's checks.
+     Rows that fail on the card are recorded faults (ROADMAP.md queue 3),
+     named in ``Z16_KNOWN_*``; any other failure fails the script.  The
+     matrix and sweep documents go to chiprun_out/.
 
 Kernel times are device times: CUDA events around replays of a CUDA
 graph that holds several calls (``graph_ms``), so that the host's time per
@@ -323,6 +344,19 @@ SDP_DIAG_N = 512
 SDP_DIAG_TIMED_STEPS = 40
 SDP_DENSE = (128, 512, 32)
 SDP_DENSE_TIMED_STEPS = 100
+# Slice 11b (z16): matrix.py's timed steps (40-16000 a row) cut to at most
+# Z16_STEPS to keep the script's time; its rows, and the faults the card has
+# shown (ROADMAP.md queue 3), by name.
+Z16_STEPS = 50
+# The acceleration example's caps, 20000 and 40000, cut (its plain LASSO
+# converges in ~5400 steps, its fast one and its plain LPs burn the cap).
+Z16_LADDER_STEPS, Z16_LP_STEPS = 6000, 20000
+Z16_TIMED_ROWS, Z16_SKIPPED_ROWS, Z16_ACCURACY_ROWS = 47, 12, 25
+Z16_KNOWN_TIMING_FAULTS = set()
+Z16_KNOWN_F32_FAULTS = set()
+# The standard QP's f32 bar at 2^5 (seed 7): admm_tpu's own f32 sweep fails
+# the same cell (ROADMAP.md queue 3).
+Z16_KNOWN_SWEEP_FAULTS = {"quadraticprogram"}
 # Slice 7b (z11)-(z13) and slice 8 (z14).
 RPCA_N = 256
 RPCA_RANK = 16
@@ -354,7 +388,9 @@ HG_LANES, HG_LANE_N = 128, 8192
 HG_CHECK = (0, 63, 127)
 HG_MAXITERS = 5000
 HG_STOP = {"float32": dict(abstol=1e-6, reltol=1e-6), "float64": dict(abstol=1e-10, reltol=1e-10)}
-HG_VJP_TOL = {"float32": 1e-5, "float64": 1e-10}
+# bf16 streams: the adjoint's residual floors near 4e-3 relative (its J^T
+# applications round to bf16), so it stops at 1e-2.
+HG_VJP_TOL = {"float32": 1e-5, "float64": 1e-10, "bfloat16": 1e-2}
 HG_VJP_MAXITERS = 5000
 HG_LANE_TOL = 1e-12  # (z15b)'s f64 stop and adjoint tolerance
 HG_FD_H = 2e-5
@@ -905,14 +941,17 @@ def k2_operands(m, n, dev, dtype, K):
 
 
 def k2_phase(dev):
-    """K2 (CUDA C++) against its plain version; returns (max_abs_err, ms,
-    plain_ms, library_ms, (bound_ms, bound_by)) of one K = 1 f32 call at
-    (1500, 5000), the library call being ``torch.linalg.multi_dot``."""
+    """K2 (CUDA C++) against its plain version, the pair and the transposed
+    pair of its backward; returns (max_abs_err, ms, plain_ms, library_ms,
+    (bound_ms, bound_by)) of one K = 1 f32 call at (1500, 5000), the
+    library call being ``torch.linalg.multi_dot``, and the times of the
+    backward's bf16 launch."""
     import torch
 
     from admm_tpu_torch.benchmarks.timing import graph_ms
     from admm_tpu_torch.experiments.gemv_pair_probe import make_operands
-    from admm_tpu_torch.ops.gemv_pair import _gemv_pair_torch, aligned_rows, gemv_pair
+    from admm_tpu_torch.ops.gemv_pair import (StreamPair, _gemv_pair_torch, aligned_rows,
+                                              gemv_pair)
 
     print("kernel: gemv_pair (CUDA C++) vs _gemv_pair_torch")
     worst = 0.0
@@ -952,6 +991,37 @@ def k2_phase(dev):
     check(torch.equal(gemv_pair(b32, E, Dt), gemv_pair(b32.to(torch.bfloat16), E, Dt)),
           "K2 with bf16 streams: an f32 b gives the bits of b.to(bf16)")
 
+    # The backward's transposed pair (the kernel's bmode 2: g read in f32,
+    # x rounded to the stream type as written) against its plain version.
+    # Bars: the forward's, plus one rounding of each element to bf16 (the
+    # f32 sums' order can move x_i across a bf16 rounding boundary).
+    for dtype in (torch.float32, torch.bfloat16):
+        for K in (1, K2_DEEP):
+            b, E, Dt = k2_operands(1500, 5000, dev, dtype, K)
+            T = StreamPair(E, Dt).transposed()
+            g = torch.from_numpy(np.random.default_rng(4).standard_normal(T.E.shape[1]))
+            g = g.to(dev, torch.float32)
+            x = T.launch(g, K)
+            torch.cuda.synchronize()
+            ref = _gemv_pair_torch(g, T.E, T.Dt, K, exact=True)
+            ulp = 0.0 if dtype == torch.float32 else 2.0**-8
+            bar = (1e-5 if dtype == torch.float32 else 1e-3) if K == 1 else (
+                1e-4 if dtype == torch.float32 else 2e-2)
+            xinf = float(torch.max(torch.abs(ref)))
+            excess = torch.abs(x - ref) - ulp * torch.abs(ref)
+            dmax = float(torch.max(torch.abs(x - ref)))
+            rel = float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+            print(f"  transposed pair {str(dtype):14s} K={K:2d}  max_abs_diff {dmax:.3e} "
+                  f"(||x||_inf {xinf:.4g}), rel norm {rel:.3e}; x in the stream type: "
+                  f"{bool(torch.equal(x, x.to(dtype).float()))}")
+            check(bool(torch.equal(x, x.to(dtype).float())),
+                  f"K2 transposed pair rounds x to the stream type ({dtype}, K={K})")
+            if K == 1:
+                check(float(torch.max(excess)) <= bar * xinf,
+                      f"K2 transposed pair |dx_i| <= {bar} ||x||_inf + {ulp} |x_i| ({dtype}, K=1)")
+            else:
+                check(rel <= bar, f"K2 transposed pair ||dx||/||x|| <= {bar} ({dtype}, K={K})")
+
     # Times at (1500, 5000) in the solver's layout (rows on 16-byte
     # boundaries), kernel and plain version and, in f32, multi_dot in turns.
     times = {}
@@ -979,6 +1049,18 @@ def k2_phase(dev):
               f"host-issued kernel {host:.5f} ms); kernel {min(got['kernel']) * 1e3 / K:.2f} "
               f"us per step, {nbytes / (min(got['kernel']) * 1e-3) / 1e12:.2f} TB/s; "
               f"bound {times[(dtype, K)]['bound'][0] * 1e3 / K:.2f} us per step")
+    # The backward's launch: the transposed pair of the bf16 solver pair.
+    b, E, Dt = make_operands(1500, 5000, dev, torch.bfloat16)
+    T = StreamPair(aligned_rows(E), aligned_rows(Dt)).transposed()
+    g = torch.randn(T.E.shape[1], device=dev)
+    bwd = [graph_ms(fn, 200) for fn in (lambda: T.launch(g, 1),
+                                        lambda: _gemv_pair_torch(g, T.E, T.Dt, 1, True))]
+    m, n = T.E.shape
+    times["backward"] = {"kernel": bwd[0], "plain": bwd[1],
+                         "bound": bound(2 * m * n * 2 + n * 4 + m * 4, 4 * m * n)}
+    print(f"  backward (transposed pair, bf16, K=1, ({m}, {n})): kernel {bwd[0]:.5f} ms, plain "
+          f"{bwd[1]:.5f} ms (device, graph replays); bound "
+          f"{times['backward']['bound'][0]:.5f} ms ({times['backward']['bound'][1]})")
     md = times[(torch.float32, 1)]["multi_dot"]
     print(f"  per step against multi_dot f32 ({md * 1e3:.2f} us): K2 f32 K=1 "
           f"{times[(torch.float32, 1)]['kernel'] * 1e3:.2f} us, K=64 "
@@ -986,7 +1068,7 @@ def k2_phase(dev):
           f"bf16 K=1 {times[(torch.bfloat16, 1)]['kernel'] * 1e3:.2f} us, K=64 "
           f"{times[(torch.bfloat16, K2_DEEP)]['kernel'] * 1e3 / K2_DEEP:.2f} us")
     f32 = times[(torch.float32, 1)]
-    return worst, f32["kernel"], f32["plain"], md, f32["bound"]
+    return worst, f32["kernel"], f32["plain"], md, f32["bound"], times["backward"]
 
 
 def k3_phase(dev, a):
@@ -2242,7 +2324,8 @@ def hypergradient_phase(dev):
     """Slice 9 and the single-device half of slice 11, (z15a)-(z15d):
     hypergradients through ``make_implicit_solver`` and
     ``make_implicit_batch_solver`` on the card, K4's backward and tangent
-    among them, and the tester harness.  Returns K4's launches by path."""
+    among them, K2's backward, and the tester harness.  Returns K4's and
+    K2's launches by path."""
     import torch
 
     from admm_tpu_torch import (ADMMConfig, lasso, make_implicit_batch_solver,
@@ -2256,7 +2339,7 @@ def hypergradient_phase(dev):
 
     t0 = time.perf_counter()
     name = lambda dt: str(dt).split(".")[-1]  # noqa: E731
-    launches = {}
+    launches = {"K4": {}, "K2": {}}
 
     def rel_err(a, b):
         return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
@@ -2308,7 +2391,8 @@ def hypergradient_phase(dev):
               f"(z15a) {tag} gradients finite")
         runs[tag] = (g_lam, g_s, c, solve, data, loss)
         if tag == "float32":
-            launches["z15a forward"], launches["z15a backward"] = c["fwd"]["K4"], c["bwd"]["K4"]
+            launches["K4"]["z15a forward"] = c["fwd"]["K4"]
+            launches["K4"]["z15a backward"] = c["bwd"]["K4"]
     k32, p32, k64 = (runs[t] for t in ("float32", "float32 plain b-phase", "float64"))
     e_lam = abs(float(k32[0] - p32[0])) / abs(float(p32[0]))
     e_s = rel_err(k32[1], p32[1])
@@ -2366,7 +2450,7 @@ def hypergradient_phase(dev):
           f"({c['bwd']['K4']} for {st['applies']})")
     check(c["bwd_syncs"] == st["reads"],
           f"(z15b) backward: its {st['reads']} host reads are its only synchronising calls")
-    launches["z15b forward"], launches["z15b backward"] = c["fwd"]["K4"], c["bwd"]["K4"]
+    launches["K4"]["z15b forward"], launches["K4"]["z15b backward"] = c["fwd"]["K4"], c["bwd"]["K4"]
     serial = make_implicit_solver(pf, pg, cfg, **kw)
     for i in HG_CHECK:
         gi = torch.func.grad(lambda li: torch.mean(
@@ -2396,18 +2480,31 @@ def hypergradient_phase(dev):
     e = abs(grads[torch.float32] - grads[torch.float64]) / abs(grads[torch.float64])
     print(f"  (z15c) f32 against f64: {e:.3e} (bar 1e-3)")
     check(e <= 1e-3, "(z15c) f32 dloss/dlam within 1e-3 of f64")
-    cfg = ADMMConfig(maxiters=200, **HG_STOP["float32"])
+    # bf16 streams: K2 in the forward, and its transposed pair in every
+    # adjoint step (the pair's backward).
+    cfg = ADMMConfig(maxiters=HG_MAXITERS, unroll="auto", **HG_STOP["float32"])
     pf, pg, _, data = lasso_ops(*(torch.from_numpy(a).to(dev) for a in (D, s)), lam, cfg,
                                 stream_dtype=torch.bfloat16)
     m_ = D.shape[1]
-    solve = make_implicit_solver(pf, pg, cfg, nA=m_, nB=m_, m=m_)
-    try:
-        torch.func.grad(lambda l: torch.sum(solve(dict(data, lam=l))[0] ** 2))(data["lam"])
-        refused = ""
-    except NotImplementedError as err:
-        refused = str(err)
-    print(f"  (z15c) bf16 streams under torch.func.grad: {refused[:100]!r}")
-    check("K2's backward" in refused, "(z15c) bf16-stream gradient refused by K2's guard")
+    solve = make_implicit_solver(pf, pg, cfg, nA=m_, nB=m_, m=m_, vjp_tol=HG_VJP_TOL["bfloat16"],
+                                 vjp_maxiters=HG_VJP_MAXITERS)
+    val, (g_b,), c = forward_and_backward(
+        lambda l: torch.sum(solve(dict(data, lam=l))[0] ** 2), data["lam"])
+    st = solve.stats
+    e = abs(float(g_b) - grads[torch.float32]) / abs(grads[torch.float32])
+    print(f"  (z15c) lasso bf16 streams: dloss/dlam {float(g_b):.10g}; forward {c['t_fwd']:.3f}s, "
+          f"K2 {c['fwd']['K2']}; backward {c['t_bwd']:.3f}s, {st['steps'][0]} adjoint steps, "
+          f"{st['applies']} J^T applications, K2 {c['bwd']['K2']}, host reads {st['reads']}; "
+          f"against f32 {e:.3e} (bar 2e-2)")
+    check(bool(np.isfinite(float(g_b))), "(z15c) bf16-stream gradient finite")
+    check(c["fwd"]["K2"] > 0, "(z15c) bf16 forward through K2")
+    check(c["bwd"]["K2"] == st["applies"] + 2,
+          f"(z15c) bf16 backward: K2 once per J^T application plus 2, the linearization's "
+          f"primal and the data VJP's ({c['bwd']['K2']} for {st['applies']})")
+    check(sum(v for k, v in c["bwd"].items() if k != "K2") == 0,
+          "(z15c) bf16 backward launches no other kernel")
+    check(e <= 2e-2, "(z15c) bf16 dloss/dlam within 2e-2 of f32")
+    launches["K2"]["z15c forward"], launches["K2"]["z15c backward"] = c["fwd"]["K2"], c["bwd"]["K2"]
 
     # (z15d) the harness on the card, f64.
     t1 = time.perf_counter()
@@ -2442,6 +2539,155 @@ def hypergradient_phase(dev):
     return launches
 
 
+def slice11b_phase(dev):
+    """Slice 11b, (z16a)-(z16e), through the CLI and the examples a user
+    calls; returns the launches of K1b, K2 and K4 on their paths."""
+    import torch
+
+    from admm_tpu_torch.__main__ import main as cli
+    from admm_tpu_torch.benchmarks.matrix import SKIPPED
+    from admm_tpu_torch.examples import (acceleration, convergencechecking,
+                                         fasteradmmcomparison, hnormdemo, maxcut, mnistsvm,
+                                         mpc_qp, portfolio, relaxationexample, stepsizetesting)
+
+    t0 = time.perf_counter()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+
+    # (z16a), (z16b) python -m admm_tpu_torch matrix: every single-device
+    # timing row at its width, steps cut to Z16_STEPS, then the accuracy rows.
+    print(f"slice 11b: python -m admm_tpu_torch matrix --steps {Z16_STEPS}")
+    reset_counts()
+    t1 = time.perf_counter()
+    check(cli(["matrix", "--steps", str(Z16_STEPS), "--out", str(out / "z16_matrix.json")]) == 0,
+          "(z16a) the matrix command exits 0")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    doc = json.loads((out / "z16_matrix.json").read_text())
+    timed = [r for r in doc["timing"] if "skipped" not in r]
+    skipped = [r["solver"] for r in doc["timing"] if "skipped" in r]
+    print(f"  (z16a) {len(timed)} timed rows, {len(skipped)} waiting for {SKIPPED}; kernel "
+          f"launches {counts}; {time.perf_counter() - t1:.1f}s (with the accuracy rows)")
+    check(len(timed) == Z16_TIMED_ROWS and len(skipped) == Z16_SKIPPED_ROWS,
+          f"(z16a) {Z16_TIMED_ROWS} timed rows and {Z16_SKIPPED_ROWS} sharded rows")
+    for r in timed:
+        check(r["bound_ms_per_iter"] > 0 and ("pct_of_roofline" in r) != ("roofline_note" in r),
+              f"(z16a) {r['solver']} {r['shape']}: bound {r['bound_ms_per_iter']:.5f} ms "
+              f"({r['bound_by']}), {r['iters_per_sec']:.1f} iter/s")
+    invalid = {(r["solver"], r["shape"]) for r in timed if r.get("valid") is False}
+    print(f"  (z16a) rows that stopped early or are not finite: {sorted(invalid)}")
+    check(invalid <= Z16_KNOWN_TIMING_FAULTS,
+          "(z16a) every timed row runs its steps to a finite result, or is a recorded fault")
+    for kernel, rows in (("K1b", 2), ("K2", 2), ("K4", 3)):
+        check(counts[kernel] >= 4 * rows * Z16_STEPS,
+              f"(z16a) {kernel} launched >= {4 * rows * Z16_STEPS} times on its {rows} rows")
+    failed = {r["solver"] for r in doc["f32_oracle_accuracy"] if r["failed"]}
+    print(f"  (z16b) {len(doc['f32_oracle_accuracy'])} accuracy rows, failing: {sorted(failed)}")
+    check(len(doc["f32_oracle_accuracy"]) == Z16_ACCURACY_ROWS,
+          f"(z16b) {Z16_ACCURACY_ROWS} accuracy rows")
+    check(failed <= Z16_KNOWN_F32_FAULTS,
+          "(z16b) every f32 row within admm_tpu's bar, or a recorded fault")
+
+    # (z16c) python -m admm_tpu_torch sweep --smoke.
+    t1 = time.perf_counter()
+    rc = cli(["sweep", "--smoke", "--out", str(out / "z16_sweep.json")])
+    sweep = json.loads((out / "z16_sweep.json").read_text())
+    red = {f["solver"] for f in sweep["families"] if f["any_failed"]}
+    print(f"  (z16c) sweep --smoke: exit {rc}, failing families {sorted(red)}, "
+          f"{time.perf_counter() - t1:.1f}s")
+    check(len(sweep["families"]) == 10 and rc == (0 if not red else 1),
+          "(z16c) the sweep covers the ten families and exits 0 only when all pass")
+    check(red <= Z16_KNOWN_SWEEP_FAULTS, "(z16c) every family passes, or is a recorded fault")
+
+    # (z16d) mnistsvm at its defaults: 6000 x 400 images, ten digits, hinge
+    # and 0-1 loss, each loss the ten lanes of one svm_batch solve.
+    t1 = time.perf_counter()
+    before = read_counts()
+    rows = mnistsvm.mnistsvm(device=dev)
+    torch.cuda.synchronize()
+    print(f"  (z16d) mnistsvm: {time.perf_counter() - t1:.1f}s, kernel launches "
+          f"{ {k: v - before[k] for k, v in read_counts().items()} }")
+    check(len(rows) == 10 and np.isfinite(np.asarray(rows)).all()
+          and all(r[1] < 35.0 for r in rows),
+          "(z16d) ten digits, finite errors, every hinge train error below 35%")
+    (tr_x, tr_y), _, _ = mnistsvm.load_mnist()
+    D = tr_x.reshape(len(tr_x), -1)
+    lane = mnistsvm.train_all_digits(D, tr_y, [0, 1], device=dev)[0]
+    solo = mnistsvm.train_for_digit(D, tr_y, 0, device=dev)
+    e = float(np.linalg.norm(lane - solo) / np.linalg.norm(solo))
+    print(f"  (z16d) digit 0 hinge: lanes against the serial solve {e:.3e} (bar 1e-9)")
+    check(e <= 1e-9, "(z16d) a lane of svm_batch equals the serial linearsvm in f64")
+
+    # (z16e) each other example once, at its defaults but the acceleration
+    # example's step caps.
+    for name, run in (
+            ("convergencechecking", lambda: convergencechecking.convergencechecking(device=dev)),
+            ("fasteradmmcomparison", lambda: fasteradmmcomparison.fasteradmmcomparison(
+                device=dev)),
+            ("hnormdemo", lambda: hnormdemo.hnormdemo(device=dev)),
+            ("relaxationexample", lambda: relaxationexample.relaxationexample(device=dev)),
+            ("stepsizetesting", lambda: stepsizetesting.stepsizetesting(device=dev)),
+            ("acceleration_ladder", lambda: acceleration.acceleration_ladder(
+                device=dev, maxiters=Z16_LADDER_STEPS)),
+            ("badly_scaled_lp", lambda: acceleration.badly_scaled_lp(
+                device=dev, maxiters=Z16_LP_STEPS)),
+            ("portfolio", lambda: portfolio.efficient_frontier(device=dev)),
+            ("mpc_qp", lambda: mpc_qp.mpc_qp(device=dev)),
+            ("maxcut", lambda: maxcut.maxcut_demo(device=dev))):
+        t1 = time.perf_counter()
+        print(f"  (z16e) {name}:")
+        got = run()
+        torch.cuda.synchronize()
+        print(f"  (z16e) {name}: {time.perf_counter() - t1:.1f}s")
+        EXAMPLE_CHECKS[name](got)
+    print(f"  (z16) took {time.perf_counter() - t0:.1f}s")
+    return {k: counts[k] for k in ("K1b", "K2", "K4")}
+
+
+def _check_acceleration(out):
+    objs = [f for _, f in out.values()]
+    check(max(objs) - min(objs) <= 1e-6 * (1.0 + abs(objs[0]))
+          and out["anderson m=10"][0] < out["plain"][0],
+          "(z16e) acceleration: every rung at one objective, AA in fewer steps")
+
+
+def _check_lp(out):
+    check(all(out[k][2] < 1e-6 and out[k][3] < 1e-3 for k in ("precondition",
+                                                              "precondition + AA")),
+          "(z16e) badly scaled LP: the preconditioned runs are feasible")
+
+
+# What each example's own test holds (tests/test_examples.py), at its defaults.
+EXAMPLE_CHECKS = {
+    "convergencechecking": lambda out: check(
+        not out["ok-f / ok-g"].diverged and out["BROKEN-f / BROKEN-g"].diverged,
+        "(z16e) convergencechecking: the monitor catches the broken pair only"),
+    "fasteradmmcomparison": lambda out: check(
+        out["standard"][1] < 1e-2 and out["fast (strong)"][1] < 1e-2
+        and out["fast (strong)"][0] <= out["standard"][0],
+        "(z16e) fasteradmmcomparison: accurate, fast ADMM in no more steps"),
+    "hnormdemo": lambda out: check(
+        all(k > 0 and np.isfinite(h) for k, h in out.values()),
+        "(z16e) hnormdemo: every stop condition runs to a finite H-norm"),
+    "relaxationexample": lambda out: check(
+        all(xerr < 1e-2 for _, xerr in out.values()),
+        "(z16e) relaxationexample: every relaxation recovers x"),
+    "stepsizetesting": lambda out: check(
+        all(k > 0 for k, _ in out.values()), "(z16e) stepsizetesting: every rho runs"),
+    "acceleration_ladder": _check_acceleration,
+    "badly_scaled_lp": _check_lp,
+    "portfolio": lambda rows: check(
+        all(abs(r[3] - 1) < 1e-6 and r[4] >= -1e-8 for r in rows),
+        "(z16e) portfolio: every frontier point on the simplex"),
+    "mpc_qp": lambda out: check(
+        all(w < c for w, c in zip(out[1][1:], out[0][1:])),
+        "(z16e) mpc_qp: every warm re-solve beats its cold solve"),
+    "maxcut": lambda rows: check(
+        all(cut <= v + 1e-6 and ratio >= 0.878 for _, v, cut, ratio, _ in rows),
+        "(z16e) maxcut: every cut within its SDP bound and above 0.878 of it"),
+}
+
+
 def main():
     import torch
 
@@ -2464,7 +2710,7 @@ def main():
     k1_err, k1_ms, k1_plain_ms, k1_bound = kernel_phase(dev)
     k1b_err, k1b_ms, k1b_plain_ms, k1b_bound = k1b_phase(dev)
     k4_err, k4_ms, k4_plain_ms, k4_bound = k4_phase(dev)
-    k2_err, k2_ms, k2_plain_ms, k2_library_ms, k2_bound = k2_phase(dev)
+    k2_err, k2_ms, k2_plain_ms, k2_library_ms, k2_bound, k2_backward = k2_phase(dev)
     k1b_launches, k1_launches, a, d_plain = slice_phase(dev)
     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = k3_phase(dev, a)
     k2_launches = bf16_phase(dev, a)
@@ -2474,7 +2720,8 @@ def main():
     programs_phase(dev)
     spectral_phase(dev)
     k4_batch_launches = batch_phase(dev)
-    k4_hg_launches = hypergradient_phase(dev)
+    hg_launches = hypergradient_phase(dev)
+    z16 = slice11b_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -2493,22 +2740,28 @@ def main():
     # launches are those of the paths that take the z/u mode: (d)'s user
     # hook, (n) residual balancing and (o) Anderson acceleration with
     # lasso's fused hook (the main path (a) takes K1b); K2's those of the
-    # bf16 paths (k) and (p).
+    # bf16 paths (k) and (p), (z15c)'s forward and backward (its transposed
+    # pair, whose times at (1500, 5000) bf16 are the row's "backward"), and
+    # (z16)'s; K1b's and K4's (z16)'s beside their own paths.
     print(json.dumps({"kernels": [
         row("fused_soft_threshold_dual", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
             "admm_tpu/ops/kernels.py:48", {"d": k1_launches, **variants["k1"]}, k1_err, k1_ms,
             k1_plain_ms, k1_bound, None),
         row("fused_zu_tail", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
-            "admm_tpu/ops/kernels.py:48", k1b_launches, k1b_err, k1b_ms, k1b_plain_ms,
-            k1b_bound, None),
+            "admm_tpu/ops/kernels.py:48", {"a": k1b_launches, "z16": z16["K1b"]}, k1b_err,
+            k1b_ms, k1b_plain_ms, k1b_bound, None),
         row("cr_solve", "cuda", "admm_tpu_torch/csrc/cr_solve.cu",
             "experiments/pallas_cr_kernel.py:103",
-            {"f": k4_launches, "z14": k4_batch_launches, **k4_hg_launches},
+            {"f": k4_launches, "z14": k4_batch_launches, **hg_launches["K4"], "z16": z16["K4"]},
             k4_err, k4_ms,
             k4_plain_ms, k4_bound, None),
-        row("gemv_pair", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
-            "experiments/pallas_probe.py:52", {"k": k2_launches, **variants["k2"]}, k2_err,
-            k2_ms, k2_plain_ms, k2_bound, k2_library_ms),
+        dict(row("gemv_pair", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
+                 "experiments/pallas_probe.py:52",
+                 {"k": k2_launches, **variants["k2"], **hg_launches["K2"], "z16": z16["K2"]},
+                 k2_err, k2_ms, k2_plain_ms, k2_bound, k2_library_ms),
+             backward={"ms": k2_backward["kernel"], "plain_ms": k2_backward["plain"],
+                       "bound_ms": k2_backward["bound"][0],
+                       "bound_by": k2_backward["bound"][1]}),
         row("resident_lasso", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
             "experiments/resident_iter_proto.py:77", k3_launches, k3_err, k3_ms,
             k3_plain_ms, k3_bound, None),

@@ -577,6 +577,40 @@ def test_batch_stall_flags_per_lane():
 
 
 def test_batch_rejects_what_lanes_do_not_run():
-    D, S = _lasso_instances(B=2)
-    with pytest.raises(NotImplementedError, match="quiet"):
-        T.lasso_batch(D, S, 0.1, ADMMConfig(maxiters=10, quiet=False), device="cpu")
+    # hooks.fused_zu launches K1 on one instance: the lanes refuse it.  The
+    # lanes' quiet=False table runs (test_lanes_table_prints_admm_tpus_rows).
+    from admm_tpu_torch.engine import Hooks
+
+    prox = lambda x, z, u, rho: z - u  # noqa: E731
+    run = T.make_admm_runner(prox, prox, ADMMConfig(maxiters=10), A=1.0, B=-1.0,
+                             hooks=Hooks(fused_zu=lambda x, u, rho: (x, u)), lanes=True)
+    x0 = torch.zeros((2, 4), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="fused_zu"):
+        run(x0, x0, x0, 0.0)
+
+
+@pytest.mark.parametrize("unroll", [1, 4])
+def test_lanes_table_prints_admm_tpus_rows(capfd, unroll):
+    # Under vmap admm_tpu's lax.cond on the live mask becomes a select, so
+    # every lane prints a row at every sub-step the lanes run, a frozen lane
+    # the step it would take from its frozen state: the lanes stop at 20,
+    # 43 and 24 steps here.  JAX prints the lanes of a sub-step in an order
+    # of its own, so the rows are compared as multisets.
+    import jax
+
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((12, 24))
+    S = rng.standard_normal((3, 12))
+    S[1] *= 5
+    kw = dict(maxiters=400, abstol=1e-3, reltol=1e-2, quiet=False, unroll=unroll)
+    jres = J.lasso_batch(D, S, 0.5, J.ADMMConfig(**kw))
+    jax.effects_barrier()
+    jrows = capfd.readouterr().out.splitlines()
+    res = T.lasso_batch(D, S, 0.5, ADMMConfig(**kw), device="cpu")
+    rows = capfd.readouterr().out.splitlines()
+    assert res.steps.tolist() == np.asarray(jres.steps).tolist() == [20, 43, 24]
+    sub_steps = -(-43 // unroll) * unroll
+    assert len(rows) == 3 * sub_steps
+    assert sorted(rows) == sorted(jrows)
+    assert rows[:3] == [r for r in rows if r.startswith("1\t")]  # lane order in a sub-step
+    assert rows.count(next(r for r in rows if r.startswith("21\t"))) >= 43 - 20

@@ -167,3 +167,86 @@ def test_resident_iter_proto_smoke_on_cpu(capsys):
     big = p2 >= 1e-7 * p2[0]
     np.testing.assert_allclose(r["hist"][big, 0].numpy(), p2[big], rtol=1e-3)
     assert big.sum() >= 30
+
+
+# ---- K2's derivative rules (ops/gemv_pair.StreamPair) --------------------
+
+
+def _bf16_fat_pair(ddtype, seed=21, m=40, n=120):
+    """admm_tpu's bf16 FatShiftSolver and the port's, carried across bit for
+    bit (convert.lasso_data), with a b and two random directions."""
+    rng = np.random.default_rng(seed)
+    D = (rng.standard_normal((m, n)) / 6).astype(ddtype)
+    s = rng.standard_normal(m).astype(ddtype)
+    _, _, _, jdata = jax_make_prox_ops(jnp.asarray(D), jnp.asarray(s), 0.1, JaxConfig(),
+                                       stream_dtype=jnp.bfloat16)
+    data, _ = lasso_data(numpy_state(jdata))
+    b, g, h = (rng.standard_normal(n).astype(ddtype) for _ in range(3))
+    return jdata["fat"], data["fat"], b, g, h
+
+
+def _rel(a, ref):
+    a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+    return np.max(np.abs(a - ref)) / np.max(np.abs(ref))
+
+
+# K2's rules round where JAX's transpose of FatShiftSolver.solve rounds:
+# the cotangent D g is rounded to bf16 between the products, g itself is
+# not, and E^T (D g) is rounded to bf16; the tangent is the forward pair on
+# b'.  The same rounding points leave the f32 sums' order: measured <= 6e-8
+# relative here.  Bar 1e-6, well inside the forward's 2e-2 (bf16 against f32).
+RULE_BAR = 1e-6
+
+
+@pytest.mark.parametrize("ddtype", [np.float32, np.float64])
+def test_k2_backward_and_tangent_match_jax(ddtype):
+    import jax
+
+    jfat, fat, b, g, h = _bf16_fat_pair(ddtype)
+    tb, tg, th = (torch.from_numpy(v) for v in (b, g, h))
+    _, jpull = jax.vjp(jfat.solve, jnp.asarray(b))
+    _, pull = torch.func.vjp(fat.solve, tb)
+    assert _rel(pull(tg)[0].numpy(), jpull(jnp.asarray(g))[0]) <= RULE_BAR
+    _, jt = jax.jvp(jfat.solve, (jnp.asarray(b),), (jnp.asarray(g),))
+    _, tt = torch.func.jvp(fat.solve, (tb,), (tg,))
+    assert _rel(tt.numpy(), jt) <= RULE_BAR
+    # The backward is itself differentiable (diff.py's mode='jvp' takes the
+    # VJP of a VJP): its transpose is the forward pair again.
+    _, jpp = jax.vjp(lambda v: jpull(v)[0], jnp.asarray(g))
+    _, pp = torch.func.vjp(lambda v: pull(v)[0], tg)
+    assert _rel(pp(th)[0].numpy(), jpp(jnp.asarray(h))[0]) <= RULE_BAR
+
+
+def test_k2_rules_route_autograd_torch_func_and_lanes():
+    from admm_tpu_torch.ops.gemv_pair import _gemv_pair_torch
+
+    _, fat, b, g, _ = _bf16_fat_pair(np.float32)
+    tb, tg = torch.from_numpy(b), torch.from_numpy(g)
+    # torch.autograd and torch.func take the same rule.
+    bb = tb.clone().requires_grad_()
+    (ga,) = torch.autograd.grad(fat.solve(bb), bb, tg)
+    assert torch.equal(ga, torch.func.vjp(fat.solve, tb)[1](tg)[0])
+    # Its K-step form: the transposed chain, against autograd of the plain
+    # version's own graph (whose .to(bf16) casts round the cotangents too).
+    E, Dt = fat.E, fat.Dt
+    for K in (1, 3):
+        bb = tb.clone().requires_grad_()
+        (gk,) = torch.autograd.grad(gemv_pair(bb, E, Dt, K), bb, tg)
+        bb = tb.clone().requires_grad_()
+        (gp,) = torch.autograd.grad(_gemv_pair_torch(bb, E, Dt, K), bb, tg)
+        assert _rel(gk.numpy(), gp.numpy()) <= RULE_BAR
+        _, tk = torch.func.jvp(lambda v: gemv_pair(v, E, Dt, K), (tb,), (tg,))
+        assert torch.equal(tk, gemv_pair(tg, E, Dt, K))
+    # Lanes (vmap) keep the plain version; jacrev vmaps the backward.
+    B = torch.from_numpy(np.random.default_rng(3).standard_normal((3, b.size)).astype(np.float32))
+    lanes = torch.func.vmap(fat.solve)(B)
+    assert _rel(lanes.numpy(), torch.stack([fat.solve(r) for r in B]).numpy()) <= RULE_BAR
+    J = torch.func.jacrev(fat.solve)(tb)
+    assert J.shape == (b.size, b.size)
+    e5 = torch.zeros_like(tb)
+    e5[5] = 1.0  # the rounded backward is not linear: compare one row, not J^T g
+    assert _rel(J[5].numpy(), torch.func.vjp(fat.solve, tb)[1](e5)[0].numpy()) <= RULE_BAR
+    # The transposed operands are built once, at the first backward.
+    assert fat.pair.transposed() is fat.pair.transposed()
+    assert fat.pair.transposed().transposed() is fat.pair
+    assert fat.pair.transposed().E.data_ptr() == fat.D.data_ptr()

@@ -957,7 +957,9 @@ def test_cr_backward_and_tangent_go_through_the_kernel(cuda, cr_launches, dtype,
 
 def test_kernel_wrappers_refuse_autograd_on_gpu(cuda, launches, tail_launches, k2_launches):
     # A ctypes launch would return a result without a grad_fn: each
-    # wrapper raises instead, before launching.
+    # wrapper without rules for an operand raises instead, before launching.
+    # K2 differentiates b through its rules (test_k2_backward_and_tangent_*)
+    # and refuses a traced E or Dt.
     gen = torch.Generator().manual_seed(8)
     x, u = (torch.randn(64, generator=gen).to(cuda) for _ in range(2))
     t = torch.tensor(0.3, device=cuda)
@@ -968,10 +970,10 @@ def test_kernel_wrappers_refuse_autograd_on_gpu(cuda, launches, tail_launches, k
     E = aligned_rows(torch.randn((16, 64), generator=gen).to(cuda))
     Dt = aligned_rows(torch.randn((64, 16), generator=gen).to(cuda))
     b = torch.randn(64, generator=gen).to(cuda)
-    with pytest.raises(NotImplementedError, match="K2's backward"):
+    with pytest.raises(NotImplementedError, match="for E and Dt"):
         gemv_pair(b, E.requires_grad_(), Dt)
-    with pytest.raises(NotImplementedError, match="K2's backward"):
-        torch.func.grad(lambda bb: gemv_pair(bb, E.detach(), Dt).sum())(b)
+    with pytest.raises(NotImplementedError, match="for E and Dt"):
+        torch.func.grad(lambda ee: gemv_pair(b, ee, Dt).sum())(E.detach())
     z = torch.zeros(64, device=cuda)
     with pytest.raises(NotImplementedError, match="derivative rules"):
         resident_lasso(z, z.clone(), b.requires_grad_(), E.detach(), Dt, 1.0, 0.1, 1)
@@ -1032,3 +1034,107 @@ def test_implicit_solver_on_gpu_matches_the_cpu(cuda):
                                         torch.func.jvp(f, (lam,), (torch.ones_like(lam),))[1])
     for mode in ("vjp", "jvp"):
         np.testing.assert_allclose(got["cuda", mode], got["cpu", mode], rtol=1e-9)
+
+
+# ---- slice 11b: K2's rules, the lanes' table, the matrix command ---------
+
+
+def _bf16_fat(dev, m=300, n=1000, seed=11):
+    rng = np.random.default_rng(seed)
+    D = torch.from_numpy((rng.standard_normal((m, n)) / np.sqrt(m)).astype(np.float32)).to(dev)
+    fat = FatShiftSolver.from_matrix(D, 1.0, torch.bfloat16)
+    b, g = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+            for _ in range(2))
+    return fat, b, g
+
+
+def test_k2_backward_and_tangent_go_through_the_kernel(cuda, k2_launches):
+    # The backward is one K2 launch of the transposed pair, the tangent one
+    # of the pair itself; each within K2's forward bar (1e-3 ||x||_inf at
+    # K = 1 in bf16) of the plain version on the same operands.
+    fat, b, g = _bf16_fat(cuda)
+    _, pull = torch.func.vjp(fat.solve, b)
+    base = k2_launches()
+    got = pull(g)[0]
+    assert k2_launches() == base + 1
+    T = fat.pair.transposed()
+    ref = g / fat.rho0 + _gemv_pair_torch(-g / (fat.rho0 * fat.rho0), T.E, T.Dt, 1, True)
+    assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    base = k2_launches()
+    _, tangent = torch.func.jvp(fat.solve, (b,), (g,))
+    assert k2_launches() == base + 2  # the primal and its tangent
+    ref = g / fat.rho0 - _gemv_pair_torch(g, fat.E, fat.Dt) / (fat.rho0 * fat.rho0)
+    assert float((tangent - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    # torch.autograd takes the same rule.
+    bb = b.clone().requires_grad_()
+    (ga,) = torch.autograd.grad(fat.solve(bb), bb, g)
+    assert float((ga - got).abs().max()) <= 1e-6 * float(got.abs().max())
+
+
+def test_bf16_lasso_hypergradient_runs_on_gpu(cuda, k2_launches):
+    # The bf16-stream lasso differentiates on the card (K2 in the forward
+    # and in every adjoint step) and lands within 2e-2 of the f32 gradient.
+    from admm_tpu_torch import make_implicit_solver
+    from admm_tpu_torch.models.lasso import make_prox_ops
+
+    D, s, lam = make_problem(smoke=True)[:3]
+    n = D.shape[1]
+    cfg = ADMMConfig(maxiters=3000, abstol=1e-6, reltol=1e-6, unroll="auto")
+    grads = {}
+    for sd in (None, torch.bfloat16):
+        pf, pg, _, data = make_prox_ops(*(torch.from_numpy(a).to(cuda, torch.float32)
+                                          for a in (D, s)), lam, cfg, stream_dtype=sd)
+        # The bf16 adjoint's residual floors near 4e-3 relative (its J
+        # applications round to bf16), so it stops at 1e-2.
+        solve = make_implicit_solver(pf, pg, cfg, nA=n, nB=n, m=n,
+                                     vjp_tol=1e-5 if sd is None else 1e-2)
+        base = k2_launches()
+        grads[sd] = float(torch.func.grad(
+            lambda l: torch.sum(solve(dict(data, lam=l))[0] ** 2))(data["lam"]))
+        assert (k2_launches() > base) == (sd is not None)
+    assert np.isfinite(grads[torch.bfloat16])
+    assert abs(grads[torch.bfloat16] - grads[None]) <= 2e-2 * abs(grads[None])
+
+
+def test_lanes_table_on_gpu(cuda, capfd):
+    # The lanes' quiet=False rows on the card: the CPU's rows (lanes that
+    # stop at different steps), values within f64 rounding.
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((12, 24))
+    S = rng.standard_normal((3, 12))
+    S[1] *= 5
+    cfg = ADMMConfig(maxiters=400, abstol=1e-3, reltol=1e-2, quiet=False, unroll=4)
+    from admm_tpu_torch import lasso_batch
+
+    rows = {}
+    for dev in ("cpu", cuda):
+        res = lasso_batch(D, S, 0.5, cfg, device=dev)
+        rows[str(dev)] = capfd.readouterr().out.splitlines()
+        assert res.steps.tolist() == [20, 43, 24]
+    got, ref = rows[str(cuda)], rows["cpu"]
+    assert len(got) == len(ref) == 3 * 44
+    assert [r.split("\t")[0] for r in got] == [r.split("\t")[0] for r in ref]
+    num = lambda rs: np.array([[float(f.split()[1]) for f in r.split("\t")[1:]]  # noqa: E731
+                               for r in rs])
+    np.testing.assert_allclose(num(got), num(ref), rtol=1e-3)
+
+
+@pytest.mark.parametrize("row,kernel", [("lasso_fat_f32_fusedkernel", "K1b"),
+                                        ("totalvariation_cr", "K4")])
+def test_cli_matrix_rows_on_gpu(cuda, tmp_path, row, kernel, tail_launches, cr_launches):
+    # python -m admm_tpu_torch matrix on one K1b row and the K4 rows: the
+    # row's kernel runs, every row has its bound, the rates are finite.
+    import json
+
+    from admm_tpu_torch.__main__ import main
+
+    out = tmp_path / "m.json"
+    assert main(["matrix", "--rows", row, "--steps", "200", "--out", str(out)]) == 0
+    doc = json.loads(out.read_text())
+    assert doc["platform"] == "gpu" and doc["nvidia_smi"]
+    rows = doc["timing"]
+    assert rows and all(r["solver"] == row and r["iters"] == 200 for r in rows)
+    for r in rows:
+        assert "valid" not in r and r["bound_ms_per_iter"] > 0 and r["iters_per_sec"] > 0
+        assert ("pct_of_roofline" in r) != ("roofline_note" in r)
+    assert (tail_launches() if kernel == "K1b" else cr_launches()) >= 200

@@ -229,4 +229,25 @@ def test_the_port_imports_neither_jax_nor_admm_tpu(path):
              for alias in node.names]
     names += [node.module for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom) and node.level == 0 and node.module]
-    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "admm_tpu")]
+    # The root examples/ package is admm_tpu's too: the port keeps its own.
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "admm_tpu",
+                                                          "examples")]
+
+
+def test_public_names_cover_admm_tpus():
+    # admm_tpu/__init__.py's and admm_tpu/ops/__init__.py's __all__, every
+    # name bound; the port keeps its extra names.
+    import admm_tpu
+    import admm_tpu.ops
+    import admm_tpu_torch
+    import admm_tpu_torch.ops
+
+    for ref, port in ((admm_tpu, admm_tpu_torch), (admm_tpu.ops, admm_tpu_torch.ops)):
+        assert set(ref.__all__) <= set(port.__all__)
+        assert all(getattr(port, name) is not None for name in port.__all__)
+    assert {"BatchResults", "PathResults", "QPStructure"} <= set(admm_tpu_torch.__all__)
+    assert admm_tpu_torch.Constraint._fields == admm_tpu.Constraint._fields
+    for fn, args in ((admm_tpu_torch.make_implicit_consensus_solver, (None, None, None, 4, 2)),
+                     (admm_tpu_torch.make_implicit_unwrapped_solver, (None, None, 4, 3, 2))):
+        with pytest.raises(NotImplementedError, match="slice 10"):
+            fn(*args)

@@ -137,7 +137,9 @@ def test_lanes_with_per_lane_operators_match_jax_vmap():
         assert out["hist"]["pnorm"][b, int(out["steps"][b]):].isnan().all()
 
 
-def test_lanes_refuse_what_they_do_not_run():
+def test_lanes_refuse_what_they_do_not_run(capsys):
+    # hooks.fused_zu runs on one instance only; quiet=False runs and prints
+    # admm_tpu's vmapped rows (tests/test_torch_batch.py holds them).
     from admm_tpu_torch.ops.kernels import fused_soft_threshold_dual
 
     pf = lambda x, z, u, rho: z - u  # noqa: E731
@@ -147,9 +149,11 @@ def test_lanes_refuse_what_they_do_not_run():
     with pytest.raises(NotImplementedError, match="fused_zu"):
         make_admm_runner(pf, pg, ADMMConfig(maxiters=5), 1.0, -1.0, fused,
                          lanes=True)(zeros, zeros, zeros, zeros)
-    with pytest.raises(NotImplementedError, match="quiet"):
-        make_admm_runner(pf, pg, ADMMConfig(maxiters=5, quiet=False), 1.0, -1.0,
-                         lanes=True)(zeros, zeros, zeros, zeros)
+    out = make_admm_runner(pf, pg, ADMMConfig(maxiters=5, quiet=False), 1.0, -1.0,
+                           lanes=True)(zeros, zeros, zeros, zeros)
+    rows = capsys.readouterr().out.splitlines()
+    assert out["steps"].tolist() == [1, 1] and rows == [
+        "1\tpnorm 0.0000e+00\tperr 2.0000e-05\tdnorm 0.0000e+00\tderr 2.0000e-05"] * 2
 
 
 @pytest.mark.parametrize("cutoff", [None, 63])
