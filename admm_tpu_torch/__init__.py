@@ -4,8 +4,8 @@ A second package beside ``admm_tpu``, which stays the reference.  Module
 names mirror ``admm_tpu``'s so each counterpart is easy to find.  The port
 imports ``torch`` and never ``jax``.
 
-Ported so far (ROADMAP.md, queue 1: slices 1 to 9, 11 and 11b; slice 10,
-the distributed layer, is not):
+Ported so far (ROADMAP.md, queue 1: slices 1 to 9, 10a, 11 and 11b;
+slice 10b, the shard axis over processes, is not):
 the engine with all of its serial variants (fast and accelerated ADMM,
 H-norm stops, adaptive and residual-balancing rho, the stall detector,
 Anderson acceleration, iterate records and every hook) and ``FnOp``; the
@@ -28,7 +28,11 @@ matrix-free Newton x-proxes; the functional runner ``make_admm_runner``
 and its lanes (B instances in one solve, ``torch.func.vmap`` over the
 step), the instance batches ``*_batch`` of every family and the
 regularization paths ``*_path``, the TV lanes' cyclic-reduction solves
-one launch of the kernel a sub-step; and the string registry ``get_prox_ops``
+one launch of the kernel a sub-step; the distributed layer
+``admm_tpu_torch.parallel`` (consensus LASSO, elastic net, logistic
+regression and covariance selection with their lanes x shards batches,
+transpose-reduction SVMs, exchange ADMM, the sharded SDP and sliced
+proxes) with its W shards stacked on one device; and the string registry ``get_prox_ops``
 with its ``errorcheck`` (``utils/validate.py``).  ``admm_tpu_torch.experiments`` holds the two
 probes of ``experiments/`` whose TPU kernels run the GEMV pair and the
 whole fat-LASSO iteration in one launch.
@@ -51,7 +55,7 @@ from .models.batch import (BatchResults, QPStructure, basispursuit_batch, covsel
                            tv2d_batch, tv_batch)
 from .models.paths import PathResults, covsel_path, lasso_path, linearsvm_c_path, tv_path
 from .results import ADMMResults
-from . import testers, utils  # noqa: E402,F401  (subpackage access)
+from . import parallel, testers, utils  # noqa: E402,F401  (subpackage access)
 
 __all__ = ["ADMMConfig", "ADMMResults", "BatchResults", "Constraint", "DenseOp", "DiffOp",
            "FnOp", "Hooks", "PathResults", "QPStructure", "ScaledIdentityOp", "admm",

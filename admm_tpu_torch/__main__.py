@@ -5,15 +5,15 @@
     python -m admm_tpu_torch bench [--smoke]          headline benchmark
     python -m admm_tpu_torch matrix [--smoke]         per-solver timing + f32 matrix
     python -m admm_tpu_torch sweep [--smoke]          on-device solvertester sweep
-    python -m admm_tpu_torch scaling [--devices N]    consensus weak scaling (slice 10)
+    python -m admm_tpu_torch scaling [--devices N]    consensus weak scaling (slice 10b)
     python -m admm_tpu_torch list                     list solvers
 
 Every command that solves runs on the CUDA device unless ``--device``
 asks for another (``--device cpu``), as every entry point's ``device=``
 does.  ``matrix`` and ``sweep`` write ``BENCH_MATRIX_TORCH.json`` and
 ``BENCH_SWEEP_TORCH.json`` by default (``admm_tpu``'s files are the TPU's).
-``scaling`` raises ``NotImplementedError``: the consensus solvers come
-with ROADMAP.md queue 1, slice 10.
+``scaling`` raises ``NotImplementedError``: the weak-scaling sweep places
+shards over processes, ROADMAP.md queue 1, slice 10b.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def parser():
     sw.add_argument("--smoke", action="store_true")
     sw.add_argument("--out", default="BENCH_SWEEP_TORCH.json")
 
-    s = sub.add_parser("scaling", help="consensus weak-scaling sweep (not ported: slice 10)")
+    s = sub.add_parser("scaling", help="consensus weak-scaling sweep (not ported: slice 10b)")
     s.add_argument("--devices", type=int, default=8)
     s.add_argument("--rows-per-shard", type=int, default=4096)
     s.add_argument("--cols", type=int, default=512)
@@ -115,8 +115,8 @@ def main(argv=None):
 
     if args.cmd == "scaling":
         raise NotImplementedError(
-            "admm_tpu_torch scaling: the consensus weak-scaling sweep needs the "
-            "distributed layer, which is not ported yet (ROADMAP.md queue 1, slice 10)")
+            "admm_tpu_torch scaling: the consensus weak-scaling sweep needs shards placed "
+            "over processes, which is not ported yet (ROADMAP.md queue 1, slice 10b)")
 
     return 1
 

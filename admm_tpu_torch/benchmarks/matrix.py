@@ -19,13 +19,13 @@ Two tables, with ``admm_tpu``'s row names, shapes and step counts:
     ``roofline_note: "l2-resident; % n/a"`` instead.  Rows with a GEMV
     chain also carry the rate of an eager loop of that chain with the
     engine's bookkeeping tail (``bare_loop_iter_s``, on the card only).
-    The rows that need a mesh (``linearsvm_sharded8``,
-    ``svm_batch_sharded``, ``consensus_*``, ``sdp_dense_sharded8``,
-    ``exchange_W*``) are written as ``{"solver": name, "skipped":
-    "slice 10"}``: the distributed layer is not ported.
+    The sharded rows (``linearsvm_sharded8``, ``svm_batch_sharded``,
+    ``consensus_*``, ``sdp_dense_sharded8``, ``exchange_W*``) run their W
+    shards stacked on the one device (``parallel.make_mesh``), as
+    ``admm_tpu``'s matrix runs them on one chip.
   * ACCURACY: each randomized oracle tester (``testers/problems``) in f32
     on the device against ``_F32_ERRTOL``, and the beyond-reference
-    oracles (truths on the host in f64), but the exchange case (slice 10).
+    oracles (truths on the host in f64).
 
 Differences from ``admm_tpu``'s matrix: the square D of the LP and
 standard-QP timing rows is cut to its first n/2 rows (the square
@@ -59,7 +59,6 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 L2_NOTE = "l2-resident; % n/a"
-SKIPPED = "slice 10"
 # Operation counts of the dense factorizations in the byte and operation
 # models (Golub and Van Loan): a symmetric eigendecomposition with vectors
 # ~9 n^3, an SVD with both factors ~21 n^3.
@@ -94,7 +93,6 @@ class Row:
     lanes: int = 0
     floor_chain: Any = None
     extra: Optional[Callable] = None  # (steps) -> dict of fields the row adds
-    skipped: Optional[str] = None
 
 
 def _row(name, shape, iters, res, nbytes=0.0, flops=0.0, peak=F32_FLOPS_PER_S, l2_bytes=None,
@@ -178,13 +176,15 @@ def timing_rows(smoke=False, device="cpu"):
     numpy from ``admm_tpu``'s seed and sequence (so a row holds the same
     instance there and here, but the LP and standard QP, which take the
     first n/2 rows of the same D); nothing is solved until a row's
-    ``solve`` runs.  The sharded rows come as ``Row(name,
-    skipped='slice 10')``."""
+    ``solve`` runs."""
     from .. import (ADMMConfig, basispursuit, basispursuit_batch, covarianceselection,
                     covsel_batch, huberfit, lad, lasso, lasso_batch, lasso_path, linearprogram,
                     linearsvm, logreg, logreg_batch, model, qp_batch, quadraticprogram,
                     quantile, rpca, sdp_batch, svm_batch, totalvariation, tv_batch)
     from ..models.sdp import random_sdp_instance, sdp
+    from ..parallel import (consensus_covsel, consensus_lasso, consensus_lasso_batch,
+                            exchange_quadratic, linearsvm_sharded, make_mesh2d, sdp_sharded,
+                            svm_batch_sharded)
 
     device = torch.device(device)
     on = lambda a: torch.as_tensor(a, device=device)  # noqa: E731  (per solve, outside its loop)
@@ -397,7 +397,7 @@ def timing_rows(smoke=False, device="cpu"):
         lambda i: logreg_batch(on(Dlr), on(ell8), 0.1, cfg(i), inner="newton"),
         m * n * 4, 8 * newton, lanes=8)
 
-    # --- linear SVM: serial; the sharded rows wait for slice 10 ---------
+    # --- linear SVM: serial and 8-shard transpose reduction ------------
     m, n = 4096 // sc, 512 // sc
     Dsvm = rng.standard_normal((m, n)).astype(f32)
     w0 = rng.standard_normal(n)
@@ -406,17 +406,38 @@ def timing_rows(smoke=False, device="cpu"):
     add("linearsvm_serial_f32", f"{m}x{n}", iters,
         lambda i: linearsvm(on(Dsvm), on(ell), 1.0, cfg(i)), 2 * m * n * 4, 4 * m * n,
         floor_chain=((n, m), (m, n)))
-    add("linearsvm_sharded8_f32", skipped=SKIPPED)
+    # Transpose reduction: D_i^T (z_i - u_i) and D_i x over the stacked
+    # shards, and the n-by-n W^+ apply.
+    tr = 2 * m * n + n * n
+    add("linearsvm_sharded8_f32", f"{m}x{n}", iters,
+        lambda i: linearsvm_sharded(on(Dsvm), on(ell), 1.0, cfg(i), nshards=8),
+        tr * 4, 2 * tr)
     y10 = rng.integers(0, 10, size=m)
     ells = np.stack([np.where(y10 == k, 1.0, -1.0) for k in range(10)]).astype(f32)
     add("svm_batch_B10_onevsall", f"{m}x{n}", iters,
         lambda i: svm_batch(on(Dsvm), on(ells), 1.0, cfg(i)),
         2 * m * n * 4, 10 * 4 * m * n, lanes=10)
-    add("svm_batch_sharded_B10x8shard", skipped=SKIPPED)
+    add("svm_batch_sharded_B10x8shard", f"{m}x{n}", iters,
+        lambda i: svm_batch_sharded(on(Dsvm), on(ells), 1.0, cfg(i),
+                                    mesh=make_mesh2d(1, 1, device=device), nshards=8),
+        tr * 4, 10 * 2 * tr, lanes=10)
+    # Consensus: fixed total rows, W in {1, 2, 4, 8}; a step streams the
+    # W stacked n-by-n Minv once (the consensus math beside it is O(W n)).
     for Wsh in (1, 2, 4, 8):
-        add(f"consensus_lasso_{Wsh}shard_f32", skipped=SKIPPED)
-    add("consensus_lasso_batch_B8x8shard", skipped=SKIPPED)
-    add("consensus_lasso_8shard_fast_f32", skipped=SKIPPED)
+        add(f"consensus_lasso_{Wsh}shard_f32", f"{m}x{n}", iters,
+            lambda i, Wsh=Wsh: consensus_lasso(on(Dsvm), on(s4), 0.1, cfg(i), nshards=Wsh),
+            Wsh * n * n * 4, 2 * Wsh * n * n)
+    S8 = np.stack([s4 + 0.01 * k for k in range(8)]).astype(f32)
+    add("consensus_lasso_batch_B8x8shard", f"{m}x{n}", iters,
+        lambda i: consensus_lasso_batch(on(Dsvm), on(S8), 0.1, cfg(i),
+                                        mesh=make_mesh2d(1, 1, device=device), nshards=8),
+        8 * n * n * 4, 8 * 2 * 8 * n * n, lanes=8)
+    # dvaltol=0 keeps the accelerated d-value stop (which ignores
+    # domaxiters) from ending the row early.
+    add("consensus_lasso_8shard_fast_f32", f"{m}x{n}", iters,
+        lambda i: consensus_lasso(on(Dsvm), on(s4), 0.1, cfg(i, fast=True, dvaltol=0.0),
+                                  nshards=8),
+        8 * n * n * 4, 2 * 8 * n * n)
 
     # --- lanes: a path of B lambdas, B signals, B decodes, B QPs --------
     m, n, B = 1500 // sc, 5000 // sc, 128
@@ -506,10 +527,32 @@ def timing_rows(smoke=False, device="cpu"):
     add("sdp_dense_serial", f"n={nsd3} m={msd3}", its3,
         lambda i: sdp(on(Csd3), on(Asd3), on(bsd3), config=cfg(i)),
         2 * msd3 * nsd3 * nsd3 * 4, 4 * msd3 * nsd3 * nsd3 + (EIGH_FLOPS + 2) * nsd3**3)
-    add("sdp_dense_sharded8", skipped=SKIPPED)
-    add("consensus_covsel_8shard_eigh", skipped=SKIPPED)
-    add("consensus_covsel_8shard_ns", skipped=SKIPPED)
-    add("exchange_W8", skipped=SKIPPED)
+    add("sdp_dense_sharded8", f"n={nsd3} m={msd3}", its3,
+        lambda i: sdp_sharded(on(Csd3), on(Asd3), on(bsd3), config=cfg(i), nshards=8),
+        2 * msd3 * nsd3 * nsd3 * 4, 4 * msd3 * nsd3 * nsd3 + (EIGH_FLOPS + 2) * nsd3**3)
+
+    # --- consensus covariance selection: 8 per-shard spectral proxes ----
+    # A step reads and writes the 8 stacked p-by-p S_i, x_i, u_i.
+    pcv, mcv = 256 // sc, 4096 // sc
+    Dcv = rng.standard_normal((mcv, pcv)).astype(f32)
+    itcv = it(200)
+    add("consensus_covsel_8shard_eigh", f"p={pcv}", itcv,
+        lambda i: consensus_covsel(on(Dcv), 0.1, cfg(i), nshards=8),
+        8 * 5 * pcv * pcv * 4, 8 * (EIGH_FLOPS + 4) * pcv**3)
+    add("consensus_covsel_8shard_ns", f"p={pcv}", itcv,
+        lambda i: consensus_covsel(on(Dcv), 0.1, cfg(i), nshards=8, prox_method="ns",
+                                   ns_iters=14),
+        8 * 5 * pcv * pcv * 4, 8 * (14 * 6 + 4) * pcv**3)
+
+    # --- exchange: W = 8 quadratic agents; a step reads the (W, n, n)
+    # eigenvector stack twice.
+    Wx, mx, nx = 8, 512 // sc, 256 // sc
+    Ax = rng.standard_normal((Wx, mx, nx)).astype(f32)
+    bx = rng.standard_normal((Wx, mx)).astype(f32)
+    itx = it(16000)
+    add(f"exchange_W{Wx}", f"{mx}x{nx}", itx,
+        lambda i: exchange_quadratic(on(Ax), on(bx), cfg(i)),
+        2 * Wx * nx * nx * 4, 4 * Wx * nx * nx)
     return rows
 
 
@@ -526,10 +569,6 @@ def timing_matrix(smoke=False, device="cuda", steps=None, only=None):
     out = []
     for row in rows:
         if only is not None and row.name not in only:
-            continue
-        if row.skipped:
-            out.append({"solver": row.name, "skipped": row.skipped})
-            print(json.dumps(out[-1]), flush=True)
             continue
         iters = row.iters if steps is None else min(row.iters, steps)
         res = best_of(lambda: row.solve(iters))
@@ -615,13 +654,13 @@ def accuracy_matrix(smoke=False, device="cuda", only=None):
 
 def _beyond_reference_accuracy(device, only=None):
     """On-device f32 oracles of the beyond-reference families, truths on
-    the host in f64 (``admm_tpu``'s, but the exchange equilibrium, which
-    waits for slice 10)."""
+    the host in f64 (``admm_tpu``'s)."""
     from scipy.optimize import linprog
 
     from .. import (ADMMConfig, elasticnet, fusedlasso, grouplasso, linearprogram, nnls,
                     quantile, rpca)
     from ..models.sdp import random_sdp_instance, sdp
+    from ..parallel import exchange_quadratic
 
     rng = np.random.default_rng(1)
     f32 = np.float32
@@ -699,10 +738,18 @@ def _beyond_reference_accuracy(device, only=None):
             obj = float(np.sum(C.astype(np.float64) * f64(res.zopt)))
             emit(f"sdp_gap_{pm}", bar, abs(obj - pstar) / max(1.0, abs(pstar)), res)
 
-    # admm_tpu's exchange equilibrium draws its data here (slice 10).
+    # exchange: the quadratic market equilibrium (host f64 oracle).
     Wx, mx, nx = 8, 24, 12
-    rng.standard_normal((Wx, mx, nx))
-    rng.standard_normal((Wx, mx))
+    Ax = rng.standard_normal((Wx, mx, nx)).astype(f32)
+    bx = rng.standard_normal((Wx, mx)).astype(f32)
+    if want("exchange_equilibrium"):
+        Ginv = np.stack([np.linalg.inv(A.T @ A) for A in Ax.astype(np.float64)])
+        Atb = np.einsum("wmi,wm->wi", Ax.astype(np.float64), bx.astype(np.float64))
+        nu = np.linalg.solve(Ginv.sum(0), np.einsum("wij,wj->i", Ginv, Atb))
+        xeq = np.einsum("wij,wj->wi", Ginv, Atb - nu[None, :])
+        res = exchange_quadratic(Ax, bx, config=cfg, device=device)
+        emit("exchange_equilibrium", 1e-3,
+             np.linalg.norm(f64(res.xopt) - xeq) / np.linalg.norm(xeq), res)
 
     # rpca: planted low-rank + sparse recovery.
     nr = 96

@@ -4,8 +4,8 @@
 JAX arrays and solver objects.  ``numpy_state`` flattens such a dict into
 plain numpy arrays (duck-typed: it never imports JAX), and ``lasso_data``,
 ``model_data``, ``tv_data``, ``tv2d_data``, ``fusedlasso_data``,
-``program_data`` and ``matrix_data`` rebuild the port's ``data`` dicts from them on a given
-device.  Feeding
+``program_data``, ``matrix_data``, ``consensus_data``, ``unwrapped_sharded_data`` and
+``exchange_data`` rebuild the port's ``data`` dicts from them on a given device.  Feeding
 the same numbers to both packages this way isolates the iteration from
 differences in the setup-time linear algebra (eigh, solve, inverse),
 which is what the parity tests need.
@@ -49,8 +49,17 @@ Flat keys:
   the prox, so a test puts it into the dict it flattens);
 - sparse logistic regression: ``D``, ``ell``, ``lam`` and, for the
   Newton-CG x-prox, ``D2``;
+- the sharded SDP (``parallel/sdp.py``): ``C``, the padded stack ``A``
+  (W, m/W, n, n), ``bpad`` and the Gram factor ``L``;
+- consensus (``parallel/consensus.py``): ``Dtsi`` and ``Minv`` (static
+  rho) or ``V``, ``w`` (dynamic rho), ``lam``, ``alpha``; logistic
+  regression's ``Yi``, ``Yi2``; covariance selection's ``Si``, ``wgt``;
+- transpose reduction (``parallel/transpose_reduction.py``): ``Di``,
+  ``Winv``, the pad ``mask`` and the per-row ``aux`` tuple, as
+  ``aux.0``, ``aux.1``, ...;
+- exchange (``parallel/exchange.py``): ``V``, ``w``, ``Atb``;
 - optionally the warm start ``x0``, ``z0``, ``u0`` (the unwrapped
-  solver's random start among them).
+  solvers' random start among them) and the consensus ``xi0``, ``ui0``.
 
 Matrix-free operators (TV's ``D``, 2-D TV's ``A``, the fused lasso's
 ``A``) hold no numbers; they are rebuilt from the shapes.
@@ -70,7 +79,7 @@ from .ops.tridiag import CyclicReductionSolver
 _ARRAYS = ("D", "s", "Dts", "lam", "Minv", "S", "Ur", "wr", "Uc", "wc",
            "P", "Q", "r", "Ptr", "Qts", "PtPinv", "QtQinv", "q", "t", "V", "w",
            "Dplus", "tau", "ell", "C", "b", "lb", "ub", "A", "L", "M", "mask", "mu", "G",
-           "D2")
+           "D2", "Dtsi", "alpha", "Si", "wgt", "Yi", "Yi2", "Atb", "Di", "Winv", "bpad")
 _FAT_FIELDS = ("D", "E", "rho0")
 # The solver objects carried field by field: data key -> (fields, class).
 _SOLVERS = {"wood": (("D", "V", "w"), WoodburySolver),
@@ -111,6 +120,8 @@ def numpy_state(data: dict, **warm) -> dict:
             state["cr.cut_stride"] = np.array(val.cut_stride)
             if val.Tinv is not None:
                 state["cr.Tinv"] = _np(val.Tinv)
+        elif key == "aux":
+            state.update({f"aux.{i}": _np(a) for i, a in enumerate(val)})
         elif hasattr(val, "mv") and hasattr(val, "rmv"):
             continue  # a matrix-free operator: rebuilt from the shapes
         elif key in _ARRAYS:
@@ -139,7 +150,7 @@ def _maker(state, lead, device, dtype):
             return torch.from_numpy(bits).view(torch.bfloat16).to(device)
         return torch.tensor(arr, dtype=dt, device=device)
 
-    return t, {k: t(k) for k in ("x0", "z0", "u0") if k in state}
+    return t, {k: t(k) for k in ("x0", "z0", "u0", "xi0", "ui0") if k in state}
 
 
 def lasso_data(state: dict, *, device="cpu", dtype=None):
@@ -238,6 +249,34 @@ def fusedlasso_data(state: dict, *, device="cpu", dtype=None):
     data, warm = _data(state, "s", device, dtype)
     data["A"] = StackIDiffOp(state["s"].shape[0])
     return data, warm
+
+
+def consensus_data(state: dict, *, device="cpu", dtype=None):
+    """``(data, warm)`` for the consensus local and global proxes
+    (``parallel/consensus.py``) from ``admm_tpu``'s per-shard setup state:
+    ``Minv`` or ``V``/``w`` with ``Dtsi``, or ``Yi`` (and ``Yi2``), or
+    ``Si`` and ``wgt``, and the penalties; the default dtype is that of the
+    first of Dtsi, Yi, Si in the state."""
+    return _data(state, next(k for k in ("Dtsi", "Yi", "Si") if k in state), device, dtype)
+
+
+def unwrapped_sharded_data(state: dict, *, device="cpu", dtype=None):
+    """``(data, warm)`` for the transpose-reduction runner
+    (``parallel/transpose_reduction._unwrapped_solve``): ``Di``, ``Winv``,
+    ``mask`` and the ``aux`` tuple rebuilt from ``aux.0``, ``aux.1``, ...;
+    ``warm`` carries the random start (``x0`` (n,), ``z0``/``u0`` as the
+    (W, m/W) stacks); the default dtype is Di's."""
+    t, warm = _maker(state, "Di", device, dtype)
+    data = {k: t(k) for k in ("Di", "Winv", "mask")}
+    data["aux"] = tuple(t(f"aux.{i}") for i in range(sum(k.startswith("aux.") for k in state)))
+    return data, warm
+
+
+def exchange_data(state: dict, *, device="cpu", dtype=None):
+    """``(data, warm)`` for the exchange agents' proxes
+    (``parallel/exchange.py``): the per-agent ``V``, ``w``, ``Atb``; the
+    default dtype is Atb's."""
+    return _data(state, "Atb", device, dtype)
 
 
 def _np(v):

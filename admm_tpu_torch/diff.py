@@ -51,8 +51,9 @@ so an adjoint step of the lanes is one K4 solve.
 Restrictions (checked at factory time, as in ``admm_tpu``): the standard
 iteration (``fast=False``) and static rho; relaxation is supported.  Not
 ported yet: ``make_implicit_consensus_solver`` and
-``make_implicit_unwrapped_solver``, whose sharded solvers come with
-ROADMAP.md queue 1, slice 10; both raise ``NotImplementedError``.
+``make_implicit_unwrapped_solver`` (the implicit gradients of the
+sharded runners of ``parallel/``), ROADMAP.md queue 1, slice 10b; both
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -674,17 +675,17 @@ def make_implicit_batch_solver(
 
 def make_implicit_consensus_solver(local_prox, global_prox, config, n, W, *, mode="vjp",
                                    vjp_method="neumann", vjp_maxiters=500, vjp_tol=1e-9):
-    """``admm_tpu``'s differentiable consensus ADMM: not ported, its
-    sharded solver comes with slice 10 (ROADMAP.md queue 1)."""
+    """``admm_tpu``'s differentiable consensus ADMM: not ported yet, it
+    comes with slice 10b (ROADMAP.md queue 1)."""
     raise NotImplementedError(
-        "make_implicit_consensus_solver: the consensus solver is not ported yet "
-        "(ROADMAP.md queue 1, slice 10)")
+        "make_implicit_consensus_solver: the implicit consensus solver is not ported "
+        "yet (ROADMAP.md queue 1, slice 10b)")
 
 
 def make_implicit_unwrapped_solver(prox_g_shard, config, m, n, W, *, mode="vjp",
                                    vjp_method="neumann", vjp_maxiters=500, vjp_tol=1e-9):
-    """``admm_tpu``'s differentiable transpose-reduction ADMM: not ported,
-    its sharded solver comes with slice 10 (ROADMAP.md queue 1)."""
+    """``admm_tpu``'s differentiable transpose-reduction ADMM: not ported
+    yet, it comes with slice 10b (ROADMAP.md queue 1)."""
     raise NotImplementedError(
-        "make_implicit_unwrapped_solver: the transpose-reduction solver is not ported "
-        "yet (ROADMAP.md queue 1, slice 10)")
+        "make_implicit_unwrapped_solver: the implicit transpose-reduction solver is not "
+        "ported yet (ROADMAP.md queue 1, slice 10b)")

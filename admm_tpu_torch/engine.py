@@ -21,8 +21,8 @@ fast (alg 1) and accelerated (alg 2) ADMM with restart and d-values, the
 H-norm stop and ``convtest`` monitor, adaptive and residual-balancing rho,
 the stall detector, Anderson acceleration (``anderson.py``), the iterate
 records, relaxation, and the ``altu``, ``specialnorms``, ``preprocess``,
-``obj`` and ``fused_zu`` hooks.  Only ``parallel=`` (ROADMAP.md queue 1,
-slice 10) is not ported and raises ``NotImplementedError``.
+``obj`` and ``fused_zu`` hooks, and ``parallel=`` sliced proxes
+(``parallel/sliced.py``).
 
 ``make_admm_runner`` is the functional core; with ``lanes=True`` it
 solves B independent instances as one program, the port's counterpart of
@@ -180,15 +180,6 @@ def residual_balance_factor(cfg: ADMMConfig, *, pnorm, dnorm, done, dtype):
     return torch.where(done, one, factor)
 
 
-def _check_ported(parallel) -> None:
-    """Refuse what this engine does not run yet, naming where in
-    ROADMAP.md (queue 1) it is planned."""
-    if parallel is not None:
-        raise NotImplementedError(
-            "admm_tpu_torch.engine: parallel= is not ported yet "
-            "(ROADMAP.md queue 1, slice 10)")
-
-
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -214,6 +205,8 @@ def admm(
     dtype=None,
     data=None,
     parallel: Optional[str] = None,
+    slices=None,
+    mesh=None,
     device=None,
 ) -> ADMMResults:
     """Solve min f(x) + g(z) s.t. A x + B z = c with scaled-dual ADMM.
@@ -231,10 +224,17 @@ def admm(
     among x0, z0, u0, c, A, B and ``data``'s values, or on the CUDA device
     (``device.resolve_device``: without one it raises).  The
     dtype is ``dtype``, or that of the first of x0, z0, u0, c that has
-    one, or torch's default.  ``parallel=`` is not ported yet
-    (ROADMAP slice 10) and raises.
+    one, or torch's default.
+
+    ``parallel`` in {'xminf', 'zming', 'both'} mirrors the reference's
+    options.parallel (admm.m:343-467): the corresponding prox argument is
+    then a PER-SLICE prox ``prox_slice(x, z, u, rho, k)``, run for every
+    slice of ``mesh`` (default ``parallel.make_mesh`` on the solve's
+    device) and gathered into the full update (``parallel/sliced.py``);
+    ``slices`` is a slicemaker spec (scalar block size, 0 for an even
+    split, a vector of lengths, or a (slicesx, slicesz) pair for 'both').
+    Sliced proxes do not take ``data`` and slice 1-D iterates only.
     """
-    _check_ported(parallel)
     config = resolve_unroll(config, "default")
     device = resolve_device(device, x0, z0, u0, c, A, B, data)
 
@@ -276,6 +276,26 @@ def admm(
             shape_c = (m,)
         c_arr = c_arr.expand(shape_c).contiguous()
     u0 = init(u0, tuple(c_arr.shape))
+
+    if parallel is not None:
+        # Engine-level sliced proxes (admm.m:343-467), sized from the
+        # resolved iterate shapes.
+        from .parallel.mesh import make_mesh
+        from .parallel.sliced import make_parallel_proxes
+
+        if data is not None:
+            raise ValueError(
+                "parallel= sliced proxes do not take the data argument; close over "
+                "problem data in the per-slice prox instead")
+        if len(shape_x) != 1 or len(shape_z) != 1:
+            # The sliced gather reassembles a flat vector; the reference
+            # slices vectors only (admm.m:343-467).
+            raise ValueError(
+                "parallel= supports 1-D (vector) iterates only; got "
+                f"shape_x={tuple(shape_x)}, shape_z={tuple(shape_z)}")
+        prox_f, prox_g = make_parallel_proxes(
+            prox_f, prox_g, parallel, slices, nx=shape_x[0], nz=shape_z[0],
+            mesh=make_mesh(device=device) if mesh is None else mesh)
 
     if hooks.fused_zu is not None:
         _check_fused_splitting(A, B, c_arr)

@@ -5,5 +5,5 @@ the card unless given ``device=``.  Ported: acceleration,
 convergencechecking, fasteradmmcomparison, hnormdemo, hypergradient
 (tuning), maxcut, mnistsvm, mpc_qp, portfolio, relaxationexample and
 stepsizetesting.  ``unwrappedadmmtest``, ``distributed_matrix``,
-``multihost_smoke`` and ``consensus_hypergradient`` need the distributed
-layer (ROADMAP.md queue 1, slice 10)."""
+``multihost_smoke`` and ``consensus_hypergradient``, the mesh examples,
+wait for ROADMAP.md queue 1, slice 10b."""

@@ -15,7 +15,7 @@ proxes of ``models/totalvariation.make_prox_ops`` instead: the x-prox is
 the cyclic-reduction solve, on the card the CUDA kernel K4, which then
 runs in the forward solve, in every adjoint step and in the
 linearizations at the fixed point.  ``consensus_hypergradient`` (sharded
-data) waits for ROADMAP.md queue 1, slice 10.
+data) waits for ROADMAP.md queue 1, slice 10b.
 
 Usage:  python -m admm_tpu_torch.examples.hypergradient [--device cpu] [--solver cr]
 """

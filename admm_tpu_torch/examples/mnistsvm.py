@@ -151,15 +151,15 @@ def train_all_digits(D, labels, digits, C=0.5, rho=1.0, maxiters=500, loss="hing
     """All one-vs-all classifiers as the lanes of one ``svm_batch`` solve:
     the per-digit loop of mnistsvm.m:121-156 becomes one solve whose
     lanes differ only in the +/-1 label vector.  ``mesh`` (the lanes x
-    row-shards layout of ``svm_batch_sharded``) raises: the distributed
-    layer comes with ROADMAP.md queue 1, slice 10."""
+    row-shards layout of ``parallel.svm_batch_sharded``) raises: the mesh
+    examples come with ROADMAP.md queue 1, slice 10b."""
     from admm_tpu_torch import ADMMConfig, svm_batch
     from admm_tpu_torch.models._common import host64
 
     if mesh is not None:
         raise NotImplementedError(
-            "train_all_digits(mesh=...): svm_batch_sharded is not ported yet "
-            "(ROADMAP.md queue 1, slice 10)")
+            "train_all_digits(mesh=...): the mesh examples are not ported yet "
+            "(ROADMAP.md queue 1, slice 10b)")
     ells = np.stack([np.where(labels == d, 1.0, -1.0) for d in digits])
     cfg = ADMMConfig(rho=rho, maxiters=maxiters, fast=False)
     return host64(svm_batch(D, ells, C, cfg, loss=loss, device=device).xopt)

@@ -119,7 +119,8 @@ def _registry_entry(D, s, lam, config=ADMMConfig(), device=None, **_):
 @timed_solver
 def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
           stream_dtype=None, use_fused_kernel=False, x0=None, z0=None, u0=None,
-          parallel=False, device=None, **overrides) -> ADMMResults:
+          parallel=False, nshards=None, mesh=None, device=None,
+          **overrides) -> ADMMResults:
     """Solve LASSO (reference solvers/lasso.m:77).
 
     Constraint wiring matches lasso.m:226-239: A = 1, B = -1, c = 0 in R^n.
@@ -132,10 +133,15 @@ def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
     CUDA device (``device.resolve_device``).  ``stream_dtype=torch.bfloat16`` stores the fat static-rho
     branch's two stream matrices in bf16 with f32 accumulation
     (``FatShiftSolver``; the K2 kernel on a CUDA device); the other
-    branches ignore it, as in ``admm_tpu``.  ``parallel=True`` (slice 10)
-    is not ported yet and raises ``NotImplementedError``.  Called with no
-    arguments it runs its tester's demo instance (``testers.problems``)
-    on ``device``.
+    branches ignore it, as in ``admm_tpu``.
+
+    ``parallel=True`` mirrors the reference wrapper's options.parallel
+    (lasso.m:148-150, 196-224): the solve runs as consensus ADMM with the
+    rows in ``nshards`` stacked shards of ``mesh``
+    (``parallel.consensus_lasso``).  Its x/u state is per-shard, so only
+    the global ``z0`` passes through here; warm-start with
+    ``consensus_lasso(xi0=, ui0=, z0=)``.  Called with no arguments it
+    runs its tester's demo instance (``testers.problems``) on ``device``.
     """
     if D is None:
         # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).
@@ -143,12 +149,20 @@ def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
 
         res, _test = lassotest(quiet=False, device=device)
         return res
-    if parallel:
-        raise NotImplementedError(
-            "lasso(parallel=True) needs the consensus runner of ROADMAP.md "
-            "queue 1, slice 10, which is not ported yet")
     check_data_vector(D, s)
     config = merge_config(config, overrides, body="gemv")
+    if parallel:
+        if x0 is not None or u0 is not None:
+            raise ValueError(
+                "parallel=True runs consensus ADMM, whose x/u state is per-shard — use "
+                "parallel.consensus_lasso(xi0=, ui0=, z0=) to warm-start it")
+        if stream_dtype is not None or use_fused_kernel:
+            raise ValueError("stream_dtype / use_fused_kernel are serial-path options; the "
+                             "consensus solver does not consume them")
+        from ..parallel import consensus_lasso
+
+        return consensus_lasso(D, s, lam, config, mesh=mesh, nshards=nshards, z0=z0,
+                               device=device)
     D, s, device = place_data(D, s, device)
     n = D.shape[1]
     prox_f, prox_g, obj, data = make_prox_ops(D, s, lam, config, stream_dtype)

@@ -18,8 +18,8 @@ z-update (hinge): z = (Dx + u) + ell .* max(min(1 - v, C/rho), 0),
 z-update (0-1):   z = ell .* y,  y_i = s_i where s_i >= 1 or
                   s_i < 1 - sqrt(2 C / rho), else 1  (s = v)
 
-The distributed variant (row-sharded D, the reference's parfor path)
-comes with slice 10 of ROADMAP.md queue 1; ``parallel=True`` raises.
+The distributed variant (row-sharded D, the reference's parfor path) is
+``parallel/transpose_reduction.py``, reached with ``parallel=True``.
 """
 
 from __future__ import annotations
@@ -101,9 +101,11 @@ def linearsvm(
     (linearsvm.m:242), which forces stopcond='both': ``anderson=`` is
     refused there, as in ``admm_tpu``.  ``D``, ``ell`` and ``device`` work
     as ``D``, ``s`` and ``device`` of ``lasso``; the random start is
-    ``unwrapped.random_start``'s.  ``parallel=True`` (with ``nshards`` and
-    ``mesh``; slice 10) is not ported yet and raises
-    ``NotImplementedError``.  Called with no arguments it runs its
+    ``unwrapped.random_start``'s.  ``parallel=True`` mirrors the reference
+    wrapper's options.parallel (linearsvm.m:169-206): the solve runs with
+    the rows in ``nshards`` stacked shards of ``mesh`` through the
+    transpose-reduction runner (``parallel.linearsvm_sharded``), with the
+    same variants and warm starts.  Called with no arguments it runs its
     tester's demo instance (``testers.problems``) on ``device``.
     """
     if D is None:
@@ -115,9 +117,10 @@ def linearsvm(
     check_data_vector(D, ell, sname="ell")
     config = merge_config(config, overrides, body="gemv")
     if parallel:
-        raise NotImplementedError(
-            "linearsvm(parallel=True) needs the transpose-reduction runner of "
-            "ROADMAP.md queue 1, slice 10, which is not ported yet")
+        from ..parallel import linearsvm_sharded
+
+        return linearsvm_sharded(D, ell, C, config, loss=loss, mesh=mesh, nshards=nshards,
+                                 seed=seed, x0=x0, z0=z0, u0=u0, device=device)
     D, ell, device = place_data(D, ell, device)
     _, prox_g, obj, data = make_prox_ops(D, ell, C, loss, config)
     return unwrappedadmm(prox_g, D, config, obj=obj, seed=seed, data=data,

@@ -46,7 +46,7 @@ def check_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (lanes sharded over a device mesh) is not ported yet "
-            "(ROADMAP.md queue 1, slice 10)")
+            "(ROADMAP.md queue 1, slice 10b)")
 
 
 def solve_lanes(prox_f, prox_g, obj, config, mapped, data, x0, z0, u0, c, A, B):

@@ -7,8 +7,7 @@ Generic solver for problems of the form  min_x g(D x)  "unwrapped" as
 
 so the x-update is a least-squares pull-back of z - u through D:
 x = D^+ (z - u) (unwrappedadmm.m:76-78).  The distributed form
-(unwrappedadmm.m:96-141, ``admm_tpu/parallel/transpose_reduction.py``)
-comes with slice 10 of ROADMAP.md queue 1.
+(unwrappedadmm.m:96-141) is ``parallel/transpose_reduction.py``.
 
 Reference: solvers/unwrappedadmm.m.  Defaults preserved from
 unwrappedadmm.m:81-92: A = D, B = -1, c = 0, random x0/z0/u0,

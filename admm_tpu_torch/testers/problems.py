@@ -396,7 +396,7 @@ def linearsvmtest(seed=0, mpos=128, mneg=128, sep=0.5, errtol=0.05, quiet=True,
     ``errtol01`` (default 2.5*errtol): the nonconvex 0-1 heuristic's
     slope scatter is ~2.5x the convex hinge solve's, so it gets its own
     bar.  ``parallel=True`` (the sharded transpose-reduction path, with
-    ``nshards``) waits for ROADMAP.md queue 1, slice 10, and raises
+    ``nshards``) waits for ROADMAP.md queue 1, slice 10b, and raises
     ``NotImplementedError``.
     """
     if errtol01 is None:
@@ -414,7 +414,7 @@ def linearsvmtest(seed=0, mpos=128, mneg=128, sep=0.5, errtol=0.05, quiet=True,
     if parallel:
         raise NotImplementedError(
             "linearsvmtest(parallel=True) needs the sharded transpose-reduction "
-            "runner of ROADMAP.md queue 1, slice 10, which is not ported yet")
+            "runner of ROADMAP.md queue 1, slice 10b, which is not ported yet")
     Dd, elld = _in(dtype, D, ell)
     res_h = linearsvm(Dd, elld, C, cfg, loss="hinge", seed=seed, device=device)
     res_01 = linearsvm(Dd, elld, C, cfg, loss="01", seed=seed, device=device)

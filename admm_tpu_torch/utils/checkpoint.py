@@ -6,8 +6,8 @@ keys as ``admm_tpu``'s, so a state saved by either package resumes in the
 other: the arrays land on the host as numpy, and ``load_state`` gives them
 back as numpy warm-start arguments (x0/z0/u0) for any entry point, which
 places them on its own device.  The orbax backend for sharded state
-(``save_state_orbax``, ``load_state_orbax``) waits for the distributed
-layer (ROADMAP.md queue 1, slice 10) and raises.
+(``save_state_orbax``, ``load_state_orbax``) waits for sharded
+checkpoints (ROADMAP.md queue 1, slice 10b) and raises.
 """
 
 from __future__ import annotations
@@ -60,15 +60,15 @@ def load_state(path: Union[str, Path]) -> dict:
 def _slice10(name):
     return NotImplementedError(
         f"admm_tpu_torch.utils.{name}: the orbax backend for sharded solver state "
-        "comes with the distributed layer (ROADMAP.md queue 1, slice 10); use "
+        "comes with sharded checkpoints (ROADMAP.md queue 1, slice 10b); use "
         "save_state/load_state (npz)")
 
 
 def save_state_orbax(results: ADMMResults, path: Union[str, Path]) -> None:
-    """Not ported yet (sharded state, slice 10): raises."""
+    """Not ported yet (sharded state, slice 10b): raises."""
     raise _slice10("save_state_orbax")
 
 
 def load_state_orbax(path: Union[str, Path]) -> dict:
-    """Not ported yet (sharded state, slice 10): raises."""
+    """Not ported yet (sharded state, slice 10b): raises."""
     raise _slice10("load_state_orbax")

@@ -252,11 +252,12 @@ through the functions a user calls and checks what comes out:
      JSON line (``launches_by_path``).
  15. slice 11b (``slice11b_phase``, (z16)) through the CLI and the examples:
      (z16a) ``python -m admm_tpu_torch matrix --steps 50``: every
-         single-device timing row of admm_tpu/benchmarks/matrix.py at its
-         width (its 40-16000 timed steps cut to at most 50), each printed
-         with its bound, ran to a finite result; the sharded rows marked
-         "slice 10"; K1b, K2 and K4 launched on their rows (the fused, the
-         bf16-stream and the cyclic-reduction TV rows);
+         timing row of admm_tpu/benchmarks/matrix.py at its width, the
+         twelve sharded rows among them with their shards stacked on the
+         card (its 40-16000 timed steps cut to at most 50), each printed
+         with its bound, ran to a finite result; K1b, K2 and K4 launched
+         on their rows (the fused, the bf16-stream and the
+         cyclic-reduction TV rows);
      (z16b) the same command's f32 accuracy rows at their own settings,
          each within admm_tpu's bar (``_F32_ERRTOL``, unchanged);
      (z16c) ``sweep --smoke``: the ten families, exit 0 only when all pass;
@@ -269,6 +270,39 @@ through the functions a user calls and checks what comes out:
      Rows that fail on the card are recorded faults (ROADMAP.md queue 3),
      named in ``Z16_KNOWN_*``; any other failure fails the script.  The
      matrix and sweep documents go to chiprun_out/.
+ 16. slice 10a, the distributed layer with its W shards stacked on the
+     card (``slice10a_phase``, (z17)):
+     (z17a) ``consensus_lasso`` in f32, W = 8 shards of Z17_ROWS = 65536
+         rows, n = 1024 (D 2 GiB on the card, drawn from a seeded
+         generator there; lambda = 0.1 ||D^T s||_inf): a converging solve
+         with the same steps as the same solve in f64 on the card (or one
+         step apart, the deciding step's margin printed) and an objective
+         within 1e-2 of the serial f64 ``lasso`` on the same D
+         (tests/test_parallel.py's bar); Z17_TIMED_STEPS steps under
+         domaxiters timed: iter/s, synchronising calls per sub-step
+         (none); then one run of the same steps on the per-shard set-up
+         built once beforehand (``consensus_admm``) under torch.profiler:
+         its CUDA launches per step and the device's busy share (its
+         kernel time over that run's own loop wall time), the bound
+         printed with the L2 note where the Minv stack fits in L2;
+     (z17b) the other runners at matrix.py's widths in f32, each on the
+         main path and against its own oracle: ``linearsvm_sharded``
+         (4096 x 512, 8 shards) within 1e-3 of the serial ``linearsvm``'s
+         hinge objective; ``exchange_quadratic`` (8 agents, 512 x 256)
+         within 1e-3 of the f64 market equilibrium; ``sdp_sharded``
+         (random_sdp_instance(128, 512, 32), 8 shards) within 1e-3 of the
+         serial ``sdp``'s objective; ``consensus_covsel`` eigh and ns
+         (p = 256, 4096 samples, 8 shards) within 1e-3 of the serial
+         ``covarianceselection``'s objective; ``consensus_logreg`` (4096 x
+         256, 8 shards) within 5e-3 of the serial ``logreg``'s objective;
+         ``consensus_lasso_batch`` (8 lanes), ``svm_batch_sharded`` (10
+         lanes) and ``consensus_covsel_batch`` (2 lanes, p = 64) in f64,
+         lanes equal to their single solves (steps, x to 1e-9); a sliced
+         ``admm(parallel='both')`` (n = 2048, 8 slices) equal to the
+         unsliced solve in f64.
+     No run of (z17) launches K1-K4 (the z-steps are soft thresholds on
+     the aggregate, a per-shard solve is a batched GEMV); none reads the
+     host inside a sub-step but the eigh proxes (counted and printed).
 
 Kernel times are device times: CUDA events around replays of a CUDA
 graph that holds several calls (``graph_ms``), so that the host's time per
@@ -288,6 +322,7 @@ The CUDA kernels build into build/kernels/ in the checkout.
 """
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -351,12 +386,17 @@ Z16_STEPS = 50
 # The acceleration example's caps, 20000 and 40000, cut (its plain LASSO
 # converges in ~5400 steps, its fast one and its plain LPs burn the cap).
 Z16_LADDER_STEPS, Z16_LP_STEPS = 6000, 20000
-Z16_TIMED_ROWS, Z16_SKIPPED_ROWS, Z16_ACCURACY_ROWS = 47, 12, 25
+Z16_TIMED_ROWS, Z16_ACCURACY_ROWS = 59, 26
 Z16_KNOWN_TIMING_FAULTS = set()
 Z16_KNOWN_F32_FAULTS = set()
 # The standard QP's f32 bar at 2^5 (seed 7): admm_tpu's own f32 sweep fails
 # the same cell (ROADMAP.md queue 3).
 Z16_KNOWN_SWEEP_FAULTS = {"quadraticprogram"}
+# Slice 10a (z17): the stacked consensus LASSO of (z17a), rows per shard
+# and columns, its timed steps, and (z17b)'s converging settings.
+Z17_W, Z17_ROWS, Z17_N = 8, 65536, 1024
+Z17_TIMED_STEPS = 2000
+Z17_ORACLE = dict(maxiters=5000, abstol=1e-7, reltol=1e-6, stallwindow=100, unroll="auto")
 # Slice 7b (z11)-(z13) and slice 8 (z14).
 RPCA_N = 256
 RPCA_RANK = 16
@@ -1471,9 +1511,10 @@ def family_objective(family, D, s, x, tau=0.8, C=1.0):
     return 0.5 * np.sum(x * x) + C * np.sum(loss)
 
 
-def main_path(tag, solve, eigh=False, reads="eigh", k4=False):
+def main_path(tag, solve, eigh=False, reads="eigh", k4=False, tally=None):
     """Run ``solve`` with every kernel's count (K1-K4) at 0 just before it
-    and read just after, its synchronising calls counted, and check that
+    and read just after (added into ``tally`` where given), its
+    synchronising calls counted, and check that
     none launched (``k4``: that K4 launched exactly once per sub-step and
     nothing else), that its xopt is finite on the card and that no
     synchronising call ran inside a sub-step (``eigh``: the calls of
@@ -1492,6 +1533,9 @@ def main_path(tag, solve, eigh=False, reads="eigh", k4=False):
         r = solve()
         torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
+    if tally is not None:
+        for name, v in launches.items():
+            tally[name] += v
     outside = sy["solve"] - sy["steps"] - sy["chunks"]
     if torch.is_tensor(r.steps):
         steps = r.steps.cpu()
@@ -2545,7 +2589,6 @@ def slice11b_phase(dev):
     import torch
 
     from admm_tpu_torch.__main__ import main as cli
-    from admm_tpu_torch.benchmarks.matrix import SKIPPED
     from admm_tpu_torch.examples import (acceleration, convergencechecking,
                                          fasteradmmcomparison, hnormdemo, maxcut, mnistsvm,
                                          mpc_qp, portfolio, relaxationexample, stepsizetesting)
@@ -2564,12 +2607,11 @@ def slice11b_phase(dev):
     torch.cuda.synchronize()
     counts = read_counts()
     doc = json.loads((out / "z16_matrix.json").read_text())
-    timed = [r for r in doc["timing"] if "skipped" not in r]
-    skipped = [r["solver"] for r in doc["timing"] if "skipped" in r]
-    print(f"  (z16a) {len(timed)} timed rows, {len(skipped)} waiting for {SKIPPED}; kernel "
-          f"launches {counts}; {time.perf_counter() - t1:.1f}s (with the accuracy rows)")
-    check(len(timed) == Z16_TIMED_ROWS and len(skipped) == Z16_SKIPPED_ROWS,
-          f"(z16a) {Z16_TIMED_ROWS} timed rows and {Z16_SKIPPED_ROWS} sharded rows")
+    timed = doc["timing"]
+    print(f"  (z16a) {len(timed)} timed rows; kernel launches {counts}; "
+          f"{time.perf_counter() - t1:.1f}s (with the accuracy rows)")
+    check(len(timed) == Z16_TIMED_ROWS and not any("skipped" in r for r in timed),
+          f"(z16a) {Z16_TIMED_ROWS} timed rows, the twelve sharded ones among them")
     for r in timed:
         check(r["bound_ms_per_iter"] > 0 and ("pct_of_roofline" in r) != ("roofline_note" in r),
               f"(z16a) {r['solver']} {r['shape']}: bound {r['bound_ms_per_iter']:.5f} ms "
@@ -2642,6 +2684,242 @@ def slice11b_phase(dev):
         EXAMPLE_CHECKS[name](got)
     print(f"  (z16) took {time.perf_counter() - t0:.1f}s")
     return {k: counts[k] for k in ("K1b", "K2", "K4")}
+
+
+def cuda_kernels(solve):
+    """``(result, launches, ms)``: ``solve()``'s result, its CUDA kernel
+    launches and their device time under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = solve()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    return (r, sum(e.count for e in events),
+            sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                for e in events) / 1e3)
+
+
+def _stop_margin(tag, a, b):
+    """Print the deciding step's pnorm/perr and dnorm/derr of two runs."""
+    k = min(a.steps, b.steps) - 1
+    for name, r in (("f32", a), ("f64", b)):
+        print(f"  ({tag}) {name} step {k + 1}: pnorm {r.pnorm[k]:.9e} perr {r.perr[k]:.9e} "
+              f"dnorm {r.dnorm[k]:.9e} derr {r.derr[k]:.9e}")
+
+
+def slice10a_phase(dev):
+    """Slice 10a, (z17a)-(z17b): the distributed layer with its shards
+    stacked on the card; returns every kernel's launches summed over the
+    phase's main-path runs (all 0, each run is checked)."""
+    import torch
+
+    import admm_tpu_torch.parallel as TP
+    from admm_tpu_torch.parallel import consensus as TC
+    from admm_tpu_torch import (ADMMConfig, admm, covarianceselection, lasso, linearsvm, logreg,
+                                sdp)
+    from admm_tpu_torch.models.sdp import random_sdp_instance
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(kernel_counts(), 0)
+    mp = functools.partial(main_path, tally=total)
+
+    W, rows, n = Z17_W, Z17_ROWS, Z17_N
+    m = W * rows
+    print(f"slice 10a: consensus_lasso, {W} shards of {rows} rows, n = {n}, f32")
+
+    # (z17a) D on the card from a seeded generator, unit columns, s from a
+    # 10%-sparse x_true plus noise.
+    gen = torch.Generator(device=dev).manual_seed(17)
+    D = torch.randn(m, n, generator=gen, device=dev)
+    D /= torch.linalg.vector_norm(D, dim=0, keepdim=True)
+    x_true = torch.randn(n, generator=gen, device=dev) * (
+        torch.rand(n, generator=gen, device=dev) < 0.1)
+    s = D @ x_true + 0.03 * torch.randn(m, generator=gen, device=dev)
+    lam = float(0.1 * torch.max(torch.abs(D.T @ s)))
+    print(f"  (z17a) D {m}x{n} f32 ({D.numel() * 4 / 2**30:.2f} GiB), Minv stack "
+          f"{W * n * n * 4 / 2**20:.0f} MiB, lambda {lam:.6f}")
+    cfg = ADMMConfig(maxiters=5000)
+    r32 = mp("z17a", lambda: TP.consensus_lasso(D, s, lam, cfg, nshards=W))
+    D64, s64 = D.double(), s.double()
+    r64 = TP.consensus_lasso(D64, s64, lam, cfg, nshards=W)
+    print(f"  (z17a) f32 steps {r32.steps}, f64 steps {r64.steps}")
+    if r32.steps != r64.steps:
+        _stop_margin("z17a", r32, r64)
+    check(abs(r32.steps - r64.steps) <= 1 and r32.steps < cfg.maxiters,
+          "(z17a) converges with the steps of f64 on the card, or one apart")
+    ser = lasso(D64, s64, lam, cfg)
+
+    def obj(z):
+        z = z.double()
+        return float(0.5 * torch.sum((D64 @ z - s64) ** 2) + lam * torch.sum(torch.abs(z)))
+
+    f32, fser = obj(r32.zopt), obj(ser.xopt)
+    print(f"  (z17a) objective f32 consensus {f32:.9g}, f64 consensus {obj(r64.zopt):.9g}, "
+          f"serial f64 lasso {fser:.9g} ({ser.steps} steps); rel. gap "
+          f"{abs(f32 - fser) / abs(fser):.3e} (bar 1e-2)")
+    check(abs(f32 - fser) <= 1e-2 * abs(fser), "(z17a) objective within 1e-2 of serial f64")
+    del D64, s64, r64, ser
+
+    tcfg = ADMMConfig(maxiters=Z17_TIMED_STEPS, domaxiters=True, unroll="auto")
+    rt = mp("z17a timed", lambda: TP.consensus_lasso(D, s, lam, tcfg, nshards=W))
+    check(rt.steps == Z17_TIMED_STEPS, f"(z17a) {Z17_TIMED_STEPS} steps under domaxiters")
+    # The profiled run: the per-shard set-up (the 2 GiB Gram, the Cholesky
+    # inverses) built once outside it, so its launches and device time are
+    # the loop's and a few fills and reads around it; its wall clock is the
+    # loop's (results.runtime).  The profiler's own cost lands on that wall
+    # clock, so the busy share is a lower bound.
+    local, data, _, _, _ = TC._sharded_ls_setup(D, s, tcfg, None, W, dev)
+    data["lam"] = torch.as_tensor(lam, dtype=D.dtype, device=dev)
+    rp, launches, dev_ms = cuda_kernels(lambda: TP.consensus_admm(
+        local, TC._lasso_global_prox, data, n, tcfg, nshards=W, device=dev))
+    check(rp.steps == Z17_TIMED_STEPS and 0.0 < dev_ms < rp.runtime * 1e3,
+          "(z17a) profiled run: every step ran, device time positive and below its wall time")
+    step_ms, pstep_ms = (r.runtime * 1e3 / r.steps for r in (rt, rp))
+    nbytes = W * n * n * 4
+    bnd = bound(nbytes, 2 * W * n * n)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    share = ("l2-resident; % n/a" if bnd[1] == "bytes" and nbytes <= l2
+             else f"{100 * bnd[0] / step_ms:.1f}% of it")
+    print(f"  (z17a) timed: {rt.steps / rt.runtime:.1f} iter/s ({step_ms * 1e3:.2f} us/step); "
+          f"profiled run: {pstep_ms * 1e3:.2f} us/step wall, {launches / rp.steps:.2f} CUDA "
+          f"launches/step, device kernel time {dev_ms / rp.steps * 1e3:.2f} us/step, busy "
+          f"share {dev_ms / (rp.runtime * 1e3):.3f}; bound {bnd[0] * 1e3:.2f} us/step "
+          f"({bnd[1]}, {nbytes / 1e6:.1f} MB against the {l2 / 1e6:.1f} MB L2), {share}")
+    del D, s, data
+
+    # (z17b) the other runners at matrix.py's widths, f32, against oracles.
+    oracle = ADMMConfig(**Z17_ORACLE)
+    rng = np.random.default_rng(10)
+    f32c = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    ms, ns = 4096, 512
+    Dn = rng.standard_normal((ms, ns))
+    ell = np.sign(Dn @ rng.standard_normal(ns) + 0.1 * rng.standard_normal(ms))
+    Dd, elld = f32c(Dn), f32c(ell)
+    D64, e64 = Dn.astype(np.float32).astype(np.float64), ell
+    sh = mp("z17b linearsvm_sharded", lambda: TP.linearsvm_sharded(
+        Dd, elld, 1.0, oracle, nshards=8))
+    se = linearsvm(Dd, elld, 1.0, oracle)
+    fs, fe = (family_objective("hinge", D64, e64, r.xopt) for r in (sh, se))
+    print(f"  (z17b) linearsvm_sharded {ms}x{ns}: steps {sh.steps} (serial {se.steps}), "
+          f"objective {fs:.9g} (serial {fe:.9g}), rel. {abs(fs - fe) / abs(fe):.3e} (bar 1e-3)")
+    check(abs(fs - fe) <= 1e-3 * abs(fe), "(z17b) sharded SVM within 1e-3 of the serial one")
+
+    Ax = rng.standard_normal((8, 512, 256)).astype(np.float32)
+    bx = rng.standard_normal((8, 512)).astype(np.float32)
+    Ginv = np.stack([np.linalg.inv(A.T @ A) for A in Ax.astype(np.float64)])
+    Atb = np.einsum("wmi,wm->wi", Ax.astype(np.float64), bx.astype(np.float64))
+    nu = np.linalg.solve(Ginv.sum(0), np.einsum("wij,wj->i", Ginv, Atb))
+    xeq = np.einsum("wij,wj->wi", Ginv, Atb - nu[None, :])
+    ex = mp("z17b exchange_quadratic", lambda: TP.exchange_quadratic(
+        f32c(Ax), f32c(bx), oracle))
+    err = np.linalg.norm(ex.xopt.double().cpu().numpy() - xeq) / np.linalg.norm(xeq)
+    print(f"  (z17b) exchange W=8 512x256: steps {ex.steps}, against the f64 equilibrium "
+          f"{err:.3e} (bar 1e-3)")
+    check(err <= 1e-3, "(z17b) exchange within 1e-3 of the market equilibrium")
+
+    C, A, b, *_ = random_sdp_instance(128, 512, 32, rng, dtype=np.float32)
+    ssd = mp("z17b sdp_sharded", lambda: TP.sdp_sharded(
+        f32c(C), f32c(A), f32c(b), oracle, nshards=8), eigh=True)
+    sse = sdp(f32c(C), f32c(A), f32c(b), oracle)
+    C64 = C.astype(np.float64)
+    os_, oe = (float(np.sum(C64 * r.zopt.double().cpu().numpy())) for r in (ssd, sse))
+    gap = abs(os_ - oe) / max(1.0, abs(oe))
+    print(f"  (z17b) sdp_sharded n=128 m=512: steps {ssd.steps} (serial {sse.steps}), objective "
+          f"{os_:.9g} (serial {oe:.9g}), gap {gap:.3e} (bar 1e-3)")
+    check(gap <= 1e-3, "(z17b) sharded SDP within 1e-3 of the serial one")
+
+    Dcv = rng.standard_normal((4096, 256)).astype(np.float32)
+    Dc64 = Dcv.astype(np.float64)
+    S64 = np.cov(Dc64, rowvar=False)
+    ref = covarianceselection(f32c(Dcv), 0.1, oracle)
+    fref = _covsel_objective(S64, 0.1, ref)
+    for pm in ("eigh", "ns"):
+        rc = mp(f"z17b consensus_covsel {pm}", lambda: TP.consensus_covsel(
+            f32c(Dcv), 0.1, oracle, nshards=8, prox_method=pm), eigh=pm == "eigh")
+        fc = _covsel_objective(S64, 0.1, rc)
+        print(f"  (z17b) consensus_covsel {pm} p=256: steps {rc.steps} (serial eigh "
+              f"{ref.steps}), objective {fc:.9g} (serial {fref:.9g}), rel. "
+              f"{abs(fc - fref) / abs(fref):.3e} (bar 1e-3)")
+        check(abs(fc - fref) <= 1e-3 * abs(fref),
+              f"(z17b) consensus covsel {pm} within 1e-3 of the serial one")
+
+    Dl = rng.standard_normal((4096, 256)).astype(np.float32)
+    el = np.sign(Dl @ rng.standard_normal(256) + 0.1 * rng.standard_normal(4096))
+    Dl64 = Dl.astype(np.float64)
+
+    def fl(z):
+        z = z.double().cpu().numpy()
+        return float(np.sum(np.logaddexp(0.0, -el * (Dl64 @ z))) + 0.1 * np.sum(np.abs(z)))
+
+    cl = mp("z17b consensus_logreg", lambda: TP.consensus_logreg(
+        f32c(Dl), f32c(el), 0.1, oracle, nshards=8))
+    sl = logreg(f32c(Dl), f32c(el), 0.1, oracle)
+    print(f"  (z17b) consensus_logreg 4096x256: steps {cl.steps} (serial {sl.steps}), objective "
+          f"{fl(cl.zopt):.9g} (serial {fl(sl.zopt):.9g})")
+    check(abs(fl(cl.zopt) - fl(sl.zopt)) <= 5e-3 * abs(fl(sl.zopt)),
+          "(z17b) consensus logreg within 5e-3 of the serial one")
+
+    # The batch forms in f64: lanes equal to their single solves.
+    f64c = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+    s4 = rng.standard_normal(ms)
+    S8 = np.stack([s4 + 0.01 * k for k in range(8)])
+    cfg64 = ADMMConfig(maxiters=500)
+    mesh11 = TP.make_mesh2d(1, 1, device=dev)
+    lb = mp("z17b consensus_lasso_batch", lambda: TP.consensus_lasso_batch(
+        f64c(Dn), f64c(S8), 0.1, cfg64, mesh=mesh11, nshards=8))
+    X0 = rng.random((10, ns))
+    Z0, U0 = rng.random((10, ms)), rng.random((10, ms))
+    y10 = rng.integers(0, 10, size=ms)
+    ells = np.stack([np.where(y10 == k, 1.0, -1.0) for k in range(10)])
+    sb = mp("z17b svm_batch_sharded", lambda: TP.svm_batch_sharded(
+        f64c(Dn), f64c(ells), 1.0, cfg64, mesh=mesh11, nshards=8, x0=X0, z0=Z0, u0=U0))
+    Dcb = np.stack([Dcv[:1024, :64], Dcv[1024:2048, :64]]).astype(np.float64)
+    cb = mp("z17b consensus_covsel_batch", lambda: TP.consensus_covsel_batch(
+        f64c(Dcb), 0.1, cfg64, mesh=mesh11, nshards=8), eigh=True)
+    for tag, out, solo, key in (
+            ("consensus_lasso_batch", lb, lambda i: TP.consensus_lasso(
+                f64c(Dn), f64c(S8[i]), 0.1, cfg64, nshards=8), "zopt"),
+            ("svm_batch_sharded", sb, lambda i: TP.linearsvm_sharded(
+                f64c(Dn), f64c(ells[i]), 1.0, cfg64, nshards=8, x0=X0[i], z0=Z0[i], u0=U0[i]),
+             "xopt"),
+            ("consensus_covsel_batch", cb, lambda i: TP.consensus_covsel(
+                f64c(Dcb[i]), 0.1, cfg64, nshards=8), "zopt")):
+        for i in (0, out.steps.numel() - 1):
+            r = solo(i)
+            e = rel(getattr(out, key)[i], getattr(r, key))
+            print(f"  (z17b) {tag} lane {i}: steps {int(out.steps[i])} (single {r.steps}), "
+                  f"{key} {e:.3e} (bar 1e-9)")
+            check(int(out.steps[i]) == r.steps and e <= 1e-9,
+                  f"(z17b) {tag} lane {i} equal to its single solve in f64")
+
+    # A sliced admm(parallel='both') against the unsliced solve, f64.
+    nm = 2048
+    P, Q = rng.standard_normal((nm, nm)), rng.standard_normal((nm, nm))
+    r_, q_ = rng.standard_normal(nm), rng.standard_normal(nm)
+    PtPinv, QtQinv = (f64c(np.linalg.inv(M.T @ M + np.eye(nm))) for M in (P, Q))
+    Ptr, Qts = f64c(P.T @ r_), f64c(Q.T @ q_)
+    L = nm // 8
+    pf = lambda x, z, u, rho: PtPinv @ (Ptr + rho * (z - u))  # noqa: E731
+    pg = lambda x, z, u, rho: QtQinv @ (Qts + rho * (x + u))  # noqa: E731
+    pfs = lambda x, z, u, rho, k: PtPinv[k * L:(k + 1) * L] @ (Ptr + rho * (z - u))  # noqa: E731
+    pgs = lambda x, z, u, rho, k: QtQinv[k * L:(k + 1) * L] @ (Qts + rho * (x + u))  # noqa: E731
+    kw = dict(A=1.0, B=-1.0, c=0.0, m=nm, dtype=torch.float64, device=dev)
+    cfg_m = ADMMConfig(maxiters=1000)
+    sliced = mp("z17b sliced both", lambda: admm(
+        pfs, pgs, cfg_m, parallel="both", slices=(0, 0), mesh=TP.make_mesh(8, device=dev), **kw))
+    whole = admm(pf, pg, cfg_m, **kw)
+    e = rel(sliced.xopt, whole.xopt)
+    print(f"  (z17b) sliced admm(parallel='both') n={nm}: steps {sliced.steps} (unsliced "
+          f"{whole.steps}), xopt {e:.3e} (bar 1e-9)")
+    check(sliced.steps == whole.steps and e <= 1e-9,
+          "(z17b) the sliced solve equals the unsliced one in f64")
+
+    print(f"  (z17) kernel launches over the phase's main-path runs {total}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(not any(total.values()), "(z17) no K1-K4 launch on the phase's main paths")
+    return total
 
 
 def _check_acceleration(out):
@@ -2722,6 +3000,7 @@ def main():
     k4_batch_launches = batch_phase(dev)
     hg_launches = hypergradient_phase(dev)
     z16 = slice11b_phase(dev)
+    z17 = slice10a_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -2745,25 +3024,30 @@ def main():
     # (z16)'s; K1b's and K4's (z16)'s beside their own paths.
     print(json.dumps({"kernels": [
         row("fused_soft_threshold_dual", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
-            "admm_tpu/ops/kernels.py:48", {"d": k1_launches, **variants["k1"]}, k1_err, k1_ms,
+            "admm_tpu/ops/kernels.py:48", {"d": k1_launches, **variants["k1"], "z17": z17["K1"]},
+            k1_err, k1_ms,
             k1_plain_ms, k1_bound, None),
         row("fused_zu_tail", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
-            "admm_tpu/ops/kernels.py:48", {"a": k1b_launches, "z16": z16["K1b"]}, k1b_err,
+            "admm_tpu/ops/kernels.py:48", {"a": k1b_launches, "z16": z16["K1b"],
+                                            "z17": z17["K1b"]}, k1b_err,
             k1b_ms, k1b_plain_ms, k1b_bound, None),
         row("cr_solve", "cuda", "admm_tpu_torch/csrc/cr_solve.cu",
             "experiments/pallas_cr_kernel.py:103",
-            {"f": k4_launches, "z14": k4_batch_launches, **hg_launches["K4"], "z16": z16["K4"]},
+            {"f": k4_launches, "z14": k4_batch_launches, **hg_launches["K4"], "z16": z16["K4"],
+             "z17": z17["K4"]},
             k4_err, k4_ms,
             k4_plain_ms, k4_bound, None),
         dict(row("gemv_pair", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
                  "experiments/pallas_probe.py:52",
-                 {"k": k2_launches, **variants["k2"], **hg_launches["K2"], "z16": z16["K2"]},
+                 {"k": k2_launches, **variants["k2"], **hg_launches["K2"], "z16": z16["K2"],
+                  "z17": z17["K2"]},
                  k2_err, k2_ms, k2_plain_ms, k2_bound, k2_library_ms),
              backward={"ms": k2_backward["kernel"], "plain_ms": k2_backward["plain"],
                        "bound_ms": k2_backward["bound"][0],
                        "bound_by": k2_backward["bound"][1]}),
         row("resident_lasso", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
-            "experiments/resident_iter_proto.py:77", k3_launches, k3_err, k3_ms,
+            "experiments/resident_iter_proto.py:77", {"k3": k3_launches, "z17": z17["K3"]}, k3_err,
+            k3_ms,
             k3_plain_ms, k3_bound, None),
     ]}))
     print(smi)

@@ -4,14 +4,18 @@ ADMMConfig (the same draws as ``_random_config`` there) and the same
 instance through admm_tpu and the port in f64 must give equal step counts
 and diverged/stalled flags, and a finite xopt equal to 1e-9 relative;
 each result also passes the original's checks (steps within budget,
-diverged or finite).  The consensus and exchange halves wait for slice 10."""
+diverged or finite).  The consensus and exchange cases run the port's
+distributed runners on a stacked CPU mesh of 4 shards against admm_tpu's
+on its CPU mesh."""
 
 import numpy as np
 import pytest
 import torch
 
 import admm_tpu as J
+import admm_tpu.parallel as JP
 import admm_tpu_torch as T
+import admm_tpu_torch.parallel as TP
 
 torch.set_num_threads(1)
 
@@ -49,16 +53,15 @@ def _random_config(rng, aa_ok=True):
     return cfg
 
 
-def _same(res_t, res_j, maxiters):
+def _same(res_t, res_j, maxiters, x="xopt"):
     steps = int(res_t.steps)
     assert 1 <= steps <= maxiters
     assert (steps, bool(res_t.diverged), bool(res_t.stalled)) == (
         int(res_j.steps), bool(res_j.diverged), bool(res_j.stalled))
-    x = res_t.xopt.cpu().numpy()
-    assert bool(res_t.diverged) or np.all(np.isfinite(x))
+    got, ref = getattr(res_t, x).cpu().numpy(), np.asarray(getattr(res_j, x))
+    assert bool(res_t.diverged) or np.all(np.isfinite(got))
     if not res_t.diverged:
-        np.testing.assert_allclose(x, np.asarray(res_j.xopt), rtol=1e-9,
-                                   atol=1e-9 * np.max(np.abs(np.asarray(res_j.xopt))))
+        np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-9 * np.max(np.abs(ref)))
 
 
 @pytest.mark.parametrize("trial", range(12))
@@ -83,15 +86,36 @@ def test_random_config_new_families_never_crash(trial):
     _same(res_t, res_j, kw["maxiters"])
 
 
-@pytest.mark.parametrize("trial", range(0, 8, 2))
+@pytest.mark.parametrize("trial", range(8))
+def test_random_config_consensus_never_crashes_or_lies(trial):
+    rng = np.random.default_rng(2000 + trial)
+    kw = _random_config(rng)
+    D = rng.standard_normal((64, 12))
+    s = rng.standard_normal(64)
+    res_j = JP.consensus_lasso(D, s, 0.1, J.ADMMConfig(**kw), nshards=4)
+    res_t = TP.consensus_lasso(D, s, 0.1, T.ADMMConfig(**kw),
+                               mesh=TP.make_mesh(4, device="cpu"))
+    _same(res_t, res_j, kw["maxiters"], x="zopt")
+    if kw["domaxiters"] and not res_t.diverged and T.ADMMConfig(**kw).alg != 2:
+        assert res_t.steps == kw["maxiters"]
+
+
+@pytest.mark.parametrize("trial", range(8))
 def test_random_config_round4_families_never_crash(trial):
-    # The sdp half (even trials); the exchange half waits for slice 10.
+    # The sdp (even trials) and exchange (odd trials) halves.
     from admm_tpu.models.sdp import random_sdp_instance
 
     rng = np.random.default_rng(4000 + trial)
     kw = _random_config(rng)
-    C, A, b, *_ = random_sdp_instance(8, 5, 3, np.random.default_rng(trial))
-    pm = ("eigh", "ns")[trial % 4 == 2]
-    res_j = J.sdp(C, A, b, config=J.ADMMConfig(**kw), prox_method=pm)
-    res_t = T.sdp(C, A, b, config=T.ADMMConfig(**kw), prox_method=pm, device="cpu")
+    if trial % 2 == 0:
+        C, A, b, *_ = random_sdp_instance(8, 5, 3, np.random.default_rng(trial))
+        pm = ("eigh", "ns")[trial % 4 == 2]
+        res_j = J.sdp(C, A, b, config=J.ADMMConfig(**kw), prox_method=pm)
+        res_t = T.sdp(C, A, b, config=T.ADMMConfig(**kw), prox_method=pm, device="cpu")
+    else:
+        As = rng.standard_normal((4, 10, 5))
+        bs = rng.standard_normal((4, 10))
+        res_j = JP.exchange_quadratic(As, bs, config=J.ADMMConfig(**kw))
+        res_t = TP.exchange_quadratic(As, bs, config=T.ADMMConfig(**kw),
+                                      mesh=TP.make_mesh(8, device="cpu"))
     _same(res_t, res_j, kw["maxiters"])

@@ -229,13 +229,30 @@ def _preprocess(d):
     ({}, "parallel", "parallel"),
 ])
 def test_unported_options_raise(kw, hook, name):
-    """Only parallel= (slice 10) still raises.  Every option and hook of
-    slice 2 solves the fat LASSO as admm_tpu's engine does, on carried
-    state, to the parity bars."""
+    """Nothing raises any more.  Every option and hook of slice 2 solves
+    the fat LASSO as admm_tpu's engine does, on carried state, to the
+    parity bars; parallel= (slice 10a) runs a per-slice prox over the
+    slices of a stacked 4-shard mesh as admm_tpu runs it over 4 CPU
+    devices."""
     if hook == "parallel":
-        with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP.*slice 10"):
-            admm(lambda *a: a[0], lambda *a: a[0], ADMMConfig(**kw), m=8,
-                 dtype=torch.float64, device="cpu", parallel="xminf")
+        import jax
+
+        from admm_tpu.parallel import make_mesh as jax_mesh
+        from admm_tpu_torch.parallel import make_mesh
+
+        rng = np.random.default_rng(3)
+        Mn = rng.standard_normal((8, 8)) / 8.0
+        M, Mj = torch.as_tensor(Mn), jnp.asarray(Mn)
+        cfg = dict(maxiters=50)
+        jres = jax_admm(lambda x, z, u, rho, k: jax.lax.dynamic_slice_in_dim(Mj, 2 * k, 2)
+                        @ (z - u), lambda x, z, u, rho: 0.5 * (x + u), JaxConfig(**cfg),
+                        A=1.0, B=-1.0, c=0.0, m=8, dtype=jnp.float64, parallel="xminf",
+                        slices=2, mesh=jax_mesh(4))
+        res = admm(lambda x, z, u, rho, k: M[2 * k:2 * k + 2] @ (z - u),
+                   lambda x, z, u, rho: 0.5 * (x + u), ADMMConfig(**cfg), A=1.0, B=-1.0,
+                   c=0.0, m=8, dtype=torch.float64, device="cpu", parallel="xminf", slices=2,
+                   mesh=make_mesh(4, device="cpu"))
+        _assert_match_jax(res, jres)
         return
     # 150 steps: the accelerated run (whose d-value stop ignores the cap)
     # stays above the f64 noise floor, which it reaches near step 170 and

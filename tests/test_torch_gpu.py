@@ -13,7 +13,8 @@ TV lanes' K4: one chunk of each without a
 synchronising call inside it (the eigh paths' calls counted and
 recorded), f32 against f64 on the card to
 admm_tpu/benchmarks/matrix.py's f32 bars, and f64 on the card against the
-CPU.
+CPU; and the same three for every runner of the distributed layer
+(slice 10a, W shards stacked on the card).
 
 Every case needs a CUDA device and skips without one.  This file imports
 no JAX, so it also runs where JAX is not installed; skip the repo's
@@ -1138,3 +1139,134 @@ def test_cli_matrix_rows_on_gpu(cuda, tmp_path, row, kernel, tail_launches, cr_l
         assert "valid" not in r and r["bound_ms_per_iter"] > 0 and r["iters_per_sec"] > 0
         assert ("pct_of_roofline" in r) != ("roofline_note" in r)
     assert (tail_launches() if kernel == "K1b" else cr_launches()) >= 200
+
+
+# ---- slice 10a: the distributed layer, W shards stacked on the card -------
+
+
+def _parallel_solvers():
+    """Every runner of admm_tpu_torch.parallel at a small size: {name:
+    (solve(dtype, cfg, device), the iterate held against f64, matrix.py's
+    f32 bar, cuSOLVER reads per sub-step)}, on numpy inputs from one seed.
+    The eigh local proxes (covsel 'eigh', the SDP's eigh z-prox) read
+    cuSOLVER's info back once a call (torch.linalg.eigh has no _ex form)."""
+    import admm_tpu_torch.parallel as TP
+
+    rng = np.random.default_rng(40)
+    D, s = rng.standard_normal((203, 24)), rng.standard_normal(203)
+    lam = 0.1 * float(np.max(np.abs(D.T @ s)))
+    ell = np.sign(D @ rng.standard_normal(24) + 0.3 * rng.standard_normal(203))
+    S = np.stack([s + 0.1 * k for k in range(4)])
+    Dcov = rng.standard_normal((256, 16))
+    As, bs = rng.standard_normal((8, 20, 10)), rng.standard_normal((8, 20))
+    C, A, b, *_ = random_sdp_instance(10, 12, 3, rng)
+    P = rng.standard_normal((64, 64))
+    PtPinv = np.linalg.inv(P.T @ P + np.eye(64))
+    q = P.T @ rng.standard_normal(64)
+    mesh = lambda dev: TP.make_mesh(8, device=dev)  # noqa: E731
+    mesh2 = lambda dev: TP.make_mesh2d(2, 4, device=dev)  # noqa: E731
+
+    def sliced(dt, cfg, dev):
+        M, qq = (torch.as_tensor(v.astype(dt), device=dev) for v in (PtPinv, q))
+
+        def pf_slice(x, z, u, rho, k):
+            return M[8 * k:8 * k + 8] @ (qq + rho * (z - u))
+
+        def pg_slice(x, z, u, rho, k):
+            return soft_threshold_slice(x + u, k, 0.5 / rho)
+
+        return admm(pf_slice, pg_slice, cfg, A=1.0, B=-1.0, c=0.0, m=64, parallel="both",
+                    slices=(8, 8), mesh=mesh(dev), dtype=M.dtype, device=dev)
+
+    return {
+        "consensus_lasso": (lambda dt, cfg, dev: TP.consensus_lasso(
+            D.astype(dt), s.astype(dt), lam, cfg, mesh=mesh(dev)), "zopt", 1e-3, 0),
+        "consensus_lasso_rbadaptive": (lambda dt, cfg, dev: TP.consensus_lasso(
+            D.astype(dt), s.astype(dt), lam, dataclasses.replace(cfg, rbadaptive=True),
+            mesh=mesh(dev)), "zopt", 1e-3, 0),
+        "consensus_lasso_anderson": (lambda dt, cfg, dev: TP.consensus_lasso(
+            D.astype(dt), s.astype(dt), lam, dataclasses.replace(cfg, anderson=5),
+            mesh=mesh(dev)), "zopt", 1e-3, 0),
+        "consensus_elasticnet": (lambda dt, cfg, dev: TP.consensus_elasticnet(
+            D.astype(dt), s.astype(dt), lam, 0.5, cfg, mesh=mesh(dev)), "zopt", 1e-3, 0),
+        "consensus_logreg_newton": (lambda dt, cfg, dev: TP.consensus_logreg(
+            D.astype(dt), ell.astype(dt), 0.5, cfg, mesh=mesh(dev), newton_steps=8),
+            "zopt", 5e-3, 0),
+        "consensus_logreg_cg": (lambda dt, cfg, dev: TP.consensus_logreg(
+            D.astype(dt), ell.astype(dt), 0.5, cfg, mesh=mesh(dev), inner="newton_cg",
+            newton_steps=8, cg_steps=8), "zopt", 5e-3, 0),
+        "consensus_covsel_eigh": (lambda dt, cfg, dev: TP.consensus_covsel(
+            Dcov.astype(dt), 0.2, cfg, mesh=mesh(dev)), "zopt", 1e-3, 1),
+        "consensus_covsel_ns": (lambda dt, cfg, dev: TP.consensus_covsel(
+            Dcov.astype(dt), 0.2, cfg, mesh=mesh(dev), prox_method="ns"), "zopt", 1e-3, 0),
+        "consensus_lasso_batch": (lambda dt, cfg, dev: TP.consensus_lasso_batch(
+            D.astype(dt), S.astype(dt), lam, cfg, mesh=mesh2(dev)), "zopt", 1e-3, 0),
+        "consensus_covsel_batch_ns": (lambda dt, cfg, dev: TP.consensus_covsel_batch(
+            np.stack([Dcov, Dcov[::-1]]).astype(dt), 0.2, cfg, mesh=mesh2(dev),
+            prox_method="ns"), "zopt", 1e-3, 0),
+        "linearsvm_sharded": (lambda dt, cfg, dev: TP.linearsvm_sharded(
+            D.astype(dt), ell.astype(dt), 1.0, cfg, mesh=mesh(dev)), "xopt", 0.05, 0),
+        "svm_batch_sharded": (lambda dt, cfg, dev: TP.svm_batch_sharded(
+            D.astype(dt), np.stack([ell, -ell]).astype(dt), 1.0, cfg, mesh=mesh2(dev),
+            nshards=8), "xopt", 0.05, 0),
+        "exchange_quadratic": (lambda dt, cfg, dev: TP.exchange_quadratic(
+            As.astype(dt), bs.astype(dt), cfg, mesh=mesh(dev)), "xopt", 1e-3, 0),
+        "sdp_sharded_ns": (lambda dt, cfg, dev: TP.sdp_sharded(
+            C.astype(dt), A.astype(dt), b.astype(dt), cfg, mesh=mesh(dev), prox_method="ns",
+            ns_iters=30), "zopt", 1e-3, 0),
+        "sdp_sharded_eigh": (lambda dt, cfg, dev: TP.sdp_sharded(
+            C.astype(dt), A.astype(dt), b.astype(dt), cfg, mesh=mesh(dev)), "zopt", 1e-3, 1),
+        "sliced_both": (sliced, "xopt", 1e-3, 0),
+    }
+
+
+def soft_threshold_slice(v, k, t):
+    seg = v[8 * k:8 * k + 8]
+    return torch.sign(seg) * torch.clamp_min(seg.abs() - t, 0.0)
+
+
+@pytest.mark.parametrize("name", sorted(_parallel_solvers()))
+def test_parallel_chunk_reads_nothing_back(cuda, monkeypatch, launches, tail_launches,
+                                           k2_launches, cr_launches, name):
+    # One chunk of 8 sub-steps in f32: one read of the stop flag after
+    # them, no synchronising call inside them but the eigh proxes' one
+    # cuSOLVER read a call, and no K1-K4 launch (a per-shard solve is a
+    # batched GEMV; the z-steps are soft_threshold on the aggregate).
+    solve, _, _, per_step = _parallel_solvers()[name]
+    K = 8
+    res, syncs, reads = _chunk_syncs(monkeypatch, lambda: solve(
+        np.float32, ADMMConfig(maxiters=K, unroll=K, domaxiters=True), cuda), K)
+    assert reads == [1]
+    if per_step:  # one eigh call a sub-step, as test_eigh_chunk_syncs_once_a_sub_step
+        assert syncs == [syncs[0]] * K and 1 <= syncs[0] <= 2, syncs
+    else:
+        assert syncs == [0] * K, syncs
+    x = res.zopt
+    assert x.device.type == "cuda" and torch.isfinite(x).all()
+    assert (launches(), tail_launches(), k2_launches(), cr_launches()) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("name", sorted(_parallel_solvers()))
+def test_parallel_f32_on_gpu_within_its_bar(cuda, name):
+    # f32 against f64 on the card, both at admm_tpu's oracle settings, to
+    # matrix.py's f32 bar of the family (relative error of the iterate).
+    solve, key, bar, _ = _parallel_solvers()[name]
+    cfg = ADMMConfig(maxiters=20000, abstol=1e-7, reltol=1e-6, stallwindow=100, unroll="auto")
+    r32, r64 = solve(np.float32, cfg, cuda), solve(np.float64, cfg, cuda)
+    a32, a64 = getattr(r32, key), getattr(r64, key)
+    assert a32.dtype == torch.float32 and a32.device.type == "cuda"
+    err = float(torch.linalg.norm(a32.double() - a64) / torch.linalg.norm(a64))
+    assert err <= bar, err
+
+
+@pytest.mark.parametrize("name", sorted(_parallel_solvers()))
+def test_parallel_on_gpu_matches_the_cpu(cuda, name):
+    # f64 on both devices: equal steps, the iterate within a parity bar.
+    solve, key, _, _ = _parallel_solvers()[name]
+    cfg = ADMMConfig(maxiters=300, unroll=4)
+    res, cpu = solve(np.float64, cfg, cuda), solve(np.float64, cfg, "cpu")
+    steps = lambda r: r.steps.tolist() if torch.is_tensor(r.steps) else r.steps  # noqa: E731
+    assert steps(res) == steps(cpu)
+    ref = getattr(cpu, key).numpy()
+    np.testing.assert_allclose(getattr(res, key).cpu().numpy(), ref, rtol=1e-9,
+                               atol=1e-9 * np.max(np.abs(ref)))

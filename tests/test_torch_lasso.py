@@ -129,14 +129,23 @@ def test_precision_pin_restores_callers_setting():
     (dict(rbadaptive=True), NotImplementedError, "slice 2"),
 ])
 def test_unported_lasso_modes_raise(kw, exc, match):
-    """parallel=True (slice 10) still raises.  The two adaptive modes,
-    which raised until slice 2, run lasso's dynamic-rho x-updates (the
-    Woodbury fat branch and the eigenbasis skinny one) as admm_tpu's lasso
-    does, each package doing its own setup."""
+    """Nothing raises any more.  The two adaptive modes, which raised
+    until slice 2, run lasso's dynamic-rho x-updates (the Woodbury fat
+    branch and the eigenbasis skinny one) as admm_tpu's lasso does, each
+    package doing its own setup; parallel=True, which raised until slice
+    10, runs consensus ADMM as admm_tpu's does, here over 4 stacked
+    shards."""
     D, s, lam = _make_instance(2, 32, 64)
     if match != "slice 2":
-        with pytest.raises(exc, match=match):
-            lasso(D, s, lam, device="cpu", **kw)
+        from admm_tpu_torch.parallel import make_mesh
+
+        cfg = dict(maxiters=300)
+        res = lasso(D, s, lam, ADMMConfig(**cfg), nshards=4, mesh=make_mesh(4, device="cpu"),
+                    **kw)
+        jres = jax_lasso(D, s, lam, JaxConfig(**cfg), nshards=4, **kw)
+        assert res.steps == jres.steps and res.extra["nshards"] == 4
+        np.testing.assert_allclose(res.zopt.numpy(), np.asarray(jres.zopt), rtol=1e-9,
+                                   atol=1e-10)
         return
     for D, s, lam in (_make_instance(2, 32, 64), _make_instance(0, 96, 48)):
         cfg = dict(maxiters=400, rho=0.2, **kw)

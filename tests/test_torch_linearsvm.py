@@ -215,8 +215,14 @@ def test_linearsvm_refusals():
     D = rng.standard_normal((32, 16))
     with pytest.raises(ValueError, match="ell"):
         linearsvm(D, rng.standard_normal(31), 1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        linearsvm(D, np.sign(rng.standard_normal(32)), 1.0, parallel=True, device="cpu")
+    # parallel=True (slice 10a) runs the transpose-reduction runner; with
+    # no padding its default start is the serial solver's.
+    ell = np.sign(rng.standard_normal(32))
+    par = linearsvm(D, ell, 1.0, ADMMConfig(maxiters=100), parallel=True, nshards=4,
+                    device="cpu")
+    ser = linearsvm(D, ell, 1.0, ADMMConfig(maxiters=100), device="cpu")
+    assert par.steps == ser.steps and par.extra["nshards"] == 4
+    np.testing.assert_allclose(par.xopt.numpy(), ser.xopt.numpy(), rtol=1e-8, atol=1e-9)
     # The zero-argument demo runs its tester on the card by default; where
     # no card is visible it raises the placement error naming device="cpu"
     # (the CPU demo: tests/test_torch_demo_mode.py).

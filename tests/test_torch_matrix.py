@@ -1,9 +1,9 @@
 """The port's matrix benchmark (admm_tpu_torch/benchmarks/matrix.py and
 sweep.py): the card's bound and the L2 note of ``_row`` against bytes
-worked by hand, the row names and widths against admm_tpu's single-device
-rows (parsed from admm_tpu/benchmarks/matrix.py), the sharded rows marked
-as waiting for slice 10, admm_tpu's f32 bars unchanged, the default
-outputs, and one timing row and one accuracy row run on the CPU."""
+worked by hand, the row names and widths against admm_tpu's rows (parsed
+from admm_tpu/benchmarks/matrix.py), the sharded rows among them on a
+stacked mesh, admm_tpu's f32 bars unchanged, the default outputs, and a
+timing row, a sharded row and accuracy rows run on the CPU."""
 
 import ast
 import inspect
@@ -21,8 +21,8 @@ torch.set_num_threads(1)
 
 H100_L2 = 50 * 2**20  # torch.cuda.get_device_properties(0).L2_cache_size on an H100 SXM
 
-# admm_tpu's single-device timing rows at full size, in its order (the
-# sharded rows, which wait for slice 10, carry no shape).
+# admm_tpu's timing rows at full size, in its order (the sharded rows run
+# their shards stacked on one device, as admm_tpu's matrix runs them).
 ROWS = [
     ("model", "2048x2048"), ("lasso_fat_f32_unroll1", "1500x5000"),
     ("lasso_fat_f32", "1500x5000"), ("lasso_fat_f32_fusedkernel", "1500x5000"),
@@ -38,11 +38,11 @@ ROWS = [
     ("covarianceselection_nsfast_f32", "n=1024"), ("quantile_f32", "4096x512"),
     ("rpca_f32", "256x256"), ("rpca_rsvd16_f32", "256x256"), ("logreg_f32", "4096x256"),
     ("logreg_batch_B8_cg", "4096x256"), ("logreg_batch_B8_dense", "4096x256"),
-    ("linearsvm_serial_f32", "4096x512"), ("linearsvm_sharded8_f32", ""),
-    ("svm_batch_B10_onevsall", "4096x512"), ("svm_batch_sharded_B10x8shard", ""),
-    ("consensus_lasso_1shard_f32", ""), ("consensus_lasso_2shard_f32", ""),
-    ("consensus_lasso_4shard_f32", ""), ("consensus_lasso_8shard_f32", ""),
-    ("consensus_lasso_batch_B8x8shard", ""), ("consensus_lasso_8shard_fast_f32", ""),
+    ("linearsvm_serial_f32", "4096x512"), ("linearsvm_sharded8_f32", "4096x512"),
+    ("svm_batch_B10_onevsall", "4096x512"), ("svm_batch_sharded_B10x8shard", "4096x512"),
+    ("consensus_lasso_1shard_f32", "4096x512"), ("consensus_lasso_2shard_f32", "4096x512"),
+    ("consensus_lasso_4shard_f32", "4096x512"), ("consensus_lasso_8shard_f32", "4096x512"),
+    ("consensus_lasso_batch_B8x8shard", "4096x512"), ("consensus_lasso_8shard_fast_f32", "4096x512"),
     ("lasso_path_B128_highest", "1500x5000"), ("lasso_path_B128_bf16pass", "1500x5000"),
     ("lasso_batch_B128", "1500x5000"), ("tv_batch_B128_cr", "n=8192"),
     ("basispursuit_batch_B128", "512x2048"), ("qp_batch_B64_standard", "n=1024"),
@@ -50,9 +50,9 @@ ROWS = [
     ("sdp_batch_B16_eigh", "n=128"), ("sdp_batch_B16_ns", "n=128"),
     ("sdp_batch_B4_eigh", "n=256"), ("sdp_batch_B4_ns", "n=256"),
     ("sdp_serial_eigh", "n=512"), ("sdp_serial_ns", "n=512"),
-    ("sdp_dense_serial", "n=128 m=512"), ("sdp_dense_sharded8", ""),
-    ("consensus_covsel_8shard_eigh", ""), ("consensus_covsel_8shard_ns", ""),
-    ("exchange_W8", ""),
+    ("sdp_dense_serial", "n=128 m=512"), ("sdp_dense_sharded8", "n=128 m=512"),
+    ("consensus_covsel_8shard_eigh", "p=256"), ("consensus_covsel_8shard_ns", "p=256"),
+    ("exchange_W8", "512x256"),
 ]
 SHARDED = re.compile(r"sharded|consensus|exchange")
 
@@ -84,10 +84,9 @@ def test_rows_are_admm_tpus_single_device_rows():
         assert any(p.match(r.name) for p in pats), r.name
     for p in pats:
         assert any(p.match(r.name) for r in rows), p.pattern
+    assert sum(bool(SHARDED.search(r.name)) for r in rows) == 12
     for r in rows:
-        assert (r.skipped == "slice 10") == bool(SHARDED.search(r.name)), r.name
-        if not r.skipped:
-            assert r.iters > 0 and r.nbytes > 0 and callable(r.solve)
+        assert r.iters > 0 and r.nbytes > 0 and callable(r.solve), r.name
 
 
 def test_row_bound_and_l2_note_hand_worked():
@@ -145,12 +144,15 @@ def test_one_smoke_row_on_the_cpu(capsys):
     assert row["bound_ms_per_iter"] == pytest.approx(2 * 512 * 512 * 4 / 3.35e12 * 1e3)
     assert "pct_of_roofline" not in row and "bare_loop_iter_s" not in row
     assert '"solver": "model"' in capsys.readouterr().out
-    (skipped,) = M.timing_matrix(smoke=True, device="cpu", only={"exchange_W8"})
-    assert skipped == {"solver": "exchange_W8", "skipped": "slice 10"}
+    (sharded,) = M.timing_matrix(smoke=True, device="cpu", steps=5, only={"exchange_W8"})
+    assert sharded["solver"] == "exchange_W8" and sharded["shape"] == "128x64"
+    assert sharded["iters"] == 5 and "valid" not in sharded and "skipped" not in sharded
 
 
 def test_one_accuracy_row_on_the_cpu():
-    rows = M.accuracy_matrix(device="cpu", only={"lasso", "elasticnet_ridge"})
-    assert [r["solver"] for r in rows] == ["lasso", "elasticnet_ridge"]
+    rows = M.accuracy_matrix(device="cpu", only={"lasso", "elasticnet_ridge",
+                                                 "exchange_equilibrium"})
+    assert [r["solver"] for r in rows] == ["lasso", "elasticnet_ridge", "exchange_equilibrium"]
     assert all(not r["failed"] for r in rows)
     assert rows[0]["f32_errtol"] == 1e-3 and rows[1]["relerror"] <= 1e-3
+    assert rows[2]["f32_errtol"] == 1e-3
