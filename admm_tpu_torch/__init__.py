@@ -4,8 +4,7 @@ A second package beside ``admm_tpu``, which stays the reference.  Module
 names mirror ``admm_tpu``'s so each counterpart is easy to find.  The port
 imports ``torch`` and never ``jax``.
 
-Ported so far (ROADMAP.md, queue 1: slices 1 to 9, 10a, 11 and 11b;
-slice 10b, the shard axis over processes, is not):
+Ported (ROADMAP.md, queue 1: every slice, 1 to 9, 10a, 10b, 11 and 11b):
 the engine with all of its serial variants (fast and accelerated ADMM,
 H-norm stops, adaptive and residual-balancing rho, the stall detector,
 Anderson acceleration, iterate records and every hook) and ``FnOp``; the
@@ -32,7 +31,9 @@ one launch of the kernel a sub-step; the distributed layer
 ``admm_tpu_torch.parallel`` (consensus LASSO, elastic net, logistic
 regression and covariance selection with their lanes x shards batches,
 transpose-reduction SVMs, exchange ADMM, the sharded SDP and sliced
-proxes) with its W shards stacked on one device; and the string registry ``get_prox_ops``
+proxes) with its W shards stacked on one device or placed over the ranks
+of a ``torch.distributed`` process group, and the implicit gradients of
+its consensus and transpose-reduction runners; and the string registry ``get_prox_ops``
 with its ``errorcheck`` (``utils/validate.py``).  ``admm_tpu_torch.experiments`` holds the two
 probes of ``experiments/`` whose TPU kernels run the GEMV pair and the
 whole fat-LASSO iteration in one launch.

@@ -5,15 +5,16 @@
     python -m admm_tpu_torch bench [--smoke]          headline benchmark
     python -m admm_tpu_torch matrix [--smoke]         per-solver timing + f32 matrix
     python -m admm_tpu_torch sweep [--smoke]          on-device solvertester sweep
-    python -m admm_tpu_torch scaling [--devices N]    consensus weak scaling (slice 10b)
+    python -m admm_tpu_torch scaling [--devices N]    consensus weak scaling [--predict]
     python -m admm_tpu_torch list                     list solvers
 
 Every command that solves runs on the CUDA device unless ``--device``
 asks for another (``--device cpu``), as every entry point's ``device=``
 does.  ``matrix`` and ``sweep`` write ``BENCH_MATRIX_TORCH.json`` and
 ``BENCH_SWEEP_TORCH.json`` by default (``admm_tpu``'s files are the TPU's).
-``scaling`` raises ``NotImplementedError``: the weak-scaling sweep places
-shards over processes, ROADMAP.md queue 1, slice 10b.
+``scaling`` runs ``benchmarks/scaling.py``: the sweep over 1, 2, 4, 8
+stacked shards, or with ``--predict`` the collective microbench and the
+cost model.
 """
 
 from __future__ import annotations
@@ -62,11 +63,14 @@ def parser():
     sw.add_argument("--smoke", action="store_true")
     sw.add_argument("--out", default="BENCH_SWEEP_TORCH.json")
 
-    s = sub.add_parser("scaling", help="consensus weak-scaling sweep (not ported: slice 10b)")
+    s = solving(sub.add_parser("scaling", help="consensus weak-scaling sweep"))
     s.add_argument("--devices", type=int, default=8)
     s.add_argument("--rows-per-shard", type=int, default=4096)
     s.add_argument("--cols", type=int, default=512)
     s.add_argument("--iters", type=int, default=300)
+    s.add_argument("--predict", action="store_true",
+                   help="collective microbench + interconnect cost-model prediction")
+    s.add_argument("--t-compute-us", type=float, default=None)
 
     sub.add_parser("list", help="list available solvers")
     return p
@@ -114,9 +118,10 @@ def main(argv=None):
         return 0 if doc["all_green"] else 1
 
     if args.cmd == "scaling":
-        raise NotImplementedError(
-            "admm_tpu_torch scaling: the consensus weak-scaling sweep needs shards placed "
-            "over processes, which is not ported yet (ROADMAP.md queue 1, slice 10b)")
+        from admm_tpu_torch.benchmarks.scaling import main as scaling_main
+
+        return scaling_main(args.devices, args.rows_per_shard, args.cols, args.iters,
+                            args.predict, args.t_compute_us, args.device)
 
     return 1
 

@@ -38,8 +38,14 @@ class AndersonWindow:
     row m + 1 is the spare row of frozen sub-steps; the caller keeps them
     with its other buffers and hands them to every ``step``."""
 
-    def __init__(self, cfg, sizes, *, dtype, device):
+    def __init__(self, cfg, sizes, *, dtype, device, sharded=None, psum=None):
         self.cfg = cfg
+        # Leaves split over the ranks of a process group (``sharded``) add
+        # their contractions through ``psum`` (``mesh.Mesh.psum``: one
+        # all_reduce for the residual norm, one for the Gram and the
+        # right-hand side); the others are whole on every rank.
+        self.sharded = [False] * len(sizes) if sharded is None else list(sharded)
+        self.psum = psum
         self.m = m = int(cfg.anderson)
         self.R = R = m + 1
         self.sizes = list(sizes)
@@ -80,7 +86,7 @@ class AndersonWindow:
         s = [a.reshape(-1) for a in s_in]
         t = [a.reshape(-1) for a in t_out]
         f = [ti - si for ti, si in zip(t, s)]
-        fn2 = sum(torch.sum(fi * fi) for fi in f)
+        fn2 = sum(self._reduce([torch.sum(fi * fi) for fi in f]))
         grew = fn2 > (cfg.aa_restart ** 2) * best
         cnt = torch.where(grew, 0, cnt)
         best_new = torch.where(grew, fn2, torch.minimum(best, fn2))
@@ -99,10 +105,11 @@ class AndersonWindow:
             Fw, Tw = Fb.index_select(0, js), Tb.index_select(0, js)
             dF.append(torch.where(live, Fw[1:] - Fw[:-1], 0.0))
             dT.append(torch.where(live, Tw[1:] - Tw[:-1], 0.0))
-        G = sum(d @ d.T for d in dF)
+        nl = len(dF)
+        parts = self._reduce([d @ d.T for d in dF] + [d @ fi for d, fi in zip(dF, f)])
+        G = sum(parts[:nl])
         lam = cfg.aa_reg * torch.trace(G) + self.eps
-        gamma, _ = torch.linalg.solve_ex(G + lam * self.eye,
-                                         sum(d @ fi for d, fi in zip(dF, f)))
+        gamma, _ = torch.linalg.solve_ex(G + lam * self.eye, sum(parts[nl:]))
         cand = [ti - gamma @ d for ti, d in zip(t, dT)]
         ok = torch.sum(torch.abs(gamma)) <= cfg.aa_gmax
         for c in cand:
@@ -110,3 +117,19 @@ class AndersonWindow:
         ok = ok & (mk >= 1) & ~done
         nxt = [torch.where(ok, c, ti).reshape(a.shape) for c, ti, a in zip(cand, t, t_out)]
         return nxt, cnt + 1, best_new, F_new, T_new
+
+    def _reduce(self, parts):
+        """``parts`` (one per leaf, or two lists of them) with the sharded
+        leaves' entries summed over the ranks in one ``psum``."""
+        if self.psum is None:
+            return parts
+        sh = self.sharded * (len(parts) // len(self.sharded))
+        idx = [i for i, flag in enumerate(sh) if flag]
+        if not idx:
+            return parts
+        red = self.psum(*(parts[i] for i in idx))
+        red = red if isinstance(red, tuple) else (red,)
+        parts = list(parts)
+        for i, r in zip(idx, red):
+            parts[i] = r
+        return parts

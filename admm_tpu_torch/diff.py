@@ -48,16 +48,23 @@ card, every kernel F reaches runs in the backward too: the TV x-prox's
 cyclic-reduction solve (K4) has its own backward and forward-mode rules,
 so an adjoint step of the lanes is one K4 solve.
 
+``make_implicit_consensus_solver`` and ``make_implicit_unwrapped_solver``
+differentiate the sharded runners of ``parallel/`` (consensus and
+transpose reduction) the same way: the forward is the runner, F is its
+standard step, and every sum over the shard axis in F goes through the
+mesh (``parallel.mesh.Mesh``), so over a process group the adjoint's
+Neumann steps cross the ranks as the forward's steps do (a sum over the
+ranks is its own adjoint), and the Neumann test's norms add the ranks'
+parts of the sharded leaves.
+
 Restrictions (checked at factory time, as in ``admm_tpu``): the standard
-iteration (``fast=False``) and static rho; relaxation is supported.  Not
-ported yet: ``make_implicit_consensus_solver`` and
-``make_implicit_unwrapped_solver`` (the implicit gradients of the
-sharded runners of ``parallel/``), ROADMAP.md queue 1, slice 10b; both
-raise ``NotImplementedError``.
+iteration (``fast=False``) and static rho; relaxation is supported.  Over
+a process group the linear solve is Neumann's (GMRES raises).
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 from typing import Callable, Optional
 
@@ -101,14 +108,17 @@ def _lane(flag, t):
     return flag.reshape(flag.shape + (1,) * (t.ndim - flag.ndim))
 
 
-def _neumann(apply_J, rhs, tol, maxiters, lanes, stats):
+def _neumann(apply_J, rhs, tol, maxiters, lanes, stats, reduce=None):
     """v = rhs + J v by the geometric series (``admm_tpu``'s recurrence,
     blow-up exit at 1e12 scale^2 and seed delta^2 = scale^2,
     admm_tpu/diff.py:137-161).  Steps run in chunks of NEUMANN_CHUNK with
     one host read after each; a step whose lane has stopped keeps its
-    values.  Returns (v, delta^2, scale^2, steps), the last three per lane
-    or 0-d."""
-    scale2 = sum(_sum2(r, lanes) for r in rhs) + 1e-30
+    values.  ``reduce`` (a list of per-leaf sums of squares -> the same
+    with the sharded leaves' summed over the ranks) makes the norms whole
+    over a process group.  Returns (v, delta^2, scale^2, steps), the last
+    three per lane or 0-d."""
+    red = (lambda parts: parts) if reduce is None else reduce  # noqa: E731
+    scale2 = sum(red([_sum2(r, lanes) for r in rhs])) + 1e-30
     # tol rounded to the solve's dtype, then squared, as admm_tpu does; a
     # fill, not a copy from the host, so the solve reads nothing back here.
     tol2 = torch.full_like(scale2, tol) ** 2 * scale2
@@ -124,7 +134,7 @@ def _neumann(apply_J, rhs, tol, maxiters, lanes, stats):
         for _ in range(NEUMANN_CHUNK):
             live = running()
             new = tuple(r + j for r, j in zip(rhs, apply_J(v)))
-            d2 = sum(_sum2(a - b, lanes) for a, b in zip(new, v))
+            d2 = sum(red([_sum2(a - b, lanes) for a, b in zip(new, v)]))
             v = tuple(torch.where(_lane(live, a), a, b) for a, b in zip(new, v))
             delta2 = torch.where(live, d2, delta2)
             k = k + live.long()
@@ -271,11 +281,14 @@ class _Job:
                 apply_J = _forward_map(f, tuple(wstar))
             if shared:
                 apply_J = torch.func.vmap(apply_J)
-            solve = _neumann if p.method == "neumann" else _gmres
             stats = p.stats
             stats.update(applies=0, reads=0, steps=None)
-            v, err2, scale2, steps = solve(apply_J, tuple(rhs), p.tol, p.maxiters,
-                                           p.lanes or shared, stats)
+            if p.method == "neumann":
+                v, err2, scale2, steps = _neumann(apply_J, tuple(rhs), p.tol, p.maxiters,
+                                                  p.lanes or shared, stats, p.reduce)
+            else:
+                v, err2, scale2, steps = _gmres(apply_J, tuple(rhs), p.tol, p.maxiters,
+                                                p.lanes or shared, stats)
             what = f"engine {'adjoint (VJP)' if self.kind == 'adjoint' else 'tangent (JVP)'}"
             return _police(v, err2, scale2, steps, what, stats)
 
@@ -318,8 +331,9 @@ class _Problem:
     leaves), the mode and the linear solve's settings."""
 
     def __init__(self, runner, one_iter, rebuild, mode, method, tol, maxiters, stats,
-                 lanes=False, leaf_dims=None):
+                 lanes=False, leaf_dims=None, reduce=None):
         self.runner = runner
+        self.reduce = reduce
         self._one_iter = one_iter
         self.rebuild = rebuild
         self.mode = mode
@@ -673,19 +687,251 @@ def make_implicit_batch_solver(
     return solve
 
 
-def make_implicit_consensus_solver(local_prox, global_prox, config, n, W, *, mode="vjp",
-                                   vjp_method="neumann", vjp_maxiters=500, vjp_tol=1e-9):
-    """``admm_tpu``'s differentiable consensus ADMM: not ported yet, it
-    comes with slice 10b (ROADMAP.md queue 1)."""
-    raise NotImplementedError(
-        "make_implicit_consensus_solver: the implicit consensus solver is not ported "
-        "yet (ROADMAP.md queue 1, slice 10b)")
+def _sharded_reduce(mesh, sharded):
+    """The Neumann norms' reduction over ``mesh``'s ranks for the leaves
+    flagged in ``sharded``; None on a stacked mesh (nothing to add)."""
+    if mesh is None or mesh.group is None:
+        return None
+
+    def reduce(parts):
+        idx = [i for i, flag in enumerate(sharded) if flag]
+        red = mesh.psum(*(parts[i] for i in idx))
+        red = red if isinstance(red, tuple) else (red,)
+        parts = list(parts)
+        for i, r in zip(idx, red):
+            parts[i] = r
+        return parts
+
+    return reduce
 
 
-def make_implicit_unwrapped_solver(prox_g_shard, config, m, n, W, *, mode="vjp",
-                                   vjp_method="neumann", vjp_maxiters=500, vjp_tol=1e-9):
-    """``admm_tpu``'s differentiable transpose-reduction ADMM: not ported
-    yet, it comes with slice 10b (ROADMAP.md queue 1)."""
-    raise NotImplementedError(
-        "make_implicit_unwrapped_solver: the implicit transpose-reduction solver is not "
-        "ported yet (ROADMAP.md queue 1, slice 10b)")
+def _bcast_whole(mesh, tree, shards):
+    """``tree`` with each tensor leaf that is not stacked over this rank's
+    ``shards`` (a 0-d leaf, or one whose dim 0 differs) passed through
+    ``mesh.bcast``: the data a shard computation reads whole."""
+    if mesh.group is None:
+        return tree
+    return pytree.tree_map(
+        lambda v: mesh.bcast(v) if isinstance(v, torch.Tensor) and (
+            v.ndim == 0 or v.shape[0] != shards) else v, tree)
+
+
+def _sharded_problem(runner, one_iter, data, mode, vjp_method, vjp_tol, vjp_maxiters, stats,
+                     mesh, sharded, w0):
+    """The solve call of a sharded implicit solver: ``_Implicit`` over a
+    constant 0-d ``c`` (the sharded runners have no constraint offset)."""
+    leaves, rebuild = _flatten(data)
+    c = torch.zeros((), dtype=w0[0].dtype, device=w0[0].device)
+    problem = _Problem(runner, lambda w, _c, d: one_iter(w, d), rebuild, mode, vjp_method,
+                       vjp_tol, vjp_maxiters, stats, reduce=_sharded_reduce(mesh, sharded))
+    return _Implicit.apply(problem, c, *w0, *leaves)
+
+
+def _check_sharded(mesh, vjp_method, W):
+    """The mesh of a sharded implicit solver (stacked when None) and its
+    rank count, with the factory's checks."""
+    if mesh is not None and mesh.group is not None:
+        if vjp_method != "neumann":
+            raise ValueError("over a process group the implicit sharded solvers take "
+                             "vjp_method='neumann' (GMRES runs on a stacked mesh only)")
+        if W % mesh.world:
+            raise ValueError(f"W={W} shards do not divide over the {mesh.world} ranks of the "
+                             f"mesh's process group")
+    return mesh
+
+
+def make_implicit_consensus_solver(
+    local_prox: Callable,
+    global_prox: Callable,
+    config: ADMMConfig,
+    n: int,
+    W: int,
+    *,
+    mode: str = "vjp",
+    vjp_method: str = "neumann",
+    vjp_maxiters: int = 500,
+    vjp_tol: float = 1e-9,
+    mesh=None,
+):
+    """Differentiable consensus ADMM (``admm_tpu/diff.py:443-532``; the
+    runner of ``parallel.consensus``).
+
+    The fixed point lives on the sharded state ``w = (xi, z, ui)``, xi/ui
+    of shape (W, n) and the global z of shape (n,); F is one consensus
+    iteration (local solves, the shard-axis means, global prox, per-slice
+    dual update; getProxOps.m:1217-1299).  The forward runs the consensus
+    runner; the adjoint or tangent fixed point is solved as for
+    ``make_implicit_solver``, with the means of F going through ``mesh``.
+
+    ``local_prox(z, ui, rho, data) -> xi`` and ``global_prox(xbar, ubar,
+    rho, W, data) -> z`` follow ``consensus_admm``'s contract.  Gradients
+    flow to every floating tensor leaf of ``data``.
+
+    ``mesh`` (default: stacked on the data's device) may place the shards
+    over a process group (``parallel.global_mesh``): ``data``'s shard-axis
+    leaves, ``xi0``/``ui0`` and the returned xi/ui are then this rank's
+    block of W/P shards, as each process of ``admm_tpu`` holds its
+    addressable shards of the global arrays.
+
+    Returns ``solve(data, xi0=None, ui0=None, z0=None) -> (xi, z, ui)``
+    (aggregate ``x* = xi.mean(0)`` over every shard as the consensus
+    solution); ``solve.stats`` as in ``make_implicit_solver``.
+    """
+    from .config import resolve_unroll
+    from .parallel.consensus import _consensus_solve
+
+    _check_diffable_config(config, mode, vjp_method)
+    # unroll='auto': the factory cannot classify the user prox body.
+    config = resolve_unroll(config, "default")
+    mesh = _check_sharded(mesh, vjp_method, int(W))
+    W, n = int(W), int(n)
+    relax = float(config.relax)
+    use_relax = relax != 1.0
+    rho = float(config.rho)
+    stats = {"applies": 0, "reads": 0, "steps": None}
+
+    def runner(xi0, z0, ui0, _c, data):
+        out = _consensus_solve(local_prox, global_prox, config, W, n, data, xi0, ui0, z0,
+                               mesh=run_mesh(xi0), local_state=True)
+        return {"xopt": out["xi"], "zopt": out["zopt"], "uopt": out["ui"]}
+
+    def run_mesh(t):
+        if mesh is not None:
+            return mesh
+        from .parallel.mesh import Mesh
+
+        return Mesh((W,), ("shards",), t.device)
+
+    def one_iter(w, data):
+        """One consensus iteration in the runner's alg-0 step order; over a
+        process group the whole values (z, the data leaves without this
+        rank's shard axis) enter the shard computations through
+        ``Mesh.bcast``, so that their gradients count every rank once."""
+        xi, z, ui = w
+        on = run_mesh(xi)
+        local = _bcast_whole(on, data, xi.shape[0])
+        with matmul_precision(config.matmul_precision):
+            rho_ = torch.full((), rho, dtype=xi.dtype, device=xi.device)
+            zprev = z
+            xi1 = local_prox(on.bcast(z), ui, rho_, local)
+            xhat = (relax * xi1 + (1.0 - relax) * on.bcast(zprev)[None, :] if use_relax
+                    else xi1)
+            xbar, ubar = on.pmean(xi1, ui, grad=True)
+            xhat_bar = relax * xbar + (1.0 - relax) * zprev if use_relax else xbar
+            z1 = global_prox(xhat_bar, ubar, rho_, W, data)
+            ui1 = ui + (xhat - on.bcast(z1)[None, :])
+        return (xi1, z1, ui1)
+
+    def solve(data, xi0=None, ui0=None, z0=None):
+        leaves, _ = _flatten(data)
+        dt = leaves[0].dtype if leaves else torch.get_default_dtype()
+        device = mesh.device if mesh is not None else resolve_device(None, *leaves)
+        Wl = W // (1 if mesh is None else mesh.world)
+
+        def init(v, shape):
+            if v is None:
+                return torch.zeros(shape, dtype=dt, device=device)
+            return torch.as_tensor(v).to(device=device, dtype=dt)
+
+        w0 = (init(xi0, (Wl, n)), init(z0, (n,)), init(ui0, (Wl, n)))
+        return _sharded_problem(runner, one_iter, data, mode, vjp_method, float(vjp_tol),
+                                int(vjp_maxiters), stats, mesh, (True, False, True), w0)
+
+    solve.stats = stats
+    return solve
+
+
+def make_implicit_unwrapped_solver(
+    prox_g_shard: Callable,
+    config: ADMMConfig,
+    m: int,
+    n: int,
+    W: int,
+    *,
+    mode: str = "vjp",
+    vjp_method: str = "neumann",
+    vjp_maxiters: int = 500,
+    vjp_tol: float = 1e-9,
+    mesh=None,
+):
+    """Differentiable transpose-reduction (unwrapped) ADMM
+    (``admm_tpu/diff.py:535-636``; the runner of
+    ``parallel.transpose_reduction``).
+
+    The fixed point is ``w = (x, zi, ui)``: the replicated primal x of
+    shape (n,) and the row-sharded zi/ui of shape (W, m/W).  F is the
+    runner's alg-0 step: per-shard ``Di^T (zi - ui)``, the sum over the
+    shard axis (through ``mesh``), the replicated ``Winv`` solve, the
+    per-shard z-prox and dual update.
+
+    ``data`` keys: ``Di`` (W, m/W, n), ``Winv`` (n, n), ``mask`` (W, m/W)
+    and optional ``aux`` (the prox's per-row operands).  Gradients flow to
+    every floating tensor leaf.  Over a process group (``mesh``) the
+    shard-axis leaves, zi0/ui0 and the returned zi/ui are this rank's
+    block.  Polyhedral proxes (the SVM's hinge and 0-1 losses) put the
+    optimum on their kinks, where the solution map is not differentiable;
+    use a smooth per-shard prox for gradients (``admm_tpu``'s warning).
+
+    Returns ``solve(data, x0=None, zi0=None, ui0=None) -> (x, zi, ui)``.
+    """
+    from .config import resolve_unroll
+    from .parallel.transpose_reduction import _unwrapped_solve
+
+    _check_diffable_config(config, mode, vjp_method)
+    config = resolve_unroll(config, "gemv")
+    mesh = _check_sharded(mesh, vjp_method, int(W))
+    m, n, W = int(m), int(n), int(W)
+    relax = float(config.relax)
+    use_relax = relax != 1.0
+    rho = float(config.rho)
+    stats = {"applies": 0, "reads": 0, "steps": None}
+
+    def runner(x0, zi0, ui0, _c, data):
+        data = dict(data, aux=data.get("aux", ()))
+        out = _unwrapped_solve(prox_g_shard, None, None, config, m, data, x0, zi0, ui0,
+                               mesh=mesh, local_state=True)
+        return {"xopt": out["xopt"], "zopt": out["zopt"], "uopt": out["uopt"]}
+
+    def one_iter(w, data):
+        """One transpose-reduction iteration in the runner's alg-0 order
+        (whole values entering the shard computations through
+        ``Mesh.bcast``, as in the consensus solver)."""
+        x, zi, ui = w
+        Di, Winv, mask = data["Di"], data["Winv"], data["mask"]
+        aux = data.get("aux", ())
+        psum = (lambda t: t) if mesh is None else functools.partial(mesh.psum, grad=True)
+        bcast = (lambda t: t) if mesh is None else mesh.bcast  # noqa: E731
+        if mesh is not None:
+            aux = _bcast_whole(mesh, aux, zi.shape[0])
+        with matmul_precision(config.matmul_precision):
+            rho_ = torch.full((), rho, dtype=x.dtype, device=x.device)
+            zprev = zi
+            x1 = Winv @ psum(torch.einsum("wij,wi->j", Di, zi - ui))
+            Dx = torch.einsum("wij,j->wi", Di, bcast(x1))
+            Axr = relax * Dx + (1.0 - relax) * zprev if use_relax else Dx
+            zi1 = prox_g_shard(Axr, zi, ui, rho_, aux) * mask
+            ui1 = ui + (Axr - zi1) * mask
+        return (x1, zi1, ui1)
+
+    def solve(data, x0=None, zi0=None, ui0=None):
+        Di = data["Di"]
+        P = 1 if mesh is None else mesh.world
+        if Di.ndim != 3 or Di.shape[0] * P != W or Di.shape[2] != n:
+            raise ValueError(
+                f"data['Di'] must have shape (W={W}, m/W, n={n}) (this rank's W/{P} shards "
+                f"over a process group); got {tuple(Di.shape)}: the factory's W/n must match "
+                f"the sharded row blocks")
+        dt, device = Di.dtype, Di.device
+        mi = Di.shape[1]
+
+        def init(v, shape):
+            if v is None:
+                return torch.zeros(shape, dtype=dt, device=device)
+            return torch.as_tensor(v).to(device=device, dtype=dt)
+
+        w0 = (init(x0, (n,)), init(zi0, (Di.shape[0], mi)), init(ui0, (Di.shape[0], mi)))
+        return _sharded_problem(runner, one_iter, data, mode, vjp_method, float(vjp_tol),
+                                int(vjp_maxiters), stats, mesh, (False, True, True), w0)
+
+    solve.stats = stats
+    return solve

@@ -1,5 +1,5 @@
 """Gradient-based hyperparameter tuning through the ADMM solver (port of
-``examples/hypergradient.py``'s ``hypergradient_tuning``).
+``examples/hypergradient.py``).
 
 The denoising strength ``lam`` of a 1-D total-variation denoiser is
 LEARNED by descending
@@ -14,8 +14,11 @@ the hypergradient through the ADMM fixed point
 proxes of ``models/totalvariation.make_prox_ops`` instead: the x-prox is
 the cyclic-reduction solve, on the card the CUDA kernel K4, which then
 runs in the forward solve, in every adjoint step and in the
-linearizations at the fixed point.  ``consensus_hypergradient`` (sharded
-data) waits for ROADMAP.md queue 1, slice 10b.
+linearizations at the fixed point.  ``consensus_hypergradient`` learns
+the lasso strength of a consensus solve over sharded rows, through
+``make_implicit_consensus_solver``: stacked on one device, or over the
+ranks of a process group (``parallel.global_mesh``), where the backward's
+means cross the ranks as the forward's do.
 
 Usage:  python -m admm_tpu_torch.examples.hypergradient [--device cpu] [--solver cr]
 """
@@ -109,14 +112,70 @@ def hypergradient_tuning(n=200, noise=0.25, steps=25, lr=0.3, seed=0, quiet=Fals
     return history
 
 
+def consensus_hypergradient(m=512, n=24, steps=12, lr=0.4, seed=0, quiet=False, *,
+                            nshards=None, mesh=None, device=None, dtype=torch.float64):
+    """Learn the lasso strength ``lam`` of a CONSENSUS solve, its training
+    rows in ``nshards`` shards (default: the mesh size, ``make_mesh(8)``
+    without a mesh), by descending a held-out MSE through the sharded
+    fixed point (``make_implicit_consensus_solver``) with ``admm_tpu``'s
+    clipped sign steps.  Returns the history of (lam, validation MSE)."""
+    from admm_tpu_torch import ADMMConfig, make_implicit_consensus_solver
+    from admm_tpu_torch.device import resolve_device
+    from admm_tpu_torch.parallel.consensus import (_lasso_global_prox, _lasso_local_prox,
+                                                   ls_setup)
+    from admm_tpu_torch.parallel.mesh import make_mesh, pad_rows, shard_rows
+
+    rng = np.random.default_rng(seed)
+    xtrue = rng.standard_normal(n) * (rng.random(n) < 0.4)
+    D = rng.standard_normal((m, n))
+    s = D @ xtrue + 0.1 * rng.standard_normal(m)
+    Dval = rng.standard_normal((m // 4, n))
+    sval = Dval @ xtrue + 0.1 * rng.standard_normal(m // 4)
+
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    W = int(nshards) if nshards is not None else (mesh.size if mesh is not None else 8)
+    cfg = ADMMConfig(rho=1.0, maxiters=4000, abstol=1e-11, reltol=1e-11, quiet=True)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    take = mesh.take if mesh is not None else (lambda a: a)  # noqa: E731
+    setup = ls_setup(take(shard_rows(pad_rows(t(D), W)[0], W)),
+                     take(shard_rows(pad_rows(t(s), W)[0], W)), False, cfg.rho)
+    Dval, sval = t(Dval), t(sval)
+    solve = make_implicit_consensus_solver(_lasso_local_prox, _lasso_global_prox, cfg, n, W,
+                                           mesh=mesh if mesh is not None
+                                           else make_mesh(W, device=dev))
+
+    def val_mse(ll):
+        _, z, _ = solve(dict(setup, lam=torch.exp(ll)))
+        return torch.mean((Dval @ z - sval) ** 2)
+
+    loglam = t(float(np.log(50.0)))  # deliberately over-shrunk
+    history = []
+    for k in range(steps):
+        g, val = torch.func.grad_and_value(val_mse)(loglam)
+        history.append((float(torch.exp(loglam)), float(val)))
+        if not quiet:
+            print(f"step {k:2d}: lam = {float(torch.exp(loglam)):8.4f}  "
+                  f"val MSE = {float(val):.5f}  grad = {float(g):+.5f}")
+        loglam = loglam - lr * torch.sign(g) * torch.clamp_max(torch.abs(g) * 10, 1.0)
+
+    if not quiet:
+        print(f"\nlearned lam = {history[-1][0]:.4f}: "
+              f"val MSE {history[-1][1]:.5f} (start {history[0][1]:.5f})")
+    return history
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None)
     ap.add_argument("--solver", default="dense", choices=("dense", "cr"))
     ap.add_argument("--n", type=int, default=200)
     ap.add_argument("--steps", type=int, default=25)
+    ap.add_argument("--consensus", action="store_true",
+                    help="run consensus_hypergradient (8 stacked shards) after the tuning")
     args = ap.parse_args(argv)
     hypergradient_tuning(n=args.n, steps=args.steps, device=args.device, solver=args.solver)
+    if args.consensus:
+        consensus_hypergradient(device=args.device)
 
 
 if __name__ == "__main__":

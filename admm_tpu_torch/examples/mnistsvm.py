@@ -150,19 +150,24 @@ def train_all_digits(D, labels, digits, C=0.5, rho=1.0, maxiters=500, loss="hing
                      mesh=None, nshards=None, device=None):
     """All one-vs-all classifiers as the lanes of one ``svm_batch`` solve:
     the per-digit loop of mnistsvm.m:121-156 becomes one solve whose
-    lanes differ only in the +/-1 label vector.  ``mesh`` (the lanes x
-    row-shards layout of ``parallel.svm_batch_sharded``) raises: the mesh
-    examples come with ROADMAP.md queue 1, slice 10b."""
+    lanes differ only in the +/-1 label vector.  Pass a 2-D ``mesh``
+    (``parallel.make_mesh2d``) to train over the lanes x row-shards layout
+    instead (``parallel.svm_batch_sharded``): each classifier's rows in
+    ``nshards`` shards, the classifiers over the lane axis (over the ranks
+    of the mesh's process group, when it has one)."""
     from admm_tpu_torch import ADMMConfig, svm_batch
     from admm_tpu_torch.models._common import host64
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_all_digits(mesh=...): the mesh examples are not ported yet "
-            "(ROADMAP.md queue 1, slice 10b)")
     ells = np.stack([np.where(labels == d, 1.0, -1.0) for d in digits])
     cfg = ADMMConfig(rho=rho, maxiters=maxiters, fast=False)
-    return host64(svm_batch(D, ells, C, cfg, loss=loss, device=device).xopt)
+    if mesh is not None:
+        from admm_tpu_torch.parallel import svm_batch_sharded
+
+        res = svm_batch_sharded(D, ells, C, cfg, loss=loss, mesh=mesh, nshards=nshards,
+                                device=device)
+    else:
+        res = svm_batch(D, ells, C, cfg, loss=loss, device=device)
+    return host64(res.xopt)
 
 
 def mnistsvm(C=0.5, rho=1.0, n_test=1000, n_train=6000, data_dir=None, digits=range(10),

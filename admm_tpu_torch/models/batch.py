@@ -16,8 +16,12 @@ batched variant.
 The lanes run through ``engine.make_admm_runner(lanes=True)``: the step
 under ``torch.func.vmap``, each lane frozen once it is done, one host read
 a chunk.  ``steps``, ``objopt``, ``rho_final``, the ``stalled`` flags and
-every history are per lane.  ``mesh=`` (lanes sharded over devices) is not
-ported yet and raises ``NotImplementedError``.
+every history are per lane.  ``mesh=`` (a 1-D ``parallel.make_mesh``)
+divides the lanes over the mesh, with ``admm_tpu``'s checks: on a stacked
+mesh every lane runs on its one device, as without a mesh, bit for bit;
+over a process group each rank runs its block of lanes with no collective
+inside the loop, and the results come back whole through one
+``all_gather``.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import torch
 
 from ..config import ADMMConfig
 from ..device import resolve_device
+from torch.utils import _pytree as pytree
+
 from ._common import as_tensor, merge_config
-from .paths import check_mesh, highest_precision_setup, solve_lanes
+from .paths import highest_precision_setup, shard_lanes, solve_lanes
 
 
 @dataclasses.dataclass
@@ -96,7 +102,6 @@ def _lanes(v, Bn, dtype, device):
 
 def _run(prox_f, prox_g, obj, config, mapped, data, x0, z0, u0, c0, A, B,
          mesh=None, warm=None) -> BatchResults:
-    check_mesh(mesh)
     if warm is not None:
         # Warm start (receding-horizon re-solves: seed from the previous
         # BatchResults).  Each entry may be None (keep the solver's
@@ -105,8 +110,17 @@ def _run(prox_f, prox_g, obj, config, mapped, data, x0, z0, u0, c0, A, B,
             d if w is None else _broadcast_lane(w, d.shape[0], d.shape[1:], d.dtype, name,
                                                 d.device)
             for w, d, name in zip(warm, (x0, z0, u0), ("x0", "z0", "u0")))
+    rows = shard_lanes(mesh, x0.shape[0], x0.device)
+    if rows is not None:
+        data = {k: pytree.tree_map(lambda v: v[rows], v) if k in mapped else v
+                for k, v in data.items()}
+        x0, z0, u0, c0 = (v[rows] for v in (x0, z0, u0, c0))
     out, runtime = solve_lanes(prox_f, prox_g, obj, config, mapped, data, x0, z0, u0, c0,
                                A, B)
+    if mesh is not None:
+        from ..parallel._loop import gather_tree
+
+        out = gather_tree(mesh, out)
     return BatchResults(
         xopt=out["xopt"], zopt=out["zopt"], uopt=out["uopt"], steps=out["steps"],
         objopt=out["objopt"], rho_final=out["rho_final"], runtime=runtime,

@@ -40,13 +40,21 @@ def highest_precision_setup(fn):
     return wrapper
 
 
-def check_mesh(mesh):
-    """``mesh=`` shards the lanes over devices in ``admm_tpu``
-    (``batch._shard_lanes``); it is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (lanes sharded over a device mesh) is not ported yet "
-            "(ROADMAP.md queue 1, slice 10b)")
+def shard_lanes(mesh, nb: int, device):
+    """The rows of ``nb`` lanes this process runs on ``mesh``
+    (``admm_tpu``'s ``batch._shard_lanes`` rules: a 1-axis mesh, the
+    lanes dividing evenly over it), or None without a mesh.  On a stacked
+    mesh that is every lane; over a process group, this rank's block."""
+    if mesh is None:
+        return None
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"batch solvers take a 1-axis mesh, got axes {mesh.axis_names}")
+    if nb % mesh.size != 0:
+        raise ValueError(f"batch size {nb} must divide evenly over the {mesh.size}-device "
+                         f"mesh (pad the instance batch to a multiple)")
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError(f"the solve's device {device} differs from the mesh's {mesh.device}")
+    return mesh.rows(nb, "lanes")
 
 
 def solve_lanes(prox_f, prox_g, obj, config, mapped, data, x0, z0, u0, c, A, B):

@@ -3,12 +3,14 @@
 ``admm_tpu`` writes each distributed solver as one program over stacked
 (W, ...) arrays and places the leading axis on a device mesh (GSPMD),
 where the reference's broadcast/gather/all-reduce patterns become
-psum/pmean collectives.  The port keeps that program and runs its W
-shards stacked on one device (``mesh.Mesh``): each psum/pmean over the
-mesh axis is a sum/mean over dim 0 at the same place in the update.
-Placing the shard axis over processes with ``torch.distributed`` is
-ROADMAP.md queue 1, slice 10b (``initialize_cluster`` and ``global_mesh``
-raise until then).
+psum/pmean collectives.  The port keeps that program over a ``mesh.Mesh``:
+its W shards stacked on one device, each psum/pmean over the mesh axis a
+sum/mean over dim 0 at the same place in the update; or, over the ranks
+of a ``torch.distributed`` process group (``initialize_cluster``,
+``global_mesh``), each rank's block of shards on its own device, each
+psum/pmean one all-reduce (``Mesh.psum``, ``Mesh.pmean``; the counts of
+collectives and bytes in ``Mesh.stats``).  ``dryrun`` runs every form
+once over a mesh.
 
 Three distributed forms:
 

@@ -22,6 +22,7 @@ state and the buffers.
 from __future__ import annotations
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import engine
 from ..engine import _put_in_place, _put_new
@@ -41,6 +42,20 @@ def traces(names, bufs, N, lanes=False):
     out.update({name: buf[:, :N] if lanes else buf[:N] for name, buf in bufs.items()
                 if name not in ("hist", "aF", "aT")})
     return out
+
+
+def gather_tree(mesh, tree):
+    """``tree`` (a dict of results, nested dicts and tuples allowed) with
+    every tensor's dim-0 blocks gathered over ``mesh``'s ranks in one
+    ``all_gather`` (``Mesh.gather``); unchanged without a group."""
+    if mesh.group is None:
+        return tree
+    flat, spec = pytree.tree_flatten(tree)
+    pos = [i for i, leaf in enumerate(flat) if isinstance(leaf, torch.Tensor)]
+    whole = mesh.gather(*(flat[i] for i in pos))
+    for i, t in zip(pos, whole if len(pos) > 1 else (whole,)):
+        flat[i] = t
+    return pytree.tree_unflatten(flat, spec)
 
 
 def run_loop(step, state, bufs, data, N, K, data_dims=None):

@@ -37,11 +37,20 @@ xi0/ui0/z0 warm start.
 
 Layout: ``admm_tpu`` places the stacked (W, ...) arrays over a device
 mesh with GSPMD and its means compile to all-reduces.  Here the W shards
-are dim 0 of tensors on one device (``mesh.Mesh``), each mean over the
-mesh axis is a mean over dim 0 at the same place in the update, and the
-loop is ``_loop.run_loop``: chunks of K sub-steps, one host read a chunk.
-A per-shard local solve is a batched GEMV (``torch.einsum`` over the
-(W, n, n) stack).
+are dim 0 of tensors on one device (``mesh.Mesh``), or, over a process
+group, each rank's block of W/P shards on its own device.  Every
+reduction over the shard axis goes through the mesh (``Mesh.pmean``,
+``Mesh.psum``), at the same place in the update; a step issues two
+(``xbar`` with ``ubar``: 2n floats; the residual scalars, with the alg-2
+d-value's part), and Anderson acceleration two more.  The per-shard
+results ``xi``/``ui`` come back whole on every rank through one
+``all_gather`` (``Mesh.gather``).  The lanes x shards batches place the
+lanes over the ranks and stack every shard of a lane on its rank, so
+their steps issue no collective.  The loop is ``_loop.run_loop``: chunks
+of K sub-steps, one host read a chunk; over ranks every rank reads the
+same ``(k, done)``, which comes only from reduced values.  A per-shard
+local solve is a batched GEMV (``torch.einsum`` over the (W, n, n)
+stack).
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from ..ops.matfun import covsel_ns_prox
 from ..ops.prox import covsel_eig_prox, soft_threshold
 from ..ops.solve import cho_factor, cho_solve
 from ..results import ADMMResults
-from ._loop import history, run_loop, traces
+from ._loop import gather_tree, history, run_loop, traces
 from .mesh import Mesh, lane_shard_count, pad_rows, resolve_mesh, shard_count, shard_rows
 
 
@@ -71,9 +80,11 @@ def _consensus_names(cfg):
             + (["dvals"] if cfg.alg == 2 else []) + (["avals"] if cfg.alg else []))
 
 
-def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, window):
+def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, window,
+                         mesh: Mesh):
     """One consensus iteration (``admm_tpu``'s ``_make_consensus_run``
-    step) in ``_loop.run_loop``'s step form."""
+    step) in ``_loop.run_loop``'s step form; ``W`` is the global shard
+    count and ``mesh`` reduces over the shard axis."""
     alg = cfg.alg
     relax = float(cfg.relax)
     use_relax = relax != 1.0
@@ -107,18 +118,26 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
 
         # Over-relaxation on the per-slice constraint x_i - z = 0.
         xhat = relax * xi + (1.0 - relax) * zprev[None, :] if use_relax else xi
-        # Consensus aggregates: the mean over the shard axis.
-        xbar = torch.mean(xi, dim=0)
+        # Consensus aggregates: the means over the shard axis (one
+        # collective of 2n floats).
+        xbar, ubar_base = mesh.pmean(xi, u_base)
         xhat_bar = relax * xbar + (1.0 - relax) * zprev if use_relax else xbar
-        ubar_base = torch.mean(u_base, dim=0)
         z = global_prox(xhat_bar, ubar_base, rho, W, data)
         ui = u_base + (xhat - z[None, :])
         ubar = ubar_base + (xhat_bar - z)  # post-update dual average (derr)
 
+        # The shard-axis sums of the residual (and the alg-2 d-value's
+        # dual part) in one collective.
+        pnorm = _fro2(xi - xbar[None, :])
+        if alg == 2:
+            pnorm, du = mesh.psum(pnorm, _fro2(ui - uhat))
+        else:
+            pnorm = mesh.psum(pnorm)
+
         new = {}
         if alg:
             # d on the stacked problem: B tiles z over W slices.
-            dval = ((1.0 / rho) * _fro2(ui - uhat) + rho * W * _fro2(z - c["v"])
+            dval = ((1.0 / rho) * du + rho * W * _fro2(z - c["v"])
                     if alg == 2 else None)
             v_new, uhat_new, a_new, d_new, restarted_i = fast_update(
                 alg, cfg, aprev=c["a"], dprev=c.get("d"), z=z, zprev=zprev, u=ui,
@@ -127,7 +146,6 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
             if alg == 2:
                 new["d"] = d_new
 
-        pnorm = _fro2(xi - xbar[None, :])
         dnorm = W * rho**2 * _fro2(xbar - c["xbar_prev"])
         perr = sqn * cfg.abstol + cfg.reltol * torch.maximum(torch.sqrt(_fro2(xbar)),
                                                               torch.sqrt(_fro2(z)))
@@ -205,10 +223,16 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
 
 
 def _consensus_solve(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, data,
-                     xi0, ui0, z0, data_dims=None) -> dict:
-    """Run the consensus iteration from (xi0, ui0, z0); returns the raw
-    result dict.  With ``data_dims`` the state carries a leading lane axis
-    (``_loop.run_loop``)."""
+                     xi0, ui0, z0, data_dims=None, mesh: Optional[Mesh] = None,
+                     local_state: bool = False) -> dict:
+    """Run the consensus iteration from (xi0, ui0, z0), the whole (W, n)
+    stacks; returns the raw result dict.  Over ``mesh``'s process group
+    the state is this rank's block of shards (``data``'s shard-axis leaves
+    are that block) and ``xi``/``ui`` come back whole; with
+    ``local_state`` xi0/ui0 are this rank's block already and the results
+    stay so.  With ``data_dims`` the state carries a leading lane axis
+    (``_loop.run_loop``) and the shards are local."""
+    mesh = Mesh((W,), ("shards",), z0.device) if mesh is None else mesh
     lead = tuple(z0.shape[:-1])
     rdtype, device = z0.dtype, z0.device
     N, alg = int(cfg.maxiters), cfg.alg
@@ -216,18 +240,25 @@ def _consensus_solve(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, d
     zeros = lambda *shape: torch.zeros(lead + shape, dtype=rdtype, device=device)  # noqa: E731
     false = torch.zeros(lead, dtype=torch.bool, device=device)
     names = _consensus_names(cfg)
-    window = (AndersonWindow(cfg, [n, W * n], dtype=rdtype, device=device)
+    if local_state:
+        xbar0, ubar0 = mesh.pmean(xi0, ui0)
+    else:
+        xbar0, ubar0 = torch.mean(xi0, dim=-2), torch.mean(ui0, dim=-2)
+        xi0, ui0 = mesh.take(xi0), mesh.take(ui0)
+    wu0 = cfg.rho * ubar0
+    window = (AndersonWindow(cfg, [n, xi0.shape[-2] * n], dtype=rdtype, device=device,
+                             sharded=[False, True], psum=mesh.psum)
               if cfg.anderson > 0 else None)
 
     s = {"k": torch.zeros(lead, dtype=torch.int64, device=device), "xi": xi0, "z": z0,
-         "ui": ui0, "xbar_prev": torch.mean(xi0, dim=-2), "rho": full(cfg.rho),
+         "ui": ui0, "xbar_prev": xbar0, "rho": full(cfg.rho),
          "done": false, "diverged": false, "stalled": false}
     if alg:
         s.update(v=z0, uhat=ui0, a=full(1.0))
         if alg == 2:
             s["d"] = full(float("inf"))
     if cfg.needs_hnorm:
-        s.update(wu_prev=cfg.rho * torch.mean(ui0, dim=-2), Hprev=full(float("inf")))
+        s.update(wu_prev=wu0, Hprev=full(float("inf")))
     if cfg.use_stall:
         s.update(best_p=full(float("inf")), since=torch.zeros(lead, dtype=torch.int64,
                                                               device=device))
@@ -242,11 +273,14 @@ def _consensus_solve(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, d
         bufs["aF"], bufs["aT"] = window.rings(lead)
         s["acnt"], s["abest"] = window.initial(lead)
 
-    step = _make_consensus_step(local_prox, global_prox, cfg, W, n, window)
+    step = _make_consensus_step(local_prox, global_prox, cfg, W, n, window, mesh)
     with matmul_precision(cfg.matmul_precision):
         s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll), data_dims)
-    return {"steps": s["k"], "xopt": torch.mean(s["xi"], dim=-2), "zopt": s["z"],
-            "uopt": torch.mean(s["ui"], dim=-2), "xi": s["xi"], "ui": s["ui"],
+    xi, ui = s["xi"], s["ui"]
+    if data_dims is None and not local_state:
+        xi, ui = mesh.gather(xi, ui)
+    return {"steps": s["k"], "xopt": torch.mean(xi, dim=-2), "zopt": s["z"],
+            "uopt": torch.mean(ui, dim=-2), "xi": xi, "ui": ui,
             "rho_final": s["rho"], "diverged": s["diverged"], "stalled": s["stalled"],
             "hist": traces(names, bufs, N, lanes=data_dims is not None)}
 
@@ -296,6 +330,11 @@ def consensus_admm(
     (shape (n,)) warm-start the consensus state; pass the xi/ui of a
     previous solve's ``results.extra`` to resume.  The wall clock
     (``results.runtime``) stops before the results are read back.
+
+    Over a mesh with a process group (``multihost.global_mesh``) each
+    rank runs its contiguous block of W/P shards: ``data``'s shard-axis
+    leaves hold that block (``Mesh.take`` cuts it from the whole stack),
+    ``xi0``/``ui0`` stay whole, and every rank gets the whole results.
     """
     mesh, device = resolve_mesh(mesh, device, data)
     W = nshards if nshards is not None else mesh.size
@@ -317,7 +356,8 @@ def consensus_admm(
 
     _sync(device)
     t0 = time.perf_counter()
-    out = _consensus_solve(local_prox, global_prox, config, W, n, data, xi0, ui0, z0)
+    out = _consensus_solve(local_prox, global_prox, config, W, n, data, xi0, ui0, z0,
+                           mesh=mesh)
     _sync(device)
     runtime = time.perf_counter() - t0  # before from_raw's host reads
     res = ADMMResults.from_raw({k: v for k, v in out.items() if k not in ("xi", "ui")}, config)
@@ -390,8 +430,9 @@ def _sharded_ls_setup(D, s, config, mesh, nshards, device):
     D = as_tensor(D).to(device)
     s = as_tensor(s).to(device=device, dtype=D.dtype)
     n = D.shape[1]
-    Di = shard_rows(pad_rows(D, W)[0], W)
-    si = shard_rows(pad_rows(s, W)[0], W)
+    # Over a process group each rank sets up its own block of shards.
+    Di = mesh.take(shard_rows(pad_rows(D, W)[0], W))
+    si = mesh.take(shard_rows(pad_rows(s, W)[0], W))
     data = ls_setup(Di, si, config.dynamic_rho, float(config.rho))
     local = _lasso_local_prox_dynamic if config.dynamic_rho else _lasso_local_prox
     return local, data, n, mesh, W
@@ -570,7 +611,7 @@ def consensus_logreg(
         raise ValueError(f"ell must be ({m},) labels, got {tuple(ell.shape)}")
     if inner not in ("newton", "newton_cg"):
         raise ValueError(f"inner must be 'newton' or 'newton_cg', got {inner!r}")
-    Yi = shard_rows(pad_rows(D * ell[:, None], W)[0], W)   # (W, m/W, n)
+    Yi = mesh.take(shard_rows(pad_rows(D * ell[:, None], W)[0], W))   # (W, m/W, n)
     data = {"Yi": Yi, "lam": torch.as_tensor(lam, dtype=D.dtype, device=device)}
     if inner == "newton_cg":
         data["Yi2"] = Yi * Yi
@@ -681,7 +722,7 @@ def consensus_covsel(
     # Global centering + normalization BEFORE sharding, so that
     # sum_i S_i = empirical_covariance(D) exactly.
     Dc = (D - D.mean(dim=0, keepdim=True)) / math.sqrt(m - 1)
-    Si = covsel_setup(shard_rows(pad_rows(Dc, W)[0], W))     # (W, p, p) local Grams
+    Si = covsel_setup(mesh.take(shard_rows(pad_rows(Dc, W)[0], W)))  # (W, p, p) local Grams
     dt = Si.dtype
     data = {"Si": Si, "lam": torch.as_tensor(lam, dtype=dt, device=device),
             "wgt": torch.as_tensor(1.0 / W, dtype=dt, device=device)}
@@ -700,10 +741,13 @@ def consensus_covsel(
 
 
 def _consensus_batch(local, global_prox, data, mapped, cfg, W, n, xi0, ui0, z0, Bn, device,
-                     rdtype, body):
+                     rdtype, body, mesh):
     """Run B consensus lanes as one program (``torch.func.vmap`` over the
     step, a freeze select at every sub-step); returns the raw dict and the
-    loop's wall time.  ``mapped`` names the data keys stacked over lanes."""
+    loop's wall time.  ``mapped`` names the data keys stacked over lanes.
+    Over ``mesh``'s process group each rank runs its block of lanes, every
+    shard of them stacked on its device, and the results come back whole
+    through one ``all_gather``."""
     def init(v, shape, what):
         if v is None:
             return torch.zeros(shape, dtype=rdtype, device=device)
@@ -717,11 +761,15 @@ def _consensus_batch(local, global_prox, data, mapped, cfg, W, n, xi0, ui0, z0, 
     z0 = init(z0, (Bn, n), "z0")
     cfg = resolve_unroll(cfg, body)
     dims = {k: (0 if k in mapped else None) for k in data}
+    rows = mesh.rows(Bn, "lanes")
+    data = {k: (v[rows] if k in mapped else v) for k, v in data.items()}
     _sync(device)
     t0 = time.perf_counter()
-    out = _consensus_solve(local, global_prox, cfg, W, n, data, xi0, ui0, z0, data_dims=dims)
+    out = _consensus_solve(local, global_prox, cfg, W, n, data, xi0[rows], ui0[rows], z0[rows],
+                           data_dims=dims, mesh=mesh.local())
     _sync(device)
-    return out, time.perf_counter() - t0
+    runtime = time.perf_counter() - t0
+    return gather_tree(mesh, out), runtime
 
 
 def _batch_results(out, runtime, W, mesh, shape=None):
@@ -767,7 +815,7 @@ def _consensus_ls_batch(D, S, penalties, global_prox, config, *, mesh, nshards, 
     for key, val in penalties.items():
         data[key] = _lane_values(val, Bn, D.dtype, device)
     out, runtime = _consensus_batch(local, global_prox, data, mapped, config, W, n, xi0, ui0,
-                                    z0, Bn, device, D.dtype, "gemv")
+                                    z0, Bn, device, D.dtype, "gemv", mesh)
     return _batch_results(out, runtime, W, mesh)
 
 
@@ -865,5 +913,5 @@ def consensus_covsel_batch(
     flat = lambda v, shape: None if v is None else as_tensor(v).reshape(shape)  # noqa: E731
     out, runtime = _consensus_batch(local, _lasso_global_prox, data, {"Si", "lam"}, config, W,
                                     nn, flat(xi0, (Bn, W, nn)), flat(ui0, (Bn, W, nn)),
-                                    flat(z0, (Bn, nn)), Bn, device, dt, "heavy")
+                                    flat(z0, (Bn, nn)), Bn, device, dt, "heavy", mesh)
     return _batch_results(out, runtime, W, mesh, shape=(p, p))

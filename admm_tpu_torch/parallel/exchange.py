@@ -25,8 +25,13 @@ d = (W/rho)||u - uhat||^2 + rho||z - v||_F^2), Anderson acceleration on
 iteration and the stall window.  No H-norm stop and no adaptive rho, as
 in ``admm_tpu``.  The lean alg-0/relax-1 path keeps z implicit.
 
-The W agents are dim 0 of (W, n) tensors on one device (``mesh.Mesh``);
-the loop is ``_loop.run_loop``.
+The W agents are dim 0 of (W, n) tensors on one device (``mesh.Mesh``),
+or each rank's block of them over a process group; the loop is
+``_loop.run_loop``.  A step issues two collectives through the mesh: the
+mean over the agents (n floats; with relaxation the relaxed mean rides in
+the same call), and the agents' sums of the residual norms (three
+scalars, one more under relaxation and one for the alg-2 d-value).  The
+stacked allocations come back whole through one ``all_gather``.
 """
 
 from __future__ import annotations
@@ -39,12 +44,12 @@ import torch
 
 from ..anderson import AndersonWindow
 from ..config import ADMMConfig, matmul_precision, resolve_unroll
-from ..engine import _fro, _sync, fast_update, residual_balance_factor
+from ..engine import _fro, _fro2, _sync, fast_update, residual_balance_factor
 from ..models._common import as_tensor
 from ..results import ADMMResults
 from ._loop import history, run_loop, traces
 from .consensus import _data_dtype, _on_device
-from .mesh import Mesh, make_mesh, resolve_mesh
+from .mesh import Mesh, resolve_mesh, shard_count
 
 
 def _names(cfg):
@@ -58,8 +63,9 @@ def _needs_z(cfg):
     return cfg.relax != 1.0 or bool(cfg.alg) or cfg.anderson > 0
 
 
-def _make_exchange_step(local_prox, cfg: ADMMConfig, W: int, n: int, window):
-    """One exchange iteration (``admm_tpu``'s ``_make_exchange_run`` step)."""
+def _make_exchange_step(local_prox, cfg: ADMMConfig, W: int, n: int, window, mesh: Mesh):
+    """One exchange iteration (``admm_tpu``'s ``_make_exchange_run`` step);
+    ``W`` is the global agent count and ``mesh`` reduces over the agents."""
     alg = cfg.alg
     relax = float(cfg.relax)
     use_relax = relax != 1.0
@@ -83,32 +89,42 @@ def _make_exchange_step(local_prox, cfg: ADMMConfig, W: int, n: int, window):
             u_prev, uhat = u, c["uhat"]
             xi_new = local_prox(c["v"] - uhat[None, :], rho, data)
             u_base = uhat
-        xbar_new = torch.mean(xi_new, dim=0)
-
         if use_relax:
             xhat = relax * xi_new + (1.0 - relax) * zprev
-            xhat_bar = torch.mean(xhat, dim=0)
+            xbar_new, xhat_bar = mesh.pmean(xi_new, xhat)
             z_new = xhat - xhat_bar[None, :]
             u_new = u_base + xhat_bar
-            pnorm = _fro(xi_new - z_new)  # the UNRELAXED x, as the engine
         else:
+            xbar_new = mesh.pmean(xi_new)
             z_new = xi_new - xbar_new[None, :]
             u_new = u_base + xbar_new
-            pnorm = sqW * _fro(xbar_new)
 
         new = {}
-        if alg:
-            dval = ((float(W) / rho) * torch.sum((u_new - uhat) ** 2)
-                    + rho * torch.sum((z_new - c["v"]) ** 2)) if alg == 2 else None
+        if alg == 1:
+            v_new, uhat_new, a_new, _, _ = fast_update(
+                alg, cfg, aprev=c["a"], dprev=None, z=z_new, zprev=zprev, u=u_new,
+                uprev=u_prev, v=c["v"])
+            new.update(v=v_new, uhat=uhat_new, a=a_new)
+
+        # The agents' sums of the norms in one collective.
+        parts = [_fro2(z_new - (v_new if alg == 1 else zprev)), _fro2(xi_new), _fro2(z_new)]
+        if use_relax:
+            parts.append(_fro2(xi_new - z_new))  # the UNRELAXED x, as the engine
+        if alg == 2:
+            parts.append(torch.sum((z_new - c["v"]) ** 2))
+        sums = mesh.psum(*parts)
+        pnorm = torch.sqrt(sums[3]) if use_relax else sqW * _fro(xbar_new)
+
+        if alg == 2:
+            dval = (float(W) / rho) * torch.sum((u_new - uhat) ** 2) + rho * sums[-1]
             v_new, uhat_new, a_new, d_new, restarted_i = fast_update(
                 alg, cfg, aprev=c["a"], dprev=c.get("d"), z=z_new, zprev=zprev, u=u_new,
                 uprev=u_prev, v=c["v"], dval=dval)
-            new.update(v=v_new, uhat=uhat_new, a=a_new)
-            if alg == 2:
-                new["d"] = d_new
+            new.update(v=v_new, uhat=uhat_new, a=a_new, d=d_new)
 
-        dnorm = rho * _fro(z_new - (v_new if alg == 1 else zprev))
-        perr = sqWn * cfg.abstol + cfg.reltol * torch.maximum(_fro(xi_new), _fro(z_new))
+        dnorm = rho * torch.sqrt(sums[0])
+        perr = sqWn * cfg.abstol + cfg.reltol * torch.maximum(torch.sqrt(sums[1]),
+                                                              torch.sqrt(sums[2]))
         derr = sqWn * cfg.abstol + cfg.reltol * rho * sqW * _fro(u_new)
 
         diverged_i = ~torch.isfinite(pnorm) if cfg.nanguard else no
@@ -160,16 +176,22 @@ def _make_exchange_step(local_prox, cfg: ADMMConfig, W: int, n: int, window):
     return step
 
 
-def _exchange_solve(local_prox, cfg: ADMMConfig, W: int, n: int, data, xi0, u0) -> dict:
+def _exchange_solve(local_prox, cfg: ADMMConfig, W: int, n: int, data, xi0, u0,
+                    mesh: Mesh) -> dict:
+    """Run the exchange iteration from the whole (W, n) ``xi0`` and the
+    price ``u0``; over ``mesh``'s process group the agents' state (and
+    ``data``) is this rank's block, the results whole."""
     rdtype, device = xi0.dtype, xi0.device
     N, alg = int(cfg.maxiters), cfg.alg
     full = lambda v: torch.full((), v, dtype=rdtype, device=device)  # noqa: E731
     false = torch.zeros((), dtype=torch.bool, device=device)
     names = _names(cfg)
-    window = (AndersonWindow(cfg, [W * n, n], dtype=rdtype, device=device)
-              if cfg.anderson > 0 else None)
     xbar0 = torch.mean(xi0, dim=0)
+    xi0 = mesh.take(xi0)
     z0 = xi0 - xbar0[None, :]
+    window = (AndersonWindow(cfg, [xi0.shape[0] * n, n], dtype=rdtype, device=device,
+                             sharded=[True, False], psum=mesh.psum)
+              if cfg.anderson > 0 else None)
     s = {"k": torch.zeros((), dtype=torch.int64, device=device), "xi": xi0, "u": u0,
          "xbar": xbar0, "rho": full(cfg.rho), "done": false, "diverged": false,
          "stalled": false}
@@ -192,11 +214,15 @@ def _exchange_solve(local_prox, cfg: ADMMConfig, W: int, n: int, data, xi0, u0) 
         bufs["aF"], bufs["aT"] = window.rings()
         s["acnt"], s["abest"] = window.initial()
 
-    step = _make_exchange_step(local_prox, cfg, W, n, window)
+    step = _make_exchange_step(local_prox, cfg, W, n, window, mesh)
     with matmul_precision(cfg.matmul_precision):
         s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll))
-    return {"steps": s["k"], "xopt": s["xi"],
-            "zopt": s["z"] if _needs_z(cfg) else s["xi"] - s["xbar"][None, :],
+    if _needs_z(cfg):
+        xi, z = mesh.gather(s["xi"], s["z"])
+    else:
+        xi = mesh.gather(s["xi"])
+        z = xi - s["xbar"][None, :]
+    return {"steps": s["k"], "xopt": xi, "zopt": z,
             "uopt": s["u"], "xbar": s["xbar"], "rho_final": s["rho"],
             "diverged": s["diverged"], "stalled": s["stalled"], "hist": traces(names, bufs, N)}
 
@@ -222,7 +248,8 @@ def exchange_admm(
     (W, n) and ``u0`` (n,) warm-start the allocations and the price.
     Results: ``xopt`` the stacked allocations, ``uopt`` the shared price
     (rho * uopt estimates the clearing price), ``extra['xbar']`` the
-    residual mean.  Placement and dtype as in ``consensus_admm``.
+    residual mean.  Placement and dtype as in ``consensus_admm``; over a
+    process group ``data``'s per-agent leaves hold this rank's block.
     """
     mesh, device = resolve_mesh(mesh, device, data)
     W = nagents if nagents is not None else mesh.size
@@ -243,7 +270,7 @@ def exchange_admm(
 
     _sync(device)
     t0 = time.perf_counter()
-    out = _exchange_solve(local_prox, config, W, n, data, xi0, u0)
+    out = _exchange_solve(local_prox, config, W, n, data, xi0, u0, mesh)
     _sync(device)
     runtime = time.perf_counter() - t0
     res = ADMMResults.from_raw({k: v for k, v in out.items() if k != "xbar"}, config)
@@ -298,9 +325,6 @@ def exchange_quadratic(
     if tuple(bs.shape) != tuple(As.shape[:2]):
         raise ValueError(f"bs must be {tuple(As.shape[:2])}, got {tuple(bs.shape)}")
     W, _, n = As.shape
-    if W < mesh.size:
-        mesh = make_mesh(W, mesh.axis_names[0], device=device)
-    elif W % mesh.size:
-        raise ValueError(f"nagents={W} must be a multiple of the mesh size {mesh.size}")
-    return exchange_admm(_quad_local_prox, quad_setup(As, bs), n, config, mesh=mesh,
-                         nagents=W, xi0=xi0, u0=u0)
+    W, mesh = shard_count(mesh, W)
+    return exchange_admm(_quad_local_prox, quad_setup(mesh.take(As), mesh.take(bs)), n, config,
+                         mesh=mesh, nagents=W, xi0=xi0, u0=u0)

@@ -1,14 +1,29 @@
-"""The shard mesh on one device, and static row sharding (port of
-``admm_tpu/parallel/mesh.py``).
+"""The shard mesh, stacked on one device or placed over processes, and
+static row sharding (port of ``admm_tpu/parallel/mesh.py``).
 
 ``admm_tpu`` writes every sharded runner as one program over stacked
 (W, ...) arrays and lets GSPMD place the leading axis on a device mesh.
-Here a mesh is a small value naming that stacked layout: ``shape`` (the
-shard count, or lanes x shards), ``axis_names`` and the ``device`` that
-holds every shard.  A mean or sum over the mesh axis is a mean or sum
-over dim 0 of a tensor on that device, so W shards run on one card as
-they run on ``admm_tpu``'s 8 virtual CPU devices; placing the shard axis
-over processes is ROADMAP.md queue 1, slice 10b.
+Here a mesh is a small value naming that layout: ``shape`` (the mesh's
+positions, or lanes x shards), ``axis_names``, the ``device`` of this
+process and an optional ``torch.distributed`` process ``group``.
+
+- Without a group (``make_mesh(n)``) every position lies on ``device``:
+  W shards are dim 0 of one tensor, and a mean or sum over the mesh axis
+  is a mean or sum over dim 0, as on ``admm_tpu``'s 8 virtual CPU
+  devices.
+- With a group of P ranks (``make_mesh(n, group=...)``,
+  ``multihost.global_mesh``) each rank holds a contiguous block of W/P
+  shards stacked on dim 0 of its own device (``Mesh.rows``), and every
+  reduction over the shard axis is the rank's local reduction followed by
+  one ``torch.distributed.all_reduce``.
+
+The runners reduce over the shard axis only through ``Mesh.psum``,
+``Mesh.pmean`` and ``Mesh.gather``, so one code path serves both
+layouts.  Without a group ``psum`` returns its arguments and ``pmean`` is
+``torch.mean`` over dim 0, so a stacked solve computes what it computed
+before the group existed, bit for bit.  Each call counts, in
+``Mesh.stats``, the collective it is (or, without a group, would be)
+and its payload bytes.
 
 The reference balances work with ``slicemaker`` (errorcheck.m:216-267):
 N rows over W workers, remainder spread over the first slices.  Stacked
@@ -21,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,18 +44,199 @@ import torch
 from ..device import resolve_device
 
 
+def _new_stats():
+    return {"calls": {}, "bytes": {}}
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over a process group's ranks of each rank's part, to a value
+    every rank holds whole.  Differentiated with the convention that a
+    value every rank holds has its whole cotangent on every rank: the
+    cotangent of each part is the sum's own (``_Bcast``)."""
+
+    @staticmethod
+    def forward(flat, group):
+        import torch.distributed as dist
+
+        out = flat.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Bcast.apply(grad, ctx.group), None
+
+
+class _Bcast(torch.autograd.Function):
+    """A value every rank holds whole, handed to a computation on this
+    rank's shards: the identity, whose cotangent (each rank's part) is
+    summed over the ranks (``_AllReduceSum``)."""
+
+    @staticmethod
+    def forward(t, group):
+        return t.view_as(t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad.contiguous(), ctx.group), None
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """W stacked shards (or lanes x shards) on one device."""
+    """Mesh positions stacked on one device, or placed over the ranks of a
+    process group (the first axis over the ranks, in contiguous blocks)."""
 
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     device: torch.device
+    group: Any = None
+    # Collectives issued through this mesh (and its sub-meshes): calls and
+    # payload bytes per operation; ``reset_stats`` empties it.
+    stats: dict = dataclasses.field(default_factory=_new_stats, compare=False, repr=False)
 
     @property
     def size(self) -> int:
-        """The number of shards (of lane-shard pairs on a 2-D mesh)."""
+        """The number of mesh positions (lane-shard pairs on a 2-D mesh)."""
         return math.prod(self.shape)
+
+    @property
+    def world(self) -> int:
+        """The ranks the mesh spans: 1 without a group."""
+        if self.group is None:
+            return 1
+        import torch.distributed as dist
+
+        return dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the group: 0 without one."""
+        if self.group is None:
+            return 0
+        import torch.distributed as dist
+
+        return dist.get_rank(self.group)
+
+    def local(self) -> "Mesh":
+        """The mesh without its group: what one rank holds, stacked, with
+        counts of its own (its reductions are no collectives)."""
+        return dataclasses.replace(self, group=None, stats=_new_stats())
+
+    def reset_stats(self) -> dict:
+        """Empty the collective counts; returns the counts it held."""
+        old = {k: dict(v) for k, v in self.stats.items()}
+        for v in self.stats.values():
+            v.clear()
+        return old
+
+    def rows(self, count: int, what: str = "shards") -> slice:
+        """This rank's contiguous block of ``count`` stacked rows (shards,
+        or lanes on a 2-D mesh): all of them without a group."""
+        P = self.world
+        if count % P:
+            raise ValueError(f"{count} {what} must divide over the {P} ranks of the mesh's "
+                             f"process group")
+        per = count // P
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+    def take(self, t, count: Optional[int] = None, what: str = "shards"):
+        """This rank's block of dim 0 of ``t`` (the whole of it without a
+        group); ``count`` defaults to ``t.shape[0]``."""
+        if self.group is None:
+            return t
+        return t[self.rows(t.shape[0] if count is None else count, what)]
+
+    def _count(self, op: str, nbytes: int) -> None:
+        calls, nb = self.stats["calls"], self.stats["bytes"]
+        calls[op] = calls.get(op, 0) + 1
+        nb[op] = nb.get(op, 0) + int(nbytes)
+
+    def psum(self, *parts, grad: bool = False):
+        """The sums over every rank of ``parts``, each this rank's partial
+        sum (a tensor of any shape, all of one dtype), in one
+        ``all_reduce``; without a group the parts themselves.  ``grad``:
+        differentiable (``_AllReduceSum``), for an implicit solver's map;
+        the runners' calls skip the Function's host cost."""
+        nbytes = sum(p.numel() * p.element_size() for p in parts)
+        self._count("all_reduce", nbytes)
+        if self.group is None:
+            return parts if len(parts) > 1 else parts[0]
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        if grad:
+            flat = _AllReduceSum.apply(flat, self.group)
+        else:
+            import torch.distributed as dist
+
+            dist.all_reduce(flat, group=self.group)
+        out, at = [], 0
+        for p in parts:
+            out.append(flat[at:at + p.numel()].reshape(p.shape))
+            at += p.numel()
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def bcast(self, t):
+        """``t``, a value every rank holds whole, as the input of a
+        computation on this rank's shards: the identity, and under autograd
+        the cotangent summed over the ranks (so that the gradient of a
+        whole value counts every rank's use of it once)."""
+        return t if self.group is None else _Bcast.apply(t, self.group)
+
+    def pmean(self, *stacks, grad: bool = False):
+        """The means over the shard axis (dim 0, all W shards) of
+        ``stacks``, in one ``all_reduce``: without a group ``torch.mean``
+        over dim 0; with one, the ranks' local means summed and divided by
+        the rank count (exact for a power of two, and for one rank the
+        local mean itself).  ``grad`` as in ``psum``."""
+        if self.group is None:
+            self._count("all_reduce", sum(s[0].numel() * s.element_size() for s in stacks))
+            out = tuple(torch.mean(s, dim=0) for s in stacks)
+            return out if len(out) > 1 else out[0]
+        P = self.world
+        sums = self.psum(*(torch.mean(s, dim=0) for s in stacks), grad=grad)
+        sums = sums if len(stacks) > 1 else (sums,)
+        out = tuple(s / P for s in sums) if P > 1 else sums
+        return out if len(out) > 1 else out[0]
+
+    def gather(self, *blocks):
+        """The ranks' blocks of each tensor in ``blocks`` concatenated
+        along dim 0 (rank order), in one ``all_gather``; without a group
+        the blocks themselves.  Tensors of any dtype travel as float64,
+        which holds every value of the port's float, int and bool state
+        exactly."""
+        nbytes = sum(b.numel() * 8 for b in blocks)
+        self._count("all_gather", nbytes)
+        if self.group is None:
+            return blocks if len(blocks) > 1 else blocks[0]
+        import torch.distributed as dist
+
+        # gloo takes CUDA tensors here too (checked on the card by
+        # chip_smoke.py (z18b), torch 2.11): nothing is staged by hand.
+        flat = torch.cat([b.reshape(-1).to(torch.float64) for b in blocks])
+        parts = [torch.empty_like(flat) for _ in range(self.world)]
+        dist.all_gather(parts, flat, group=self.group)
+        out, at = [], 0
+        for b in blocks:
+            n = b.numel()
+            whole = torch.cat([p[at:at + n].reshape(b.shape) for p in parts])
+            out.append(whole.to(b.dtype))
+            at += n
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def barrier(self) -> None:
+        """Wait for every rank (nothing without a group)."""
+        if self.group is not None:
+            import torch.distributed as dist
+
+            self._count("barrier", 0)
+            dist.barrier(group=self.group)
 
 
 def visible_devices(device) -> int:
@@ -50,27 +246,64 @@ def visible_devices(device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
+def _group_device(device, group):
+    """The device of a mesh: ``device`` when given; over a process group
+    this rank's device (``multihost.rank_device``); else the solve's
+    default (``device.resolve_device``)."""
+    if device is not None or group is None:
+        return resolve_device(device)
+    from .multihost import rank_device
+
+    return rank_device()
+
+
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = "shards", *,
-              device=None) -> Mesh:
-    """A 1-D mesh of ``n_devices`` stacked shards on ``device`` (default:
-    the CUDA device, ``device.resolve_device``).  ``n_devices`` defaults
-    to the number of visible devices of that type, as ``admm_tpu``'s
-    defaults to ``jax.devices()``: 1 on one card, 1 on the CPU."""
-    device = resolve_device(device)
-    n = visible_devices(device) if n_devices is None else int(n_devices)
+              device=None, group=None) -> Mesh:
+    """A 1-D mesh of ``n_devices`` positions.  Without ``group`` they are
+    stacked on ``device`` (default: the CUDA device,
+    ``device.resolve_device``) and ``n_devices`` defaults to the number of
+    visible devices of that type, as ``admm_tpu``'s defaults to
+    ``jax.devices()``: 1 on one card, 1 on the CPU.  Over a process
+    ``group`` of P ranks ``n_devices`` defaults to P and must be a
+    multiple of it (each rank holds n/P positions), and ``device``
+    defaults to this rank's device (``multihost.rank_device``)."""
+    device = _group_device(device, group)
+    if group is not None:
+        import torch.distributed as dist
+
+        P = dist.get_world_size(group)
+        n = P if n_devices is None else int(n_devices)
+        if n % P:
+            raise ValueError(f"a mesh of {n} positions does not divide over the {P} ranks "
+                             f"of its process group")
+    else:
+        n = visible_devices(device) if n_devices is None else int(n_devices)
     if n < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n}")
-    return Mesh((n,), (axis_name,), device)
+    return Mesh((n,), (axis_name,), device, group)
 
 
 def make_mesh2d(lanes: int, shards: int,
                 axis_names: Tuple[str, str] = ("lanes", "shards"), *,
-                device=None) -> Mesh:
-    """A 2-D (lanes x shards) mesh on ``device``: instance lanes on axis 0,
-    consensus / transpose-reduction row shards on axis 1."""
+                device=None, group=None) -> Mesh:
+    """A 2-D (lanes x shards) mesh: instance lanes on axis 0, consensus /
+    transpose-reduction row shards on axis 1.  Over a process ``group``
+    the LANES axis lies over the ranks (``lanes`` a multiple of the rank
+    count) and each rank stacks every shard of its lanes on its own device
+    (the layout of ``admm_tpu``'s two-process 2-D mesh), so a lanes step
+    issues no collective."""
     if lanes < 1 or shards < 1:
         raise ValueError(f"mesh {lanes}x{shards} needs positive sizes")
-    return Mesh((int(lanes), int(shards)), tuple(axis_names), resolve_device(device))
+    device = _group_device(device, group)
+    if group is not None:
+        import torch.distributed as dist
+
+        P = dist.get_world_size(group)
+        if lanes % P:
+            raise ValueError(f"a {lanes}x{shards} mesh places its lane axis over the {P} "
+                             f"ranks of its process group; {lanes} lanes do not divide "
+                             f"over them")
+    return Mesh((int(lanes), int(shards)), tuple(axis_names), device, group)
 
 
 def pad_rows(M, multiple: int):
@@ -115,10 +348,15 @@ def resolve_mesh(mesh: Optional[Mesh], device, *operands, ndim: int = 1):
 def shard_count(mesh: Mesh, nshards: Optional[int]):
     """``(W, mesh)`` of a 1-D sharded solve, with ``admm_tpu``'s rules over
     the stacked mesh: W defaults to the mesh size; fewer shards than the
-    mesh gives a sub-mesh of the first W; more must be a multiple of it."""
+    mesh gives a sub-mesh of the first W (not over a process group); more
+    must be a multiple of it.  The sub-mesh shares the mesh's counts."""
     W = mesh.size if nshards is None else int(nshards)
     if W < mesh.size:
-        mesh = make_mesh(W, mesh.axis_names[0], device=mesh.device)
+        if mesh.group is not None:
+            raise ValueError(f"nshards={W} is fewer than the {mesh.size} positions of a mesh "
+                             f"over a process group; a sub-mesh would leave ranks without "
+                             f"shards")
+        mesh = dataclasses.replace(mesh, shape=(W,))
     elif W % mesh.size:
         raise ValueError(f"nshards={W} must be a multiple of the mesh size {mesh.size}")
     return W, mesh

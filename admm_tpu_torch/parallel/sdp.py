@@ -17,6 +17,15 @@ every engine variant runs sharded; the z-prox is the serial PSD
 projection (eigh or Newton-Schulz).  m is zero-padded up to a multiple of
 W: a padded constraint carries 1.0 on the Gram's diagonal, so G stays
 SPD, and its residual and multiplier are 0.
+
+Over a mesh with a process group each rank keeps its block of the
+constraint stack; an x-prox then issues one ``all_gather`` of the m
+residuals and one ``all_reduce`` of the n^2-float correction (the m + n^2
+floats per iteration of ``admm_tpu``'s docstring).  Every rank forms the
+(m, m) Gram factor from the whole stack it is handed, as every process
+of ``admm_tpu`` holds the whole host array it places, so the factor is
+the same bits on every rank; the engine's (n, n) iterates are whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -34,12 +43,24 @@ from ..results import ADMMResults
 from .mesh import Mesh, resolve_mesh, shard_count
 
 
-def _prox_f_sharded(X, Z, U, rho, d):
-    # The affine projection with the constraint stack (W, mw, n, n).
-    V = Z - U - d["C"] / rho
-    ri = torch.einsum("wkij,ij->wk", d["A"], V)
-    y = cho_solve((d["L"], True), ri.reshape(-1) - d["bpad"])
-    return V - torch.einsum("wk,wkij->ij", y.reshape(ri.shape), d["A"])
+def _make_prox_f(mesh):
+    """The affine projection with the constraint stack (W, mw, n, n), this
+    rank's block of it in ``d["A"]`` when ``mesh`` has a process group;
+    ``mesh=None``: the whole stack, no mesh."""
+    same = lambda t: t  # noqa: E731
+    gather, psum, take = (same, same, same) if mesh is None else (mesh.gather, mesh.psum,
+                                                                  mesh.take)
+
+    def prox(X, Z, U, rho, d):
+        V = Z - U - d["C"] / rho
+        ri = gather(torch.einsum("wkij,ij->wk", d["A"], V))
+        y = cho_solve((d["L"], True), ri.reshape(-1) - d["bpad"])
+        return V - psum(torch.einsum("wk,wkij->ij", take(y.reshape(ri.shape)), d["A"]))
+
+    return prox
+
+
+_prox_f_sharded = _make_prox_f(None)
 
 
 def gram_factor(A4, pad_diag):
@@ -110,11 +131,11 @@ def sdp_sharded(
     pad_diag = torch.cat((b.new_zeros(m), b.new_ones(m_pad - m)))
     L = gram_factor(A4, pad_diag)
     check_gram_conditioning(L)  # one host read of the pivots, at setup
-    data = {"C": C, "A": A4, "bpad": bpad, "L": L}
+    data = {"C": C, "A": mesh.take(A4), "bpad": bpad, "L": L}
     pg = (_prox_g if prox_method == "eigh"
           else _ns_prox_g(int(ns_iters), int(ns_coarse), int(ns_correct), float(ns_delta)))
     zero = torch.zeros((n, n), dtype=C.dtype, device=device)
-    res = admm(_prox_f_sharded, pg, config, A=1.0, B=-1.0, c=0.0, shape_x=(n, n),
+    res = admm(_make_prox_f(mesh), pg, config, A=1.0, B=-1.0, c=0.0, shape_x=(n, n),
                shape_z=(n, n), x0=zero if x0 is None else x0, z0=zero if z0 is None else z0,
                u0=zero if u0 is None else u0, hooks=Hooks(obj=_obj), dtype=C.dtype, data=data,
                device=device)

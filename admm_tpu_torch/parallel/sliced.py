@@ -18,6 +18,11 @@ slices pad each block to the longest (the map drops the padding); a slice
 of length 0 (fewer slices than the mesh has shards) is not computed.  The
 result is a plain ``prox(x, z, u, rho)`` for the core engine, so slicing
 composes with every engine feature.
+
+Over a mesh with a process group each rank computes the slices of its
+block of mesh positions (zeros for a position without a slice), and one
+``all_gather`` of the (W, L) blocks hands every rank the whole update;
+the engine around the prox runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -70,6 +75,8 @@ def make_sliced_prox(prox_slice: Callable, slices: Union[int, Sequence[int]],
                 f"one slice per step. Pass a vector of at most {W} lengths "
                 f"(slicemaker(0, n, {W}) builds a mesh-balanced even split)")
     L = max(lengths)
+    if mesh.group is not None:
+        return _sliced_over_ranks(prox_slice, lengths + [0] * (W - len(lengths)), L, mesh)
     live = [k for k, length in enumerate(lengths) if length]
     # Static gather map: entry j of the flat result lives at block b's
     # offset o, position b*L + o of the stacked (len(live), L) blocks.
@@ -85,6 +92,26 @@ def make_sliced_prox(prox_slice: Callable, slices: Union[int, Sequence[int]],
         if dev not in idx_of:
             idx_of[dev] = torch.as_tensor(idx, dtype=torch.int64, device=dev)
         return stacked.reshape(-1).index_select(0, idx_of[dev])
+
+    return prox
+
+
+def _sliced_over_ranks(prox_slice, lengths, L, mesh):
+    """``make_sliced_prox`` over a process group: this rank's slices, the
+    (W, L) blocks gathered, the live entries selected."""
+    idx = np.concatenate([k * L + np.arange(n) for k, n in enumerate(lengths) if n])
+    mine = range(*mesh.rows(len(lengths)).indices(len(lengths)))
+    idx_of = {}
+
+    def prox(x, z, u, rho):
+        blocks = torch.stack([
+            prox_slice(x, z, u, rho, k).reshape(L) if lengths[k]
+            else torch.zeros(L, dtype=x.dtype, device=x.device) for k in mine])
+        stacked = mesh.gather(blocks).reshape(-1)
+        dev = stacked.device
+        if dev not in idx_of:
+            idx_of[dev] = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+        return stacked.index_select(0, idx_of[dev])
 
     return prox
 

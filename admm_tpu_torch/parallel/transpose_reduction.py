@@ -12,10 +12,16 @@ across workers; each iteration does
     u_i = u_i + D_i x - z_i        [local]
 
 Here the W shards are dim 0 of (W, m/W, ...) tensors on one device
-(``mesh.Mesh``), the reduce-sum is a sum over dim 0 and the replicated
-solve one n-by-n GEMV against the precomputed W^+ (pinv, rank-deficient D
-degrades gracefully; W^+ is independent of rho, so rho adaptation never
-refactors).
+(``mesh.Mesh``), or each rank's block of them over a process group; the
+reduce-sum goes through ``Mesh.psum`` and the replicated solve is one
+n-by-n GEMV against the precomputed W^+ (pinv, rank-deficient D degrades
+gracefully; W^+ is independent of rho, so rho adaptation never
+refactors).  A step issues two collectives: the n-float psi-sum
+sum_i D_i^T v_i, and one packing every shard-axis sum of the norms (three
+scalars, plus the two n-float dual sums D^T dz and D^T u when the dual
+test runs, two scalars for the alg-2 d-value and two for the H-norm).
+The row-space results z/u come back whole through one ``all_gather``,
+the objective's shard sum through one more collective.
 
 Stopping preserved from the unwrapped driver (unwrappedadmm.m:81-92):
 ``linearsvm_sharded`` forces stopcond='both' with nodualerror.  The runner
@@ -48,16 +54,18 @@ from ..models._common import as_tensor
 from ..models.unwrapped import random_start
 from ..ops.prox import hinge_prox, zero_one_prox
 from ..results import ADMMResults
-from ._loop import history, run_loop, traces
+from ._loop import gather_tree, history, run_loop, traces
 from .mesh import Mesh, lane_shard_count, pad_rows, resolve_mesh, shard_count, shard_rows
 
 
-def gram_pinv(Di):
+def gram_pinv(Di, mesh: Optional[Mesh] = None):
     """W^+ of W = sum_i D_i^T D_i (unwrappedadmm.m:96-123): the per-shard
-    Grams summed over the shard axis, symmetrized, then a pseudo-inverse,
-    at full precision."""
+    Grams summed over the shard axis (over ``mesh``'s ranks when it has a
+    group), symmetrized, then a pseudo-inverse, at full precision."""
     with matmul_precision("highest"):
         G = torch.einsum("wij,wik->jk", Di, Di)
+        if mesh is not None:
+            G = mesh.psum(G)
         return torch.linalg.pinv(0.5 * (G + G.T))
 
 
@@ -66,11 +74,11 @@ def _names(cfg):
             + (["dvals"] if cfg.alg == 2 else []) + (["avals"] if cfg.alg else []))
 
 
-def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window):
+def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window, mesh: Mesh):
     """One unwrapped-ADMM iteration over the sharded state (``admm_tpu``'s
     ``_make_unwrapped_run`` step): the engine's update order with A = D,
     B = -I, c = 0 specialized per shard.  ``data`` holds ``Di``, ``Winv``,
-    ``mask`` and ``aux``."""
+    ``mask`` and ``aux``; ``mesh`` sums over the shard axis."""
     alg = cfg.alg
     relax = float(cfg.relax)
     use_relax = relax != 1.0
@@ -99,7 +107,7 @@ def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window):
         else:
             uprev, uhat = ui, c["uhat"]
             src, u_base = c["v"] - uhat, uhat
-        x = Winv @ torch.einsum("wij,wi->j", Di, src)
+        x = Winv @ mesh.psum(torch.einsum("wij,wi->j", Di, src))
         Dx = torch.einsum("wij,j->wi", Di, x)
 
         # B = -I, c = 0: Axhat = relax*Dx - (1-relax)*(-zprev).
@@ -108,33 +116,47 @@ def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window):
         ui = u_base + (Axr - zi) * mask
 
         new = {}
-        if alg:
-            dval = ((1.0 / rho) * _fro2(ui - uhat) + rho * _fro2(zi - c["v"])
-                    if alg == 2 else None)
+        if alg == 1:
+            v_new, uhat_new, a_new, _, _ = fast_update(
+                alg, cfg, aprev=c["a"], dprev=None, z=zi, zprev=zprev, u=ui, uprev=uprev,
+                v=c["v"])
+            new.update(v=v_new, uhat=uhat_new, a=a_new)
+
+        # Every shard-axis sum of the norms in one collective; the norms
+        # are on the true residual D x - z (unrelaxed), as the engine's.
+        r = (Dx - zi) * mask
+        parts = [_fro2(r), _fro2(Dx * mask), _fro2(zi)]
+        if need_dual:
+            dz = zi - (v_new if alg == 1 else zprev)
+            parts += [torch.einsum("wij,wi->j", Di, dz), torch.einsum("wij,wi->j", Di, ui)]
+        if alg == 2:
+            parts += [_fro2(ui - uhat), _fro2(zi - c["v"])]
+        if needs_h:
+            wz_new, wu_new = zi, rho * ui
+            parts += [_fro2(c["wz"] - wz_new), _fro2(c["wu"] - wu_new)]
+        sums = list(mesh.psum(*parts))
+        r2, dx2, z2 = sums[:3]
+        del sums[:3]
+
+        if alg == 2:
+            du2, dv2 = sums[-4:-2] if needs_h else sums[-2:]
+            dval = (1.0 / rho) * du2 + rho * dv2
             v_new, uhat_new, a_new, d_new, restarted_i = fast_update(
                 alg, cfg, aprev=c["a"], dprev=c.get("d"), z=zi, zprev=zprev, u=ui,
                 uprev=uprev, v=c["v"], dval=dval)
-            new.update(v=v_new, uhat=uhat_new, a=a_new)
-            if alg == 2:
-                new["d"] = d_new
+            new.update(v=v_new, uhat=uhat_new, a=a_new, d=d_new)
 
-        # Norms on the true residual D x - z (unrelaxed), as the engine.
-        r = (Dx - zi) * mask
-        pnorm = torch.sqrt(_fro2(r))
-        perr = sqm * cfg.abstol + cfg.reltol * torch.maximum(torch.sqrt(_fro2(Dx * mask)),
-                                                              torch.sqrt(_fro2(zi)))
+        pnorm = torch.sqrt(r2)
+        perr = sqm * cfg.abstol + cfg.reltol * torch.maximum(torch.sqrt(dx2), torch.sqrt(z2))
         if need_dual:
-            dz = zi - (v_new if alg == 1 else zprev)
-            dnorm = rho * torch.sqrt(_fro2(torch.einsum("wij,wi->j", Di, dz)))
-            derr = sqm * cfg.abstol + cfg.reltol * rho * torch.sqrt(
-                _fro2(torch.einsum("wij,wi->j", Di, ui)))
+            dnorm = rho * torch.sqrt(_fro2(sums[0]))
+            derr = sqm * cfg.abstol + cfg.reltol * rho * torch.sqrt(_fro2(sums[1]))
         else:
             dnorm = derr = nan
 
         diverged_i = ~torch.isfinite(pnorm) if cfg.nanguard else no
         if needs_h:
-            wz_new, wu_new = zi, rho * ui
-            Hsq = rho0 * _fro2(c["wz"] - wz_new) + rho0 * _fro2(c["wu"] - wu_new)
+            Hsq = rho0 * sums[-2] + rho0 * sums[-1]
             if cfg.convtest and alg == 0:
                 H1 = c["Hprev"]
                 diverged_i = diverged_i | ((i >= 2) & (H1 > eps) & (Hsq > H1)
@@ -192,11 +214,16 @@ def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window):
 
 
 def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: int, data,
-                     x0, z0, u0, data_dims=None) -> dict:
+                     x0, z0, u0, data_dims=None, mesh: Optional[Mesh] = None,
+                     local_state: bool = False) -> dict:
     """Run the unwrapped iteration from (x0, z0, u0); ``data`` holds
     ``Di`` (W, m/W, n), ``Winv`` (n, n), ``mask`` (W, m/W) and ``aux`` (a
-    tuple of per-row (W, m/W) tensors).  Returns the raw result dict;
-    with ``data_dims`` the state carries a leading lane axis."""
+    tuple of per-row (W, m/W) tensors), and z0/u0 are (W, m/W) — over
+    ``mesh``'s process group, this rank's block of shards, the row-space
+    results coming back whole (with ``local_state``, staying this rank's
+    block).  Returns the raw result dict; with ``data_dims`` the state
+    carries a leading lane axis and the shards are local."""
+    mesh = Mesh((1,), ("shards",), x0.device) if mesh is None else mesh
     lead = tuple(x0.shape[:-1])
     rdtype, device = x0.dtype, x0.device
     N, alg = int(cfg.maxiters), cfg.alg
@@ -205,7 +232,8 @@ def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: in
     z0, u0 = z0 * data["mask"], u0 * data["mask"]
     names = _names(cfg)
     mp = data["mask"].numel()
-    window = (AndersonWindow(cfg, [mp, mp], dtype=rdtype, device=device)
+    window = (AndersonWindow(cfg, [mp, mp], dtype=rdtype, device=device,
+                             sharded=[True, True], psum=mesh.psum)
               if cfg.anderson > 0 else None)
 
     s = {"k": torch.zeros(lead, dtype=torch.int64, device=device), "x": x0, "z": z0, "u": u0,
@@ -228,7 +256,7 @@ def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: in
         bufs["aF"], bufs["aT"] = window.rings(lead)
         s["acnt"], s["abest"] = window.initial(lead)
 
-    step = _make_unwrapped_step(prox_g_shard, cfg, m, window)
+    step = _make_unwrapped_step(prox_g_shard, cfg, m, window, mesh)
     with matmul_precision(cfg.matmul_precision):
         s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll), data_dims)
         objopt = None
@@ -237,7 +265,7 @@ def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: in
                 Dx = torch.einsum("wij,j->wi", d["Di"], x)
                 out = torch.zeros((), dtype=x.dtype, device=x.device)
                 if obj_shard is not None:
-                    out = out + obj_shard(x, Dx, zi, d["aux"])
+                    out = out + mesh.psum(obj_shard(x, Dx, zi, d["aux"]))
                 if obj_global is not None:
                     out = out + obj_global(x)
                 return out
@@ -246,7 +274,10 @@ def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: in
                                                                                data)
             else:
                 objopt = objective(s["x"], s["z"], data)
-    return {"steps": s["k"], "xopt": s["x"], "zopt": s["z"], "uopt": s["u"],
+    z, u = s["z"], s["u"]
+    if data_dims is None and not local_state:
+        z, u = mesh.gather(z, u)
+    return {"steps": s["k"], "xopt": s["x"], "zopt": z, "uopt": u,
             "rho_final": s["rho"], "diverged": s["diverged"], "stalled": s["stalled"],
             "objopt": objopt, "hist": traces(names, bufs, N, lanes=data_dims is not None)}
 
@@ -280,7 +311,9 @@ def unwrapped_admm_sharded(
     options.x0/z0/u0), overriding the random start (``random_start(seed,
     n, padded m)``; without padding the serial solver's own start).  The
     solve runs in D's dtype on ``device``, the mesh's device, D's, or the
-    CUDA device.
+    CUDA device.  Over a mesh with a process group each rank takes its
+    block of D's row shards (and of ``aux``, z0, u0) and every rank gets
+    the whole results.
     """
     mesh, device = resolve_mesh(mesh, device, D)
     W, mesh = shard_count(mesh, nshards)
@@ -306,16 +339,18 @@ def unwrapped_admm_sharded(
             raise ValueError(f"{name} must have shape {(m,)}; got {tuple(as_tensor(v0).shape)}")
         return shard(v0)
 
-    data = {"Di": shard_rows(Dp, W), "mask": shard_rows(mrow, W),
-            "aux": tuple(shard(a) for a in aux) if aux is not None else ()}
-    data["Winv"] = gram_pinv(data["Di"])
+    take = mesh.take
+    data = {"Di": take(shard_rows(Dp, W)), "mask": take(shard_rows(mrow, W)),
+            "aux": tuple(take(shard(a)) for a in aux) if aux is not None else ()}
+    data["Winv"] = gram_pinv(data["Di"], mesh)
     x0 = x_r if x0 is None else as_tensor(x0).to(device=device, dtype=dtype)
-    z0, u0 = row_state(z0, z_r, "z0"), row_state(u0, u_r, "u0")
+    z0, u0 = take(row_state(z0, z_r, "z0")), take(row_state(u0, u_r, "u0"))
     config = resolve_unroll(config, "gemv")
 
     _sync(device)
     t0 = time.perf_counter()
-    out = _unwrapped_solve(prox_g_shard, obj_shard, obj_global, config, m, data, x0, z0, u0)
+    out = _unwrapped_solve(prox_g_shard, obj_shard, obj_global, config, m, data, x0, z0, u0,
+                           mesh=mesh)
     _sync(device)
     runtime = time.perf_counter() - t0
     res = ADMMResults.from_raw(out, config)
@@ -390,7 +425,9 @@ def svm_batch_sharded(
     Lane b's random start is the next draw of one ``random_start``
     generator (x0, z0, u0 of lane 0, then of lane 1, ...); explicit ``x0``
     (B, n) / ``z0``/``u0`` (B, m) override.  Returns
-    ``models.batch.BatchResults``."""
+    ``models.batch.BatchResults``.  Over a mesh with a process group the
+    lanes lie over the ranks, every shard of a lane on its rank, and the
+    results come back whole through one ``all_gather``."""
     from ..models.batch import BatchResults
 
     mesh, device = resolve_mesh(mesh, device, D, ells, ndim=2)
@@ -440,12 +477,15 @@ def svm_batch_sharded(
 
     z0, u0 = row_state(z0, drawn[1], "z0"), row_state(u0, drawn[2], "u0")
     dims = {"Di": None, "Winv": None, "mask": None, "aux": (0, None, None)}
+    rows = mesh.rows(Bn, "lanes")
+    data["aux"] = (data["aux"][0][rows],) + data["aux"][1:]
     _sync(device)
     t0 = time.perf_counter()
-    out = _unwrapped_solve(prox, obj, _svm_obj_global, cfg, m, data, x0, z0, u0,
-                           data_dims=dims)
+    out = _unwrapped_solve(prox, obj, _svm_obj_global, cfg, m, data, x0[rows], z0[rows],
+                           u0[rows], data_dims=dims, mesh=mesh.local())
     _sync(device)
     runtime = time.perf_counter() - t0
+    out = gather_tree(mesh, out)
     return BatchResults(xopt=out["xopt"], zopt=out["zopt"], uopt=out["uopt"],
                         steps=out["steps"], objopt=out["objopt"], rho_final=out["rho_final"],
                         runtime=runtime, hist=out["hist"],

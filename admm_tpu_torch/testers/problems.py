@@ -395,9 +395,10 @@ def linearsvmtest(seed=0, mpos=128, mneg=128, sep=0.5, errtol=0.05, quiet=True,
 
     ``errtol01`` (default 2.5*errtol): the nonconvex 0-1 heuristic's
     slope scatter is ~2.5x the convex hinge solve's, so it gets its own
-    bar.  ``parallel=True`` (the sharded transpose-reduction path, with
-    ``nshards``) waits for ROADMAP.md queue 1, slice 10b, and raises
-    ``NotImplementedError``.
+    bar.  ``parallel=True`` routes both solves through the sharded
+    transpose-reduction path (the reference's options.parallel through
+    solvertester, unwrappedadmmtest.m:41-58), with the rows in ``nshards``
+    shards (default: the mesh size, ``parallel.make_mesh``).
     """
     if errtol01 is None:
         errtol01 = 2.5 * errtol
@@ -411,13 +412,10 @@ def linearsvmtest(seed=0, mpos=128, mneg=128, sep=0.5, errtol=0.05, quiet=True,
         t = np.maximum(np.sign(1 - v), 0) if loss == "01" else np.maximum(1 - v, 0)
         return 0.5 * np.sum(x * x) + C * np.sum(t)
 
-    if parallel:
-        raise NotImplementedError(
-            "linearsvmtest(parallel=True) needs the sharded transpose-reduction "
-            "runner of ROADMAP.md queue 1, slice 10b, which is not ported yet")
     Dd, elld = _in(dtype, D, ell)
-    res_h = linearsvm(Dd, elld, C, cfg, loss="hinge", seed=seed, device=device)
-    res_01 = linearsvm(Dd, elld, C, cfg, loss="01", seed=seed, device=device)
+    kw = dict(parallel=parallel, nshards=nshards, seed=seed, device=device)
+    res_h = linearsvm(Dd, elld, C, cfg, loss="hinge", **kw)
+    res_01 = linearsvm(Dd, elld, C, cfg, loss="01", **kw)
     xh, x01 = host64(res_h.xopt), host64(res_01.xopt)
     relerr_h = abs(1.0 - (-xh[1] / xh[0]))
     relerr_01 = abs(1.0 - (-x01[1] / x01[0]))

@@ -1,7 +1,7 @@
 """Utilities of the port (``admm_tpu/utils`` counterparts): input
-validation, the text report and plots, npz checkpoints, and profiling.
-The orbax checkpoints of sharded state wait for slice 10b of ROADMAP.md
-queue 1 and raise."""
+validation, the text report and plots, npz checkpoints, sharded
+checkpoints under the orbax names (a format of the port's own), and
+profiling."""
 
 from .checkpoint import load_state, load_state_orbax, save_state, save_state_orbax
 from .report import showresults

@@ -303,6 +303,38 @@ through the functions a user calls and checks what comes out:
      No run of (z17) launches K1-K4 (the z-steps are soft thresholds on
      the aggregate, a per-shard solve is a batched GEMV); none reads the
      host inside a sub-step but the eigh proxes (counted and printed).
+ 17. slice 10b, the shard axis over processes (``slice10b_phase``, (z18)):
+     (z18a) a one-rank NCCL process group in this process
+         (``initialize_cluster(backend="nccl")``, ``global_mesh()``) running
+         (z17a)'s converging solve: steps, x, z, u, xi, ui and every
+         history equal to (z17a)'s stacked run bit for bit, 2 all_reduce a
+         step (2n + 1 floats) and one all_gather; Z18_TIMED_STEPS steps
+         timed (iter/s beside (z17a)'s) and profiled as (z17a)'s (CUDA
+         launches and device us a step beside (z17a)'s); the NCCL
+         all_reduce at a step's payloads (``collective_microbench``);
+     (z18b) two gloo ranks spawned on the one card (``Z18B_WORKER``), each
+         its block of 4 of the 8 shards: (z17a)'s consensus LASSO
+         (converging, then timed), the gloo all_reduce at a step's
+         payloads, and ``z18b_runs`` in f64: ``linearsvm_sharded``,
+         ``exchange_quadratic``, ``sdp_sharded``, a sliced
+         ``admm(parallel='both')``, ``consensus_lasso_batch`` on a 2-D
+         mesh (lanes over the ranks) and the implicit consensus solver's
+         gradient (Z18B_ADJOINT_STEPS Neumann steps); every result the same
+         bits on both ranks, the
+         stacked run's steps (or one apart, the deciding pnorm printed),
+         the objective (or gradient) within 1e-5 of the stacked run's and
+         within (z17b)'s bar of serial f64 (``Z18B_BARS``); the same five
+         runners in f32, the same bits on both ranks and within
+         ``Z18B_F32_BAR`` of serial f64, their steps and objective printed
+         beside the stacked f32 run's and beside a stacked f32 run of the
+         same data with the shard blocks in reverse order (the witness of
+         how far the order of a shard sum alone moves an f32 stop);
+     (z18c) the same consensus LASSO over two NCCL ranks, a card each,
+         where the machine has two cards; else one line saying it did not
+         run and why;
+     (z18d) ``python -m admm_tpu_torch scaling --devices 8 --iters 50`` and
+         ``scaling --predict``, each exit 0.
+     No run of (z18) launches K1-K4 (each gloo rank checks its own).
 
 Kernel times are device times: CUDA events around replays of a CUDA
 graph that holds several calls (``graph_ms``), so that the host's time per
@@ -397,6 +429,23 @@ Z16_KNOWN_SWEEP_FAULTS = {"quadraticprogram"}
 Z17_W, Z17_ROWS, Z17_N = 8, 65536, 1024
 Z17_TIMED_STEPS = 2000
 Z17_ORACLE = dict(maxiters=5000, abstol=1e-7, reltol=1e-6, stallwindow=100, unroll="auto")
+# Slice 10b (z18): the timed steps of (z18a) and of each gloo rank's
+# full-width run, the ranks' time limit, and (z18b)'s bars against serial
+# f64 ((z17b)'s objective gaps, the exchange's cost against its f64
+# equilibrium's; the f64 sliced solve and lanes 1e-9; the gradient has none).
+Z18_TIMED_STEPS = 500
+Z18B_TIMEOUT_S = 600
+Z18B_ADJOINT_STEPS = 100  # the gradient's Neumann steps (the same cap on every run)
+Z18B_BARS = {"linearsvm_sharded": 1e-3, "exchange_quadratic": 1e-3, "sdp_sharded": 1e-3,
+             "sliced_both": 1e-9, "consensus_lasso_batch": 1e-9, "implicit_consensus": None}
+# The f32 runs of (z18b)'s runners against serial f64: (z17b)'s 1e-3 bar of
+# the f32 SVM, exchange and SDP, for the sliced solve and the lanes too.
+Z18B_F32_RUNNERS = ("linearsvm_sharded", "exchange_quadratic", "sdp_sharded", "sliced_both",
+                    "consensus_lasso_batch")
+Z18B_F32_BAR = 1e-3
+# The f32 exchange's steps, cut from the oracle's 5000 for time (it stalls
+# at none and ran all 5000 in (z17b)).
+Z18B_F32_EXCHANGE_STEPS = 3000
 # Slice 7b (z11)-(z13) and slice 8 (z14).
 RPCA_N = 256
 RPCA_RANK = 16
@@ -2709,10 +2758,28 @@ def _stop_margin(tag, a, b):
               f"dnorm {r.dnorm[k]:.9e} derr {r.derr[k]:.9e}")
 
 
+def z17_problem(dev):
+    """(z17a)'s consensus LASSO, ``(D, s, lam)``: D on ``dev`` from a seeded
+    generator, unit columns, s from a 10%-sparse x_true plus noise, lambda
+    = 0.1 ||D^T s||_inf; the same bits on every call on the same card."""
+    import torch
+
+    m, n = Z17_W * Z17_ROWS, Z17_N
+    gen = torch.Generator(device=dev).manual_seed(17)
+    D = torch.randn(m, n, generator=gen, device=dev)
+    D /= torch.linalg.vector_norm(D, dim=0, keepdim=True)
+    x_true = torch.randn(n, generator=gen, device=dev) * (
+        torch.rand(n, generator=gen, device=dev) < 0.1)
+    s = D @ x_true + 0.03 * torch.randn(m, generator=gen, device=dev)
+    return D, s, float(0.1 * torch.max(torch.abs(D.T @ s)))
+
+
 def slice10a_phase(dev):
     """Slice 10a, (z17a)-(z17b): the distributed layer with its shards
     stacked on the card; returns every kernel's launches summed over the
-    phase's main-path runs (all 0, each run is checked)."""
+    phase's main-path runs (all 0, each run is checked) and what (z18)
+    holds against (z17a): its converging f32 run, the serial f64
+    objective, and the timed run's iter/s, launches and device us a step."""
     import torch
 
     import admm_tpu_torch.parallel as TP
@@ -2729,15 +2796,7 @@ def slice10a_phase(dev):
     m = W * rows
     print(f"slice 10a: consensus_lasso, {W} shards of {rows} rows, n = {n}, f32")
 
-    # (z17a) D on the card from a seeded generator, unit columns, s from a
-    # 10%-sparse x_true plus noise.
-    gen = torch.Generator(device=dev).manual_seed(17)
-    D = torch.randn(m, n, generator=gen, device=dev)
-    D /= torch.linalg.vector_norm(D, dim=0, keepdim=True)
-    x_true = torch.randn(n, generator=gen, device=dev) * (
-        torch.rand(n, generator=gen, device=dev) < 0.1)
-    s = D @ x_true + 0.03 * torch.randn(m, generator=gen, device=dev)
-    lam = float(0.1 * torch.max(torch.abs(D.T @ s)))
+    D, s, lam = z17_problem(dev)
     print(f"  (z17a) D {m}x{n} f32 ({D.numel() * 4 / 2**30:.2f} GiB), Minv stack "
           f"{W * n * n * 4 / 2**20:.0f} MiB, lambda {lam:.6f}")
     cfg = ADMMConfig(maxiters=5000)
@@ -2761,6 +2820,7 @@ def slice10a_phase(dev):
           f"{abs(f32 - fser) / abs(fser):.3e} (bar 1e-2)")
     check(abs(f32 - fser) <= 1e-2 * abs(fser), "(z17a) objective within 1e-2 of serial f64")
     del D64, s64, r64, ser
+    z17a = {"r32": r32, "fser": fser}
 
     tcfg = ADMMConfig(maxiters=Z17_TIMED_STEPS, domaxiters=True, unroll="auto")
     rt = mp("z17a timed", lambda: TP.consensus_lasso(D, s, lam, tcfg, nshards=W))
@@ -2787,6 +2847,8 @@ def slice10a_phase(dev):
           f"launches/step, device kernel time {dev_ms / rp.steps * 1e3:.2f} us/step, busy "
           f"share {dev_ms / (rp.runtime * 1e3):.3f}; bound {bnd[0] * 1e3:.2f} us/step "
           f"({bnd[1]}, {nbytes / 1e6:.1f} MB against the {l2 / 1e6:.1f} MB L2), {share}")
+    z17a.update(ips=rt.steps / rt.runtime, launches=launches / rp.steps,
+                dev_us=dev_ms / rp.steps * 1e3)
     del D, s, data
 
     # (z17b) the other runners at matrix.py's widths, f32, against oracles.
@@ -2919,7 +2981,466 @@ def slice10a_phase(dev):
     print(f"  (z17) kernel launches over the phase's main-path runs {total}; "
           f"{time.perf_counter() - t0:.1f}s")
     check(not any(total.values()), "(z17) no K1-K4 launch on the phase's main paths")
+    return total, z17a
+
+
+def z18b_runs(dev, mesh8, mesh2d, dtype=None, reverse=False):
+    """(z18b)'s runners at matrix.py's widths on ``mesh8`` (8 shards:
+    stacked, or over a process group) and ``mesh2d`` (2 lanes x 4 shards),
+    on data from fixed seeds, in ``dtype`` (default float64): {name:
+    {"steps", "x", "obj", "hist", "ips", "calls"}}, "obj" the runner's
+    objective (the SVM's hinge objective, the exchange agents' total cost,
+    the SDP's <C, Z>, the sliced solve's |x|, the first and last lanes'
+    |Z|, the implicit solver's gradient, in f64 only), "hist" its pnorm
+    trace (or the lanes' steps), "calls" the collectives a step issued.
+    ``reverse``: only the runners that sum over the shard axis (the SVM,
+    the exchange, the SDP), on the same data with its 8 shard blocks in
+    reverse order, the same problem with the shard sums in another order."""
+    import torch
+
+    import admm_tpu_torch.parallel as TP
+    from admm_tpu_torch import ADMMConfig, admm, make_implicit_consensus_solver
+    from admm_tpu_torch.models.sdp import random_sdp_instance
+    from admm_tpu_torch.parallel import consensus as TC
+    from admm_tpu_torch.parallel.mesh import pad_rows, shard_rows
+
+    dtype = torch.float64 if dtype is None else dtype
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    oracle = ADMMConfig(**Z17_ORACLE)
+    rng = np.random.default_rng(18)
+    f64c = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+    cast = lambda a: torch.as_tensor(np.asarray(a, npdt), device=dev)  # noqa: E731
+
+    def blocks(a):
+        a = np.asarray(a)
+        return (np.ascontiguousarray(a.reshape(8, -1, *a.shape[1:])[::-1].reshape(a.shape))
+                if reverse else a)
+
+    out = {}
+
+    def keep(name, r, x, obj, hist=None, mesh=mesh8):
+        st = mesh.reset_stats()
+        steps = r.steps.tolist() if torch.is_tensor(r.steps) else int(r.steps)
+        nsteps = max(steps) if isinstance(steps, list) else steps
+        out[name] = {"steps": steps, "x": x.double().cpu().numpy(), "obj": float(obj),
+                     "hist": None if hist is None else hist.double().cpu().numpy(),
+                     "ips": nsteps / r.runtime if r.runtime else 0.0,
+                     "calls": {op: c / max(nsteps, 1) for op, c in st["calls"].items()}}
+
+    ms, ns = 4096, 512
+    Dn = rng.standard_normal((ms, ns))
+    ell = np.sign(Dn @ rng.standard_normal(ns) + 0.1 * rng.standard_normal(ms))
+    mesh8.reset_stats()
+    r = TP.linearsvm_sharded(cast(blocks(Dn)), cast(blocks(ell)), 1.0, oracle, mesh=mesh8)
+    keep("linearsvm_sharded", r, r.xopt, family_objective("hinge", Dn, ell, r.xopt),
+         r.hist["pnorm"])
+
+    Ax = rng.standard_normal((8, 512, 256))
+    bx = rng.standard_normal((8, 512))
+    xcfg = (oracle if dtype == torch.float64
+            else ADMMConfig(**dict(Z17_ORACLE, maxiters=Z18B_F32_EXCHANGE_STEPS)))
+    r = TP.exchange_quadratic(cast(blocks(Ax)), cast(blocks(bx)), xcfg, mesh=mesh8)
+    keep("exchange_quadratic", r, r.xopt,
+         exchange_cost(blocks(Ax), blocks(bx), r.xopt.double().cpu().numpy()), r.hist["pnorm"])
+
+    C, A, b, *_ = random_sdp_instance(128, 512, 32, rng, dtype=np.float32)
+    r = TP.sdp_sharded(cast(C), cast(blocks(A)), cast(blocks(b)), oracle, mesh=mesh8)
+    keep("sdp_sharded", r, r.zopt, float(np.sum(C.astype(np.float64)
+                                                 * r.zopt.double().cpu().numpy())),
+         r.hist["pnorm"])
+
+    nm = 2048
+    P, Q = rng.standard_normal((nm, nm)), rng.standard_normal((nm, nm))
+    r_, q_ = rng.standard_normal(nm), rng.standard_normal(nm)
+    if not reverse:
+        PtPinv, QtQinv = (cast(np.linalg.inv(M.T @ M + np.eye(nm))) for M in (P, Q))
+        Ptr, Qts = cast(P.T @ r_), cast(Q.T @ q_)
+        L = nm // 8
+
+        def pfs(x, z, u, rho, k):
+            return PtPinv[k * L:(k + 1) * L] @ (Ptr + rho * (z - u))
+
+        def pgs(x, z, u, rho, k):
+            return QtQinv[k * L:(k + 1) * L] @ (Qts + rho * (x + u))
+
+        r = admm(pfs, pgs, ADMMConfig(maxiters=1000), A=1.0, B=-1.0, c=0.0, m=nm,
+                 dtype=dtype, device=dev, parallel="both", slices=(0, 0), mesh=mesh8)
+        keep("sliced_both", r, r.xopt, float(torch.linalg.norm(r.xopt.double())),
+             r.hist["pnorm"])
+
+    S8 = np.stack([rng.standard_normal(ms) + 0.01 * k for k in range(8)])
+    if not reverse:
+        r = TP.consensus_lasso_batch(cast(Dn), cast(S8), 0.1, ADMMConfig(maxiters=500),
+                                     mesh=mesh2d, nshards=8)
+        keep("consensus_lasso_batch", r, r.zopt,
+             float(torch.linalg.norm(r.zopt[[0, 7]].double())), r.steps, mesh=mesh2d)
+    if reverse or dtype != torch.float64:
+        return out
+
+    Dg = rng.standard_normal((8 * 512, 64))
+    sg = Dg @ (rng.standard_normal(64) * (rng.random(64) < 0.5)) + 0.1 * rng.standard_normal(
+        8 * 512)
+    setup = TC.ls_setup(mesh8.take(shard_rows(pad_rows(f64c(Dg), 8)[0], 8)),
+                        mesh8.take(shard_rows(pad_rows(f64c(sg), 8)[0], 8)), False, 1.0)
+    solve = make_implicit_consensus_solver(
+        TC._lasso_local_prox, TC._lasso_global_prox,
+        ADMMConfig(maxiters=4000, abstol=1e-10, reltol=1e-10), 64, 8, mesh=mesh8,
+        vjp_maxiters=Z18B_ADJOINT_STEPS)
+    lam = torch.tensor(0.3, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    g = torch.func.grad(lambda lm: torch.sum(solve(dict(setup, lam=lm))[1] ** 2))(lam)
+    torch.cuda.synchronize()
+    st = mesh8.reset_stats()
+    adj = solve.stats["steps"][0]
+    out["implicit_consensus"] = {"steps": adj, "x": g.double().cpu().numpy().reshape(1),
+                                 "obj": float(g), "hist": None,
+                                 "ips": adj / (time.perf_counter() - t0),
+                                 "calls": {op: c / adj for op, c in st["calls"].items()}}
+    return out
+
+
+# (z18b)'s work on each of two gloo ranks on the one card, run by
+# ``multihost.run_ranks`` (``mesh`` the global mesh, ``rank``, ``save``).
+Z18B_WORKER = """
+import time
+import torch.distributed as dist
+import chip_smoke as C
+import admm_tpu_torch.parallel as TP
+from admm_tpu_torch import ADMMConfig
+from admm_tpu_torch.benchmarks.scaling import collective_microbench
+dev = mesh.device
+say = lambda msg: print(f"  (z18b) [rank {rank}] {msg}", flush=True)
+say(f"joined: gloo, {mesh.world} ranks, device {dev}")
+x = torch.ones(4, device=dev)
+dist.all_reduce(x)
+try:
+    parts = [torch.empty(4, device=dev) for _ in range(2)]
+    dist.all_gather(parts, x)
+    took = "takes"
+except RuntimeError as e:
+    took = "refuses (" + str(e).splitlines()[0][:120] + ")"
+say(f"gloo all_reduce takes CUDA tensors; all_gather {took}")
+C.reset_counts()
+g8 = TP.make_mesh(8, group=mesh.group)
+D, s, lam = C.z17_problem(dev)
+r = TP.consensus_lasso(D, s, lam, ADMMConfig(maxiters=5000), mesh=g8)
+torch.cuda.synchronize()
+st = g8.reset_stats()
+res = {"cons.steps": r.steps, "cons.zopt": r.zopt, "cons.pnorm": r.hist["pnorm"],
+       "cons.dnorm": r.hist["dnorm"]}
+say(f"consensus_lasso 8x65536x1024 f32, 4 shards a rank: steps {r.steps}, "
+    f"{r.steps / r.runtime:.1f} iter/s, collectives a step "
+    f"{ {k: v / r.steps for k, v in st['calls'].items()} }")
+tcfg = ADMMConfig(maxiters=C.Z18_TIMED_STEPS, domaxiters=True, unroll="auto")
+rt = TP.consensus_lasso(D, s, lam, tcfg, mesh=g8)
+st = g8.reset_stats()
+res["cons.ips"] = rt.steps / rt.runtime
+say(f"timed {rt.steps} steps: {rt.steps / rt.runtime:.1f} iter/s, "
+    f"{st['calls']['all_reduce'] / rt.steps:.2f} all_reduce a step")
+del D, s
+for row in collective_microbench(mesh=mesh, cols=C.Z17_N, quiet=True):
+    say(f"gloo all_reduce of {row['payload_floats']} floats from the card: "
+        f"{row['us_per_collective']:.1f} us")
+    res[f"coll.{row['payload_floats']}"] = row["us_per_collective"]
+m2d = TP.make_mesh2d(2, 4, group=mesh.group)
+for tag, dtype in (("", torch.float64), ("f32:", torch.float32)):
+    for name, v in C.z18b_runs(dev, g8, m2d, dtype=dtype).items():
+        say(f"{tag}{name}: steps {v['steps']}, objective {v['obj']:.9g}, "
+            f"{v['ips']:.1f} steps/s, collectives a step {v['calls']}")
+        res[tag + name + ".steps"] = np.asarray(v["steps"])
+        res[tag + name + ".x"] = v["x"]
+        res[tag + name + ".obj"] = v["obj"]
+        res[tag + name + ".ips"] = v["ips"]
+        if v["hist"] is not None:
+            res[tag + name + ".hist"] = v["hist"]
+counts = C.read_counts()
+say(f"kernel launches {counts}")
+res["launches"] = np.array([counts[k] for k in sorted(counts)])
+save(**res)
+"""
+
+
+def exchange_cost(Ax, bx, x):
+    """The exchange agents' total cost sum_i 0.5 ||A_i x_i - b_i||^2 in f64."""
+    r = np.einsum("wmi,wi->wm", Ax.astype(np.float64), x) - bx.astype(np.float64)
+    return float(0.5 * np.sum(r * r))
+
+
+def exchange_equilibrium(Ax, bx):
+    """The quadratic agents' closed-form market equilibrium in f64."""
+    A64, b64 = Ax.astype(np.float64), bx.astype(np.float64)
+    Ginv = np.stack([np.linalg.inv(A.T @ A) for A in A64])
+    Atb = np.einsum("wmi,wm->wi", A64, b64)
+    nu = np.linalg.solve(Ginv.sum(0), np.einsum("wij,wj->i", Ginv, Atb))
+    return np.einsum("wij,wj->wi", Ginv, Atb - nu[None, :])
+
+
+# (z18c)'s work on each of two NCCL ranks, a card each.
+Z18C_WORKER = """
+import chip_smoke as C
+import admm_tpu_torch.parallel as TP
+from admm_tpu_torch import ADMMConfig
+g8 = TP.make_mesh(8, group=mesh.group)
+D, s, lam = C.z17_problem(torch.device("cuda", 0))
+D, s = D.to(mesh.device), s.to(mesh.device)
+r = TP.consensus_lasso(D, s, lam, ADMMConfig(maxiters=5000), mesh=g8)
+st = g8.reset_stats()
+print(f"  (z18c) [rank {rank}] NCCL on {mesh.device}: steps {r.steps}, "
+      f"{r.steps / r.runtime:.1f} iter/s, collectives {st['calls']}", flush=True)
+save(steps=r.steps, zopt=r.zopt, pnorm=r.hist["pnorm"])
+"""
+
+
+def _two_ranks(tag, code, backend):
+    """Run ``code`` on two ranks of a ``backend`` group (``multihost.run_ranks``),
+    print their output, and return each rank's saved arrays; fails unless
+    both ran to their end within Z18B_TIMEOUT_S."""
+    import tempfile
+
+    from admm_tpu_torch.parallel import multihost
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, outputs, arrays = multihost.run_ranks(
+            code, 2, tmp, Z18B_TIMEOUT_S, join=dict(backend=backend, timeout=300))
+    for text in outputs:
+        print(text.replace(multihost.SENTINEL + "\n", "").rstrip())
+    check(rc == 0, f"({tag}) both {backend} ranks ran to their end")
+    return arrays
+
+
+def _same_bits(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def slice10b_phase(dev, z17a):
+    """Slice 10b, (z18a)-(z18d): the shard axis over processes; returns
+    every kernel's launches over the phase's main paths (all 0)."""
+    import tempfile
+
+    import torch
+
+    import admm_tpu_torch.parallel as TP
+    from admm_tpu_torch import ADMMConfig
+    from admm_tpu_torch.benchmarks.scaling import collective_microbench
+    from admm_tpu_torch.parallel import consensus as TC
+    from admm_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(kernel_counts(), 0)
+    mp = functools.partial(main_path, tally=total)
+    W, n = Z17_W, Z17_N
+    r32 = z17a["r32"]
+    print(f"slice 10b: the shard axis over processes ({W} shards of {Z17_ROWS} x {n} f32)")
+
+    # (z18a) a world-1 NCCL group in this process, at (z17a)'s width.
+    D, s, lam = z17_problem(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        count = multihost.initialize_cluster(f"file://{tmp}/pg", 1, 0, backend="nccl",
+                                             timeout=300)
+        try:
+            mesh = TP.make_mesh(W, group=TP.global_mesh().group)
+            check(count == 1 and mesh.device.type == "cuda" and mesh.world == 1,
+                  "(z18a) a one-rank NCCL group on the card")
+            r = mp("z18a", lambda: TP.consensus_lasso(D, s, lam, ADMMConfig(maxiters=5000),
+                                                      mesh=mesh))
+            st = mesh.reset_stats()
+            same = (r.steps == r32.steps and all(torch.equal(getattr(r, f), getattr(r32, f))
+                                                 for f in ("xopt", "zopt", "uopt"))
+                    and torch.equal(r.extra["xi"], r32.extra["xi"])
+                    and torch.equal(r.extra["ui"], r32.extra["ui"])
+                    and set(r.hist) == set(r32.hist)
+                    and all(_same_bits(r.hist[k].cpu().numpy(), v.cpu().numpy())
+                            for k, v in r32.hist.items()))
+            print(f"  (z18a) world-1 NCCL: steps {r.steps} ((z17a) {r32.steps}); steps, x, z, "
+                  f"u, xi, ui and every history {'equal' if same else 'DIFFER from'} (z17a)'s "
+                  f"bit for bit; NCCL collectives {st['calls']} ({st['calls'].get('all_reduce', 0) / r.steps:.0f} all_reduce a step, "
+                  f"{st['bytes'].get('all_reduce', 0) / r.steps:.0f} bytes a step)")
+            check(same, "(z18a) the world-1 NCCL run equals (z17a)'s stacked run bit for bit")
+            check(st["calls"] == {"all_reduce": 2 * r.steps, "all_gather": 1}
+                  and st["bytes"]["all_reduce"] == r.steps * (2 * n + 1) * 4,
+                  "(z18a) 2 all_reduce a step, 2n + 1 floats, one all_gather at the end")
+            tcfg = ADMMConfig(maxiters=Z18_TIMED_STEPS, domaxiters=True, unroll="auto")
+            rt = mp("z18a timed", lambda: TP.consensus_lasso(D, s, lam, tcfg, mesh=mesh))
+            mesh.reset_stats()
+            local, data, _, _, _ = TC._sharded_ls_setup(D, s, tcfg, mesh, W, dev)
+            data["lam"] = torch.as_tensor(lam, dtype=D.dtype, device=dev)
+            rp, launches, dev_ms = cuda_kernels(lambda: TP.consensus_admm(
+                local, TC._lasso_global_prox, data, n, tcfg, mesh=mesh, nshards=W))
+            st = mesh.reset_stats()
+            check(rp.steps == Z18_TIMED_STEPS and 0.0 < dev_ms < rp.runtime * 1e3,
+                  "(z18a) profiled run: every step ran, device time positive, below the wall")
+            print(f"  (z18a) timed {rt.steps} steps: {rt.steps / rt.runtime:.1f} iter/s "
+                  f"((z17a) stacked {z17a['ips']:.1f}); profiled: {launches / rp.steps:.2f} "
+                  f"CUDA launches a step ((z17a) {z17a['launches']:.2f}), device "
+                  f"{dev_ms / rp.steps * 1e3:.2f} us a step ((z17a) {z17a['dev_us']:.2f}), "
+                  f"busy share {dev_ms / (rp.runtime * 1e3):.3f}; "
+                  f"{st['calls']['all_reduce'] / rp.steps:.2f} NCCL all_reduce a step "
+                  f"(counted in the tests: 2)")
+            del data, local
+            for row in collective_microbench(mesh=mesh, cols=n, quiet=True):
+                print(f"  (z18a) NCCL (1 rank) all_reduce of {row['payload_floats']} floats: "
+                      f"{row['us_per_collective']:.2f} us (host clock, {row['ranks']} rank)")
+        finally:
+            multihost.shutdown()
+    del D, s
+
+    # (z18b) two gloo ranks sharing the card, against the stacked runs.
+    stacked8, stacked2d = TP.make_mesh(W, device=dev), TP.make_mesh2d(2, 4, device=dev)
+    ref = z18b_runs(dev, stacked8, stacked2d)
+    ref32 = z18b_runs(dev, stacked8, stacked2d, dtype=torch.float32)
+    rev32 = z18b_runs(dev, stacked8, stacked2d, dtype=torch.float32, reverse=True)
+    serial = z18b_serial(dev)
+    r0, r1 = _two_ranks("z18b", Z18B_WORKER, "gloo")
+    for key in r0:
+        if not key.endswith(".ips") and not key.startswith("coll."):
+            check(_same_bits(r0[key], r1[key]), f"(z18b) rank 0 and rank 1 hold the same {key}")
+    check(not r0["launches"].any() and not r1["launches"].any(),
+          "(z18b) no K1-K4 launch on either rank")
+    cons_steps = int(r0["cons.steps"])
+    zs = r0["cons.zopt"].astype(np.float64)
+    D64, s64 = (t.double() for t in z17_problem(dev)[:2])
+    fz = float(0.5 * torch.sum((D64 @ torch.as_tensor(zs, device=dev) - s64) ** 2)
+               + lam * np.sum(np.abs(zs)))
+    f_stacked = float(0.5 * torch.sum((D64 @ r32.zopt.double() - s64) ** 2)
+                      + lam * torch.sum(torch.abs(r32.zopt.double())))
+    del D64, s64
+    print(f"  (z18b) consensus_lasso: steps {cons_steps} on both ranks (stacked {r32.steps}), "
+          f"objective {fz:.9g} (stacked {f_stacked:.9g}, rel. {abs(fz - f_stacked) / abs(f_stacked):.3e}, "
+          f"bar 1e-5; serial f64 {z17a['fser']:.9g}, rel. "
+          f"{abs(fz - z17a['fser']) / abs(z17a['fser']):.3e}, bar 1e-2); timed "
+          f"{float(r0['cons.ips']):.1f} / {float(r1['cons.ips']):.1f} iter/s")
+    _steps_apart("z18b consensus_lasso", cons_steps, r32.steps, r0["cons.pnorm"],
+                 r32.hist["pnorm"].cpu().numpy())
+    check(abs(fz - f_stacked) <= 1e-5 * abs(f_stacked)
+          and abs(fz - z17a["fser"]) <= 1e-2 * abs(z17a["fser"]),
+          "(z18b) consensus_lasso within 1e-5 of the stacked run and 1e-2 of serial f64")
+    for name, bar in Z18B_BARS.items():
+        got, want, ser = float(r0[name + ".obj"]), ref[name]["obj"], serial[name]
+        steps = r0[name + ".steps"]
+        print(f"  (z18b) {name}: steps {steps.tolist()} on both ranks (stacked "
+              f"{ref[name]['steps']}), objective {got:.9g} (stacked {want:.9g}, rel. "
+              f"{abs(got - want) / max(abs(want), 1e-30):.3e}, bar 1e-5; serial f64 "
+              f"{ser:.9g}, bar {bar}); {float(r0[name + '.ips']):.1f} / "
+              f"{float(r1[name + '.ips']):.1f} steps/s (stacked {ref[name]['ips']:.1f})")
+        if name == "implicit_consensus":
+            pass  # its adjoint steps are printed; the gradient is held
+        elif name != "consensus_lasso_batch":
+            _steps_apart(f"z18b {name}", int(steps), ref[name]["steps"], r0[name + ".hist"],
+                         ref[name]["hist"])
+        else:
+            check(steps.tolist() == (ref[name]["steps"] if isinstance(ref[name]["steps"], list)
+                                     else [ref[name]["steps"]] * steps.size
+                                     if steps.ndim else ref[name]["steps"]),
+                  f"(z18b) {name}: the stacked run's steps")
+        check(abs(got - want) <= 1e-5 * max(abs(want), 1e-30),
+              f"(z18b) {name} within 1e-5 of the stacked run")
+        check(_within(name, got, ser, bar), f"(z18b) {name} within {bar} of serial f64")
+    # In f32 the order of a shard sum alone moves a stop: the ranks' runs
+    # are held to serial f64, and printed beside the stacked f32 run and
+    # beside the stacked f32 run with its shard blocks reversed.
+    for name in Z18B_F32_RUNNERS:
+        got, want, ser = float(r0["f32:" + name + ".obj"]), ref32[name]["obj"], serial[name]
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+        rev = rev32.get(name)
+        witness = ("no shard sum to reorder" if rev is None else
+                   f"reversed shard blocks: steps {rev['steps']}, objective {rev['obj']:.9g}, "
+                   f"rel. {rel(rev['obj'], want):.3e}")
+        print(f"  (z18b) f32 {name}: steps {r0['f32:' + name + '.steps'].tolist()} on both "
+              f"ranks (stacked f32 {ref32[name]['steps']}), objective {got:.9g} (stacked f32 "
+              f"{want:.9g}, rel. {rel(got, want):.3e}; {witness}); serial f64 {ser:.9g}, bar "
+              f"{Z18B_F32_BAR}; {float(r0['f32:' + name + '.ips']):.1f} / "
+              f"{float(r1['f32:' + name + '.ips']):.1f} steps/s (stacked {ref32[name]['ips']:.1f})")
+        check(_within(name, got, ser, Z18B_F32_BAR),
+              f"(z18b) f32 {name} within {Z18B_F32_BAR} of serial f64")
+
+    # (z18c) two NCCL ranks, a card each.
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        ranks = _two_ranks("z18c", Z18C_WORKER, "nccl")
+        check(_same_bits(ranks[0]["zopt"], ranks[1]["zopt"])
+              and int(ranks[0]["steps"]) == int(ranks[1]["steps"]),
+              "(z18c) both NCCL ranks hold the same steps and solution")
+        _steps_apart("z18c", int(ranks[0]["steps"]), r32.steps, ranks[0]["pnorm"],
+                     r32.hist["pnorm"].cpu().numpy())
+    else:
+        print(f"  (z18c) did not run: two NCCL ranks need a card each and this machine has "
+              f"{cards} CUDA device; NCCL refuses two ranks on one card")
+
+    # (z18d) the CLI's scaling: the stacked sweep and the cost model.
+    for argv in (["scaling", "--devices", "8", "--iters", "50"], ["scaling", "--predict"]):
+        run = subprocess.run([sys.executable, "-m", "admm_tpu_torch", *argv], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        for line in run.stdout.splitlines():
+            print(f"  (z18d) {line}")
+        check(run.returncode == 0, f"(z18d) python -m admm_tpu_torch {' '.join(argv)} exit 0 "
+              f"({run.stderr[-2000:]})")
+
+    print(f"  (z18) kernel launches over the phase's main paths {total} (the gloo ranks' "
+          f"checked 0 each); {time.perf_counter() - t0:.1f}s")
+    check(not any(total.values()), "(z18) no K1-K4 launch on the phase's main paths")
     return total
+
+
+def _steps_apart(tag, steps, ref_steps, hist, ref_hist):
+    """Hold a run's steps to the stacked run's, or one apart with the
+    deciding step's pnorm printed."""
+    if steps != ref_steps:
+        k = min(steps, ref_steps) - 1
+        print(f"  ({tag}) steps {steps} against the stacked {ref_steps}: pnorm at step "
+              f"{k + 1} {float(hist[k]):.9e} (stacked {float(ref_hist[k]):.9e})")
+    check(abs(steps - ref_steps) <= 1, f"({tag}) the stacked run's steps, or one apart")
+
+
+def _within(name, got, ser, bar):
+    if name == "implicit_consensus":       # no serial twin: the stacked gradient
+        return True
+    if name in ("sliced_both", "consensus_lasso_batch"):
+        return abs(got - ser) <= bar * abs(ser)
+    return abs(got - ser) <= bar * max(1.0, abs(ser))
+
+
+def z18b_serial(dev):
+    """The serial f64 references of (z18b)'s runners, on the same draws as
+    ``z18b_runs``: the serial SVM's hinge objective, the agents' cost at
+    the f64 equilibrium, the serial SDP's <C, Z>, the unsliced
+    solve's |x|, the first and last lanes' single solves' |Z|, and 0 for
+    the gradient (held against the stacked run only)."""
+    import torch
+
+    import admm_tpu_torch.parallel as TP
+    from admm_tpu_torch import ADMMConfig, admm, linearsvm, sdp
+    from admm_tpu_torch.models.sdp import random_sdp_instance
+
+    oracle = ADMMConfig(**Z17_ORACLE)
+    rng = np.random.default_rng(18)
+    f64c = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+    ms, ns = 4096, 512
+    Dn = rng.standard_normal((ms, ns))
+    ell = np.sign(Dn @ rng.standard_normal(ns) + 0.1 * rng.standard_normal(ms))
+    se = linearsvm(f64c(Dn), f64c(ell), 1.0, oracle)
+    out = {"linearsvm_sharded": family_objective("hinge", Dn, ell, se.xopt)}
+    Ax = rng.standard_normal((8, 512, 256))
+    bx = rng.standard_normal((8, 512))
+    out["exchange_quadratic"] = exchange_cost(Ax, bx, exchange_equilibrium(Ax, bx))
+    C, A, b, *_ = random_sdp_instance(128, 512, 32, rng, dtype=np.float32)
+    r = sdp(*(f64c(v) for v in (C, A, b)), oracle)
+    out["sdp_sharded"] = float(np.sum(C.astype(np.float64) * r.zopt.cpu().numpy()))
+    nm = 2048
+    P, Q = rng.standard_normal((nm, nm)), rng.standard_normal((nm, nm))
+    r_, q_ = rng.standard_normal(nm), rng.standard_normal(nm)
+    PtPinv, QtQinv = (f64c(np.linalg.inv(M.T @ M + np.eye(nm))) for M in (P, Q))
+    Ptr, Qts = f64c(P.T @ r_), f64c(Q.T @ q_)
+    w = admm(lambda x, z, u, rho: PtPinv @ (Ptr + rho * (z - u)),
+             lambda x, z, u, rho: QtQinv @ (Qts + rho * (x + u)), ADMMConfig(maxiters=1000),
+             A=1.0, B=-1.0, c=0.0, m=nm, dtype=torch.float64, device=dev)
+    out["sliced_both"] = float(torch.linalg.norm(w.xopt))
+    S8 = np.stack([rng.standard_normal(ms) + 0.01 * k for k in range(8)])
+    lanes = [TP.consensus_lasso(f64c(Dn), f64c(S8[i]), 0.1, ADMMConfig(maxiters=500),
+                                mesh=TP.make_mesh(8, device=dev)).zopt for i in (0, 7)]
+    out["consensus_lasso_batch"] = float(torch.linalg.norm(torch.stack(lanes)))
+    out["implicit_consensus"] = 0.0
+    return out
 
 
 def _check_acceleration(out):
@@ -3000,7 +3521,8 @@ def main():
     k4_batch_launches = batch_phase(dev)
     hg_launches = hypergradient_phase(dev)
     z16 = slice11b_phase(dev)
-    z17 = slice10a_phase(dev)
+    z17, z17a = slice10a_phase(dev)
+    z18 = slice10b_phase(dev, z17a)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -3024,29 +3546,31 @@ def main():
     # (z16)'s; K1b's and K4's (z16)'s beside their own paths.
     print(json.dumps({"kernels": [
         row("fused_soft_threshold_dual", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
-            "admm_tpu/ops/kernels.py:48", {"d": k1_launches, **variants["k1"], "z17": z17["K1"]},
+            "admm_tpu/ops/kernels.py:48", {"d": k1_launches, **variants["k1"], "z17": z17["K1"],
+                                            "z18": z18["K1"]},
             k1_err, k1_ms,
             k1_plain_ms, k1_bound, None),
         row("fused_zu_tail", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
             "admm_tpu/ops/kernels.py:48", {"a": k1b_launches, "z16": z16["K1b"],
-                                            "z17": z17["K1b"]}, k1b_err,
+                                            "z17": z17["K1b"], "z18": z18["K1b"]}, k1b_err,
             k1b_ms, k1b_plain_ms, k1b_bound, None),
         row("cr_solve", "cuda", "admm_tpu_torch/csrc/cr_solve.cu",
             "experiments/pallas_cr_kernel.py:103",
             {"f": k4_launches, "z14": k4_batch_launches, **hg_launches["K4"], "z16": z16["K4"],
-             "z17": z17["K4"]},
+             "z17": z17["K4"], "z18": z18["K4"]},
             k4_err, k4_ms,
             k4_plain_ms, k4_bound, None),
         dict(row("gemv_pair", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
                  "experiments/pallas_probe.py:52",
                  {"k": k2_launches, **variants["k2"], **hg_launches["K2"], "z16": z16["K2"],
-                  "z17": z17["K2"]},
+                  "z17": z17["K2"], "z18": z18["K2"]},
                  k2_err, k2_ms, k2_plain_ms, k2_bound, k2_library_ms),
              backward={"ms": k2_backward["kernel"], "plain_ms": k2_backward["plain"],
                        "bound_ms": k2_backward["bound"][0],
                        "bound_by": k2_backward["bound"][1]}),
         row("resident_lasso", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
-            "experiments/resident_iter_proto.py:77", {"k3": k3_launches, "z17": z17["K3"]}, k3_err,
+            "experiments/resident_iter_proto.py:77", {"k3": k3_launches, "z17": z17["K3"],
+                                                      "z18": z18["K3"]}, k3_err,
             k3_ms,
             k3_plain_ms, k3_bound, None),
     ]}))

@@ -4,8 +4,8 @@ every lane held against admm_tpu's batched result on the same numpy inputs
 in f64 (``_parity.assert_same_lanes``: equal steps, iterates to rtol 1e-9,
 histories to 1e-8 of their first value) and against the port's serial
 solve of the same instance (``_parity.assert_lane_is_solo``: equal steps,
-rtol 1e-9), unless a test states another bar.  ``mesh=`` is not ported
-(slice 10) and raises."""
+rtol 1e-9), unless a test states another bar; ``mesh=`` on a stacked mesh
+equals the unsharded run bit for bit."""
 
 import warnings
 
@@ -234,15 +234,36 @@ def test_covsel_batch_rejects_bad_shapes():
 
 
 def test_mesh_is_not_ported_and_names_slice_10():
-    # The three mesh tests of tests/test_batch.py (sharded lasso and TV
-    # lanes, the divisibility check) need lanes sharded over devices, which
-    # is slice 10: every batch and path entry refuses mesh=.
-    D, S = _lasso_instances(B=2)
-    for call in (lambda: T.lasso_batch(D, S, 0.1, device="cpu", mesh=object()),
-                 lambda: T.tv_batch(S, 0.4, device="cpu", mesh=object()),
-                 lambda: T.lad_batch(*_rhs_instances(), device="cpu", mesh=object())):
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            call()
+    # mesh= divides the lanes over the mesh: the three mesh tests of
+    # tests/test_batch.py (sharded lasso and TV lanes equal to the
+    # unsharded run, the divisibility check), on a stacked mesh, where the
+    # result is the unsharded run bit for bit
+    # (tests/test_torch_ranks_parity.py runs lanes over two processes).
+    from admm_tpu_torch.parallel import make_mesh
+
+    D, S = _lasso_instances(B=8)
+    lam = 0.1 * np.max(np.abs(S @ D))
+    cfg = ADMMConfig(maxiters=2000)
+    plain = T.lasso_batch(D, S, lam, cfg, device="cpu")
+    sharded = T.lasso_batch(D, S, lam, cfg, device="cpu", mesh=make_mesh(8, device="cpu"))
+    assert torch.equal(sharded.xopt, plain.xopt) and torch.equal(sharded.steps, plain.steps)
+    jref = J.lasso_batch(D, S, lam, J.ADMMConfig(maxiters=2000),
+                         mesh=__import__("admm_tpu.parallel").parallel.make_mesh(8))
+    assert_same_lanes(sharded, jref)
+    rng = np.random.default_rng(12)
+    S2 = np.cumsum(rng.standard_normal((16, 96)), axis=1)
+    plain = T.tv_batch(S2, 0.4, ADMMConfig(maxiters=800), device="cpu")
+    sharded = T.tv_batch(S2, 0.4, ADMMConfig(maxiters=800), device="cpu",
+                         mesh=make_mesh(8, device="cpu"))
+    assert torch.equal(sharded.xopt, plain.xopt)
+    D3, S3 = _lasso_instances(B=3)
+    with pytest.raises(ValueError, match="divide evenly"):
+        T.lasso_batch(D3, S3, 0.1, ADMMConfig(maxiters=50), device="cpu",
+                      mesh=make_mesh(2, device="cpu"))
+    with pytest.raises(ValueError, match="1-axis mesh"):
+        T.lad_batch(*_rhs_instances(), device="cpu",
+                    mesh=__import__("admm_tpu_torch.parallel").parallel.make_mesh2d(
+                        1, 1, device="cpu"))
 
 
 def test_batch_runner_takes_fresh_data_each_call():

@@ -2,7 +2,7 @@
 counterpart of admm_tpu/__main__.py: ``list`` prints admm_tpu's solvers,
 ``demo``, ``test`` and ``sweep --smoke`` run on ``--device cpu``,
 ``matrix`` and ``sweep`` write their own files by default, and
-``scaling`` raises naming slice 10."""
+``scaling`` runs its sweep and its cost model on ``--device cpu``."""
 
 import contextlib
 import io
@@ -59,6 +59,18 @@ def test_default_outputs_are_not_admm_tpus_files():
     assert p.parse_args(["matrix"]).device == "cuda"
 
 
-def test_scaling_waits_for_slice_10():
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        main(["scaling"])
+def test_scaling_waits_for_slice_10(capsys):
+    # scaling: the sweep over 1 and 2 stacked shards, one JSON line each
+    # and the efficiency line, and the cost model's lines under --predict.
+    import json
+
+    argv = ["scaling", "--rows-per-shard", "64", "--cols", "16", "--iters", "10",
+            "--device", "cpu"]
+    assert main(argv + ["--devices", "2"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x.get("devices") for x in lines[:2]] == [1, 2]
+    assert lines[2]["metric"] == "weak_scaling_efficiency" and lines[2]["efficiency"]["1"] == 1.0
+    assert main(argv + ["--predict"]) == 0
+    metrics = [json.loads(x)["metric"] for x in capsys.readouterr().out.splitlines()]
+    assert {"collective_roundtrip", "measured_t_compute", "predicted_weak_scaling_efficiency",
+            "weak_scaling_breakeven"} == set(metrics)

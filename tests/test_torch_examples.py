@@ -3,8 +3,9 @@ single-device cases of tests/test_examples.py: each example run through
 admm_tpu's (examples/) and the port's on the same seeds at the same small
 sizes in f64, with the original test's own checks on the port's output and
 the two outputs held together: equal step counts and flags, values to
-1e-9 relative unless a case states another bar.  The mesh half of
-``train_all_digits`` (slice 10) raises."""
+1e-9 relative unless a case states another bar; ``train_all_digits`` on a
+lanes x shards mesh too (tests/test_torch_mesh_examples.py has the other
+mesh examples)."""
 
 import struct
 import sys
@@ -135,11 +136,24 @@ def test_mnist_batched_matches_serial_loop():
 
 
 def test_mnist_train_all_digits_on_a_mesh_waits_for_slice_10():
+    # train_all_digits(mesh=...) over the lanes x row-shards layout: the
+    # twin of tests/test_examples.py::test_mnist_train_all_digits_on_2d_mesh,
+    # and the separators at admm_tpu's (1e-9).
+    from admm_tpu.parallel import make_mesh2d as j_mesh2d
+    from admm_tpu_torch.parallel import make_mesh2d
+
     (tr_x, tr_y), _, _ = mnistsvm.load_mnist(None, 200, 50)
     D = tr_x.reshape(len(tr_x), -1)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        mnistsvm.train_all_digits(D, tr_y, [0, 1], maxiters=80, mesh=object(), nshards=4,
-                                  **CPU)
+    X = mnistsvm.train_all_digits(D, tr_y, [0, 1], maxiters=80,
+                                  mesh=make_mesh2d(2, 4, device="cpu"), nshards=4, **CPU)
+    assert X.shape == (2, D.shape[1]) and np.isfinite(X).all()
+    for i, d in enumerate([0, 1]):
+        ell = np.where(tr_y == d, 1.0, -1.0)
+        err = 100.0 * np.mean(np.sign(D @ X[i]) != ell)
+        assert err < 35.0, (d, err)
+    ref = j_mnist.train_all_digits(D, tr_y, [0, 1], maxiters=80, mesh=j_mesh2d(2, 4),
+                                   nshards=4)
+    _close(X, ref, 0, 1e-9)
 
 
 def test_mnist_data_equals_the_references():

@@ -14,7 +14,10 @@ synchronising call inside it (the eigh paths' calls counted and
 recorded), f32 against f64 on the card to
 admm_tpu/benchmarks/matrix.py's f32 bars, and f64 on the card against the
 CPU; and the same three for every runner of the distributed layer
-(slice 10a, W shards stacked on the card).
+(slice 10a, W shards stacked on the card); and its process groups (slice
+10b): a one-rank NCCL group equal to the stacked run bit for bit, two
+gloo ranks sharing the card, and ``initialize_cluster`` refusing NCCL
+ranks on one card.
 
 Every case needs a CUDA device and skips without one.  This file imports
 no JAX, so it also runs where JAX is not installed; skip the repo's
@@ -1270,3 +1273,85 @@ def test_parallel_on_gpu_matches_the_cpu(cuda, name):
     ref = getattr(cpu, key).numpy()
     np.testing.assert_allclose(getattr(res, key).cpu().numpy(), ref, rtol=1e-9,
                                atol=1e-9 * np.max(np.abs(ref)))
+
+
+# ---- slice 10b: the shard axis over processes, on the card ----------------
+
+
+def _consensus_instance(rows=4096, cols=256, seed=41):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((rows, cols)).astype(np.float32)
+    s = rng.standard_normal(rows).astype(np.float32)
+    return D, s, 0.1 * float(np.max(np.abs(D.T @ s)))
+
+
+def test_world1_nccl_consensus_equals_stacked_bit_for_bit(cuda, tmp_path):
+    """A one-rank NCCL group (the group's code path: every shard-axis
+    reduction one all_reduce, the results one all_gather) computes what
+    the stacked mesh computes on the card, bit for bit: steps, zopt, the
+    per-shard state and every history; 2 collectives a step."""
+    import admm_tpu_torch.parallel as TP
+    from admm_tpu_torch.parallel import multihost
+
+    D, s, lam = _consensus_instance()
+    cfg = ADMMConfig(maxiters=300)
+    ref = TP.consensus_lasso(D, s, lam, cfg, mesh=TP.make_mesh(8, device=cuda))
+    assert multihost.initialize_cluster("file://" + str(tmp_path / "pg"), 1, 0,
+                                        backend="nccl", timeout=120) == 1
+    try:
+        mesh = TP.make_mesh(8, group=TP.global_mesh().group)
+        assert mesh.device.type == "cuda"
+        res = TP.consensus_lasso(D, s, lam, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        multihost.shutdown()
+    assert res.steps == ref.steps
+    for name in ("zopt", "xopt", "uopt"):
+        assert torch.equal(getattr(res, name), getattr(ref, name)), name
+    assert torch.equal(res.extra["xi"], ref.extra["xi"])
+    for key, h in ref.hist.items():
+        assert torch.equal(res.hist[key].nan_to_num(7.0), h.nan_to_num(7.0)), key
+    assert mesh.stats["calls"] == {"all_reduce": 2 * res.steps, "all_gather": 1}
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card (CUDA tensors through gloo), each
+    its block of 4 of 8 shards, f64: the same steps and history bits on
+    both ranks, and the stacked run's steps and solution (1e-9)."""
+    import admm_tpu_torch.parallel as TP
+
+    from _torch_ranks import check, run_ranks
+
+    rng = np.random.default_rng(42)
+    D, s = rng.standard_normal((509, 24)), rng.standard_normal(509)
+    ref = TP.consensus_lasso(D, s, 0.5, ADMMConfig(maxiters=3000),
+                             mesh=TP.make_mesh(8, device=cuda))
+    rc, init, out, res = run_ranks('''
+        from admm_tpu_torch import ADMMConfig
+        from admm_tpu_torch.parallel import consensus_lasso, make_mesh
+        assert mesh.device.type == "cuda"
+        rng = np.random.default_rng(42)
+        D, s = rng.standard_normal((509, 24)), rng.standard_normal(509)
+        r = consensus_lasso(torch.as_tensor(D, device=mesh.device),
+                            torch.as_tensor(s, device=mesh.device), 0.5,
+                            ADMMConfig(maxiters=3000), mesh=make_mesh(8, group=mesh.group))
+        save(steps=r.steps, zopt=r.zopt, pnorm=r.hist["pnorm"])
+    ''', tmp_path, join=dict(backend="gloo"))
+    check(rc, init, out)
+    r0, r1 = res
+    assert int(r0["steps"]) == int(r1["steps"]) == ref.steps
+    assert np.array_equal(r0["pnorm"].view(np.int64), r1["pnorm"].view(np.int64))
+    want = ref.zopt.cpu().numpy()
+    np.testing.assert_allclose(r0["zopt"], want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+
+
+def test_initialize_cluster_refuses_nccl_ranks_sharing_a_card(cuda, tmp_path):
+    """A rank whose local rank has no card of its own under NCCL raises
+    and names backend="gloo"; nothing is joined."""
+    from admm_tpu_torch.parallel import multihost
+
+    count = torch.cuda.device_count()
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        multihost.initialize_cluster("file://" + str(tmp_path / "pg"), count + 1, count,
+                                     backend="nccl")
+    assert not torch.distributed.is_initialized()

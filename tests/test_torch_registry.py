@@ -247,7 +247,10 @@ def test_public_names_cover_admm_tpus():
         assert all(getattr(port, name) is not None for name in port.__all__)
     assert {"BatchResults", "PathResults", "QPStructure"} <= set(admm_tpu_torch.__all__)
     assert admm_tpu_torch.Constraint._fields == admm_tpu.Constraint._fields
-    for fn, args in ((admm_tpu_torch.make_implicit_consensus_solver, (None, None, None, 4, 2)),
-                     (admm_tpu_torch.make_implicit_unwrapped_solver, (None, None, 4, 3, 2))):
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            fn(*args)
+    # The two sharded implicit solvers build
+    # (tests/test_torch_diff_sharded.py holds their gradients).
+    cfg = admm_tpu_torch.ADMMConfig()
+    for fn, args in ((admm_tpu_torch.make_implicit_consensus_solver, (None, None, cfg, 4, 2)),
+                     (admm_tpu_torch.make_implicit_unwrapped_solver, (None, cfg, 4, 3, 2))):
+        assert callable(fn(*args)) and fn(*args).stats == {"applies": 0, "reads": 0,
+                                                            "steps": None}

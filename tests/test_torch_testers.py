@@ -1,6 +1,6 @@
 """The port's randomized tester harness (``admm_tpu_torch/testers``): the
 cases of tests/test_testers.py on the CPU (``test_svm_parallel_sweep``
-waits for the sharded runner of slice 10), and each default instance
+with the SVM tester's parallel case), and each default instance
 against admm_tpu's tester on the same seed: the same pass/fail verdict,
 equal steps and the oracle's objective or residual to rtol 1e-6.  f64.
 """
@@ -83,8 +83,18 @@ def test_svm_tester():
 
 
 def test_svm_tester_parallel_waits_for_slice_10():
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        linearsvmtest(0, parallel=True, nshards=4, **CPU)
+    # parallel=True routes both solves through the sharded
+    # transpose-reduction path: green, as admm_tpu's parallel tester is
+    # (the random starts are each package's own, so the runs are not
+    # compared step by step), and through the sweep harness as
+    # tests/test_testers.py::test_svm_parallel_sweep does.
+    res_h, res_01, test = linearsvmtest(0, parallel=True, nshards=4, **CPU)
+    assert not test["failed"], test["failreason"]
+    assert not jt.linearsvmtest(0, parallel=True, nshards=4)[2]["failed"]
+    assert res_h.extra["nshards"] == res_01.extra["nshards"] == 4
+    rep = solvertester("linearsvm", 4, 4, trials=1, seed=0, parallel=True, nshards=4,
+                       device="cpu")
+    assert not rep.any_failed
 
 
 def test_solvertester_sweep_deterministic():

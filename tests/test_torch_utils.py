@@ -1,7 +1,8 @@
 """The port's utilities (``admm_tpu_torch/utils``): the report, checkpoint
 and profiling cases of tests/test_utils.py, tests/test_checkpoint.py and
-tests/test_profiling_scaling.py on the CPU (the orbax, scaling and
-collective cases wait for slice 10), the report's text against
+tests/test_profiling_scaling.py on the CPU (the orbax cases also in
+tests/test_torch_checkpoint_sharded.py, the scaling ones in
+tests/test_torch_scaling.py), the report's text against
 admm_tpu's, and npz checkpoints crossing between the two packages both
 ways.  Plot cases skip where matplotlib is not installed.  f64.
 """
@@ -190,11 +191,17 @@ def test_port_checkpoint_resumes_in_admm_tpu(tmp_path):
 
 
 def test_orbax_checkpoints_wait_for_slice_10(tmp_path):
+    # The sharded checkpoint names (a format of the port's own): a serial
+    # solve's state round-trips with load_state's keys and values
+    # (tests/test_torch_checkpoint_sharded.py holds the per-shard state
+    # against admm_tpu's orbax checkpoints).
     res = _model_solve(*_model_problem(6), ADMMConfig(maxiters=5, domaxiters=True))
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        save_state_orbax(res, tmp_path / "o")
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        load_state_orbax(tmp_path / "o")
+    save_state_orbax(res, tmp_path / "o")
+    state = load_state_orbax(tmp_path / "o")
+    assert state["steps"] == 5 and state["rho"] == float(res.rho_final)
+    for key, name in (("x0", "xopt"), ("z0", "zopt"), ("u0", "uopt")):
+        np.testing.assert_array_equal(state[key], getattr(res, name).numpy())
+    assert "xi" not in state
 
 
 # ---- profiling -------------------------------------------------------------
