@@ -38,7 +38,10 @@ with one host read: a diverged one (relative residual^2 above 1e10, or not
 finite) is NaN-poisoned and named on stderr, an unconverged one warned
 about.  Under ``torch.func.vmap`` of a backward or tangent (``jacrev``,
 ``jacfwd``) the cotangents become lanes of one solve, each lane frozen at
-its own stop.
+its own stop.  Under ``torch.func.vmap`` of a solve whose data, c or
+iterates are batched (``vmap(loss)``, ``vmap(grad(loss))``) the batch
+becomes lanes of one runner and its backward the lanes' adjoint
+(``_Fold``); over a batch solver the outer batch folds into its lanes.
 
 ``make_implicit_batch_solver`` solves B instances as lanes of one runner
 (``lanes=True``); its backward is the lanes' fixed point through one VJP
@@ -54,16 +57,18 @@ transpose reduction) the same way: the forward is the runner, F is its
 standard step, and every sum over the shard axis in F goes through the
 mesh (``parallel.mesh.Mesh``), so over a process group the adjoint's
 Neumann steps cross the ranks as the forward's steps do (a sum over the
-ranks is its own adjoint), and the Neumann test's norms add the ranks'
-parts of the sharded leaves.
+ranks is its own adjoint), and the linear solve's norms and inner
+products add the ranks' parts of the sharded leaves.
 
 Restrictions (checked at factory time, as in ``admm_tpu``): the standard
 iteration (``fast=False``) and static rho; relaxation is supported.  Over
-a process group the linear solve is Neumann's (GMRES raises).
+a process group both linear solves run: Neumann's and GMRES's sums add
+the ranks' parts of the sharded leaves (``_sharded_reduce``).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import sys
 from typing import Callable, Optional
@@ -72,9 +77,9 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from .config import ADMMConfig, matmul_precision
+from .config import ADMMConfig, matmul_precision, resolve_unroll
 from .device import resolve_device
-from .engine import Hooks, make_admm_runner
+from .engine import Hooks, _run, make_admm_runner
 from .linop import ScaledIdentityOp, as_linop
 
 # Neumann steps per host read; the steps past the stop are frozen.
@@ -87,15 +92,6 @@ GMRES_RESTART = 20
 # at 1e12), and the softer bar of a loud-but-unpoisoned warning.
 _DIVERGED_REL2 = 1e10
 _UNCONVERGED_REL2 = 1e-8
-
-_VMAP_SERIAL = (
-    "admm_tpu_torch.diff: torch.func.vmap over a serial implicit solve cannot "
-    "run its data-dependent loop; solve B instances with "
-    "make_implicit_batch_solver (lanes of one program, per-lane gradients)")
-_VMAP_LANES = (
-    "admm_tpu_torch.diff: torch.func.vmap over make_implicit_batch_solver's solve "
-    "(jacrev, jacfwd, a nested vmap) is not supported; its lanes are the batch")
-
 
 def _sum2(t, lanes):
     """sum(t^2), per lane (leading axis) when ``lanes``."""
@@ -144,7 +140,7 @@ def _neumann(apply_J, rhs, tol, maxiters, lanes, stats, reduce=None):
             return v, delta2, scale2, k
 
 
-def _gmres(apply_J, rhs, tol, maxiters, lanes, stats):
+def _gmres(apply_J, rhs, tol, maxiters, lanes, stats, reduce=None):
     """(I - J) v = rhs by restarted GMRES, one Krylov space per lane,
     following ``jax.scipy.sparse.linalg.gmres`` as admm_tpu calls it
     (admm_tpu/diff.py:165-172): restart GMRES_RESTART, x0 = rhs, stop at
@@ -152,7 +148,14 @@ def _gmres(apply_J, rhs, tol, maxiters, lanes, stats):
     Arnoldi cycle with twice-run classical Gram-Schmidt and the small
     least-squares problem by its normal equations, and the true residual
     after every cycle.  One host read per cycle.  Returns (v, ||r||^2,
-    scale^2, cycles)."""
+    scale^2, cycles).
+
+    ``reduce`` (``_neumann``'s) makes every inner product whole over a
+    process group: each sum adds the ranks' parts of the sharded leaves
+    and counts the whole leaves once, one collective per Gram-Schmidt
+    pass (its k inner products, and in the first pass the vector's norm,
+    together).  H and the small solve are then the same bits on every
+    rank, and so are the restart and stop decisions."""
     L = rhs[0].shape[0] if lanes else 1
     shapes = [tuple(r.shape[1:] if lanes else r.shape) for r in rhs]
     sizes = [int(np.prod(s)) for s in shapes]
@@ -167,8 +170,29 @@ def _gmres(apply_J, rhs, tol, maxiters, lanes, stats):
     def mv(X):
         return X - pack(apply_J(unpack(X)))
 
+    def leaf_sums(X, Y):
+        """Per leaf, the inner products of the rows of X (..., N) with Y (L, N)."""
+        return [torch.einsum("l...n,ln->l...", a, b)
+                for a, b in zip(torch.split(X, sizes, dim=-1), torch.split(Y, sizes, dim=-1))]
+
+    def vnorm(X):
+        if reduce is None:
+            return torch.linalg.vector_norm(X, dim=-1)
+        return torch.sqrt(sum(reduce(leaf_sums(X, X))))
+
+    def gram_schmidt(V, w, first):
+        """One pass's inner products of V's rows with w, and with
+        ``first`` the norm of w."""
+        if reduce is None:
+            hj = torch.einsum("lkn,ln->lk", V, w)
+            return hj, (torch.linalg.vector_norm(w, dim=-1) if first else None)
+        if not first:
+            return sum(reduce(leaf_sums(V, w))), None
+        hs, ns = reduce(leaf_sums(V, w), leaf_sums(w, w))
+        return sum(hs), torch.sqrt(sum(ns))
+
     def normalize(X, thresh):
-        norm = torch.linalg.vector_norm(X, dim=-1)
+        norm = vnorm(X)
         use = norm > thresh
         unit = X / torch.where(use, norm, 1.0)[:, None]
         return torch.where(use[:, None], unit, 0.0), torch.where(use, norm, 0.0)
@@ -176,7 +200,7 @@ def _gmres(apply_J, rhs, tol, maxiters, lanes, stats):
     b = pack(rhs)
     eps = torch.finfo(b.dtype).eps
     m = GMRES_RESTART
-    atol = tol * torch.linalg.vector_norm(b, dim=-1)
+    atol = tol * vnorm(b)
     x = b
     r = b - mv(x)
     unit, rnorm = normalize(r, eps)
@@ -193,10 +217,11 @@ def _gmres(apply_J, rhs, tol, maxiters, lanes, stats):
         ok = torch.ones(L, dtype=torch.bool, device=b.device)
         for j in range(m):
             w = mv(V[:, j])
-            w0 = torch.linalg.vector_norm(w, dim=-1)
             h = torch.zeros_like(V[:, :, 0])
-            for _ in range(2):
-                hj = torch.einsum("lkn,ln->lk", V, w)
+            for k in range(2):
+                hj, w_norm = gram_schmidt(V, w, k == 0)
+                if k == 0:
+                    w0 = w_norm
                 w = w - torch.einsum("lkn,lk->ln", V, hj)
                 h = h + hj
             unit_v, norm_v = normalize(w, eps * w0)
@@ -214,8 +239,12 @@ def _gmres(apply_J, rhs, tol, maxiters, lanes, stats):
         unit, rnorm = normalize(r, eps)
         stats["applies"] += 1
         cycles += 1
-    err2 = (r * r).sum(1)
-    scale2 = sum(_sum2(t, lanes) for t in rhs) + 1e-30
+    if reduce is None:
+        err2 = (r * r).sum(1)
+        scale2 = sum(_sum2(t, lanes) for t in rhs) + 1e-30
+    else:
+        err2 = sum(reduce(leaf_sums(r, r)))
+        scale2 = sum(reduce([_sum2(t, lanes) for t in rhs])) + 1e-30
     steps = torch.full_like(err2, cycles, dtype=torch.int64)
     return unpack(x), (err2 if lanes else err2[0]), scale2, (steps if lanes else steps[0])
 
@@ -288,7 +317,7 @@ class _Job:
                                                   p.lanes or shared, stats, p.reduce)
             else:
                 v, err2, scale2, steps = _gmres(apply_J, tuple(rhs), p.tol, p.maxiters,
-                                                p.lanes or shared, stats)
+                                                p.lanes or shared, stats, p.reduce)
             what = f"engine {'adjoint (VJP)' if self.kind == 'adjoint' else 'tangent (JVP)'}"
             return _police(v, err2, scale2, steps, what, stats)
 
@@ -314,15 +343,63 @@ class _LinearFixedPoint(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, job, n, *tensors):
-        if job.problem.lanes:
-            raise RuntimeError(_VMAP_LANES)
-        if any(d is not None for d in in_dims[2 + n:]):
-            raise RuntimeError(_VMAP_SERIAL)
-        B = info.batch_size
-        rhs = tuple(t.expand((B,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
-                    for t, d in zip(tensors[:n], in_dims[2:2 + n]))
-        out = job.run(rhs, tensors[n:n + 3], tensors[n + 3:], shared=True)
-        return out, (0,) * len(out)
+        B, p = info.batch_size, job.problem
+        rhs_dims, w_dims, theta_dims = in_dims[2:2 + n], in_dims[2 + n:5 + n], in_dims[5 + n:]
+        rhs, wstar, theta = tensors[:n], tensors[n:n + 3], tensors[n + 3:]
+        if not p.lanes and all(d is None for d in (*w_dims, *theta_dims)):
+            # Only the right-hand sides are batched (jacrev, jacfwd): lanes
+            # of one solve that share J.
+            rhs = tuple(t.expand((B,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
+                        for t, d in zip(rhs, rhs_dims))
+            out = job.run(rhs, wstar, theta, shared=True)
+            return out, (0,) * len(out)
+        # Batched iterates or data (vmap of a backward or tangent), or a
+        # lanes problem: the outer batch folds into the problem's lanes.
+        fold = _Fold(p, B, theta_dims)
+        out = _Job(fold.problem, job.kind).run(
+            tuple(fold.lane(t, d) for t, d in zip(rhs, rhs_dims)),
+            tuple(fold.lane(t, d) for t, d in zip(wstar, w_dims)),
+            fold.theta(theta), shared=False)
+        return tuple(fold.unfold(t) for t in out), (0,) * len(out)
+
+
+class _Fold:
+    """``torch.func.vmap`` of batch size B over a solve (or one of its
+    linear solves) as a lanes problem: the serial problem's solve becomes
+    B lanes; a lanes problem's Bi lanes become B*Bi, outer batch major.
+    ``theta_dims`` are the vmap dims of theta = (c, *leaves): a batched
+    entry is mapped over the lanes, an unbatched one stays shared unless
+    the inner lanes map it.  ``lane`` folds a per-lane tensor (iterates,
+    right-hand sides), ``unfold`` restores the outer batch at dim 0."""
+
+    def __init__(self, problem, B, theta_dims):
+        self.B = B
+        self.Bi = problem.batch if problem.lanes else None
+        inner = ([problem.c_dim] + list(problem.leaf_dims) if problem.lanes
+                 else [None] * len(theta_dims))
+        self.inner = inner
+        self.dims = theta_dims
+        mapped = [None if (d is None and i is None) else 0 for d, i in zip(theta_dims, inner)]
+        self.problem = problem.relaned(mapped[1:], mapped[0], B * (self.Bi or 1))
+
+    def _fold(self, t, d, inner):
+        B, Bi = self.B, self.Bi
+        x = t.movedim(d, 0) if d is not None else t.expand((B,) + tuple(t.shape))
+        if Bi is None:
+            return x
+        if inner is None:
+            x = x.unsqueeze(1).expand((B, Bi) + tuple(x.shape[1:]))
+        return x.reshape((B * Bi,) + tuple(x.shape[2:]))
+
+    def theta(self, theta):
+        return tuple(t if (d is None and i is None) else self._fold(t, d, i)
+                     for t, d, i in zip(theta, self.dims, self.inner))
+
+    def lane(self, t, d):
+        return self._fold(t, d, 0).contiguous()
+
+    def unfold(self, t):
+        return t if self.Bi is None else t.reshape((self.B, self.Bi) + tuple(t.shape[1:]))
 
 
 class _Problem:
@@ -331,7 +408,7 @@ class _Problem:
     leaves), the mode and the linear solve's settings."""
 
     def __init__(self, runner, one_iter, rebuild, mode, method, tol, maxiters, stats,
-                 lanes=False, leaf_dims=None, reduce=None):
+                 lanes_runner, reduce=None):
         self.runner = runner
         self.reduce = reduce
         self._one_iter = one_iter
@@ -341,8 +418,19 @@ class _Problem:
         self.tol = tol
         self.maxiters = maxiters
         self.stats = stats
-        self.lanes = lanes
-        self.leaf_dims = leaf_dims
+        self.lanes_runner = lanes_runner
+        # One instance; ``relaned`` makes the lanes form.
+        self.lanes, self.leaf_dims, self.c_dim, self.batch = False, None, None, None
+
+    def relaned(self, leaf_dims, c_dim, batch):
+        """This problem as ``batch`` lanes of one program: the leaves with
+        dim 0 in ``leaf_dims`` (and c with ``c_dim`` 0) mapped over the
+        lanes, the others shared; the runner is the engine's lanes runner
+        (``lanes_runner``)."""
+        out = copy.copy(self)
+        out.lanes, out.leaf_dims, out.c_dim, out.batch = True, list(leaf_dims), c_dim, batch
+        out.runner = self.lanes_runner(out.leaf_dims, c_dim)
+        return out
 
     def forward(self, c, w0, leaves):
         raw = self.runner(*w0, c, self.rebuild(leaves))
@@ -350,11 +438,11 @@ class _Problem:
 
     def one_iter(self, w, theta):
         """F(w, theta) with theta = (c, *leaves); on lanes the vmapped map,
-        lanes in w and in the mapped leaves, c shared."""
+        lanes in w, in the mapped leaves and, with ``c_dim`` 0, in c."""
         if not self.lanes:
             return self._one_iter(tuple(w), theta[0], self.rebuild(theta[1:]))
         f = lambda w_, c_, ls: self._one_iter(w_, c_, self.rebuild(ls))  # noqa: E731
-        return torch.func.vmap(f, in_dims=(0, None, tuple(self.leaf_dims)))(
+        return torch.func.vmap(f, in_dims=(0, self.c_dim, tuple(self.leaf_dims)))(
             tuple(w), theta[0], tuple(theta[1:]))
 
     def _sub(self, theta, idx):
@@ -437,10 +525,17 @@ class _Implicit(torch.autograd.Function):
         return p.jvp(theta, wstar, (c_t, *leaf_t))
 
     @staticmethod
-    def vmap(info, in_dims, problem, *args):
-        if any(d is not None for d in in_dims[1:]):
-            raise RuntimeError(_VMAP_LANES if problem.lanes else _VMAP_SERIAL)
-        return _Implicit.apply(problem, *args), (None, None, None)
+    def vmap(info, in_dims, problem, c, x0, z0, u0, *leaves):
+        if all(d is None for d in in_dims[1:]):
+            return _Implicit.apply(problem, c, x0, z0, u0, *leaves), (None, None, None)
+        # Batched data or iterates: one lanes solve of the batch (folded
+        # into the lanes of a batch problem), outputs batched at dim 0.
+        dims = in_dims[1:]
+        fold = _Fold(problem, info.batch_size, (dims[0],) + tuple(dims[4:]))
+        theta = fold.theta((c,) + leaves)
+        w0 = tuple(fold.lane(t, d) for t, d in zip((x0, z0, u0), dims[1:4]))
+        out = _Implicit.apply(fold.problem, theta[0], *w0, *theta[1:])
+        return tuple(fold.unfold(t) for t in out), (0, 0, 0)
 
 
 def _check_diffable_config(config, mode, vjp_method):
@@ -460,12 +555,14 @@ def _check_diffable_config(config, mode, vjp_method):
 
 def _flatten(data):
     """(tensor leaves, rebuild): ``rebuild(tensors)`` is ``data`` with its
-    tensor leaves replaced, in order, the other leaves kept."""
+    tensor leaves replaced, in order, the other leaves kept (with
+    ``keep=False`` replaced by None: ``rebuild(dims, keep=False)`` is the
+    vmap ``in_dims`` of ``data``)."""
     flat, spec = pytree.tree_flatten(data)
     pos = [i for i, leaf in enumerate(flat) if isinstance(leaf, torch.Tensor)]
 
-    def rebuild(tensors):
-        out = list(flat)
+    def rebuild(tensors, keep=True):
+        out = list(flat) if keep else [None] * len(flat)
         for i, t in zip(pos, tensors):
             out[i] = t
         return pytree.tree_unflatten(out, spec)
@@ -504,7 +601,7 @@ class _Factory:
             shape_z = (nB,)
         self.shape_x, self.shape_z = tuple(shape_x), tuple(shape_z)
         self.runner = make_admm_runner(prox_f, prox_g, config, A0, B0, hooks=Hooks(),
-                                       has_data=True, lanes=lanes, mapped=self.mapped)
+                                       has_data=True)
         self.stats = {"applies": 0, "reads": 0, "steps": None}
 
     def one_iter(self, A_op, B_op):
@@ -576,15 +673,34 @@ class _Factory:
             return v.to(device=device, dtype=dt)
 
         w0 = (init(x0, self.shape_x), init(z0, self.shape_z), init(u0, tuple(c_arr.shape)))
-        runner = self.runner
+        problem = _Problem(self.runner, self.one_iter(A_op, B_op), rebuild, self.mode,
+                           self.method, self.tol, self.maxiters, self.stats,
+                           self.lanes_runner(A_op, B_op, rebuild))
         if self.lanes:
-            B = lead[0]
-            runner = lambda x_, z_, u_, c_, d_: self.runner(  # noqa: E731
-                x_, z_, u_, c_.expand((B,) + tuple(c_.shape)), d_)
-        problem = _Problem(runner, self.one_iter(A_op, B_op), rebuild, self.mode, self.method,
-                           self.tol, self.maxiters, self.stats, lanes=self.lanes,
-                           leaf_dims=leaf_dims)
+            problem = problem.relaned(leaf_dims, None, lead[0])
         return _Implicit.apply(problem, c_arr, *w0, *leaves)
+
+    def lanes_runner(self, A_op, B_op, rebuild):
+        """``(leaf_dims, c_dim) -> run``: the engine's lanes runner
+        (``engine._run`` with ``data_dims``; ``make_admm_runner(lanes=True)``)
+        over data whose leaves with dim 0 in ``leaf_dims`` carry the lanes;
+        c is shared by the lanes unless ``c_dim`` is 0."""
+        prox_f, prox_g = self.prox_f, self.prox_g
+        config = resolve_unroll(self.config, "default")
+
+        def make(leaf_dims, c_dim):
+            dims = rebuild(leaf_dims, keep=False)
+
+            def run(x0, z0, u0, c, data):
+                if c_dim is None:
+                    c = c.expand((x0.shape[0],) + tuple(c.shape))
+                with matmul_precision(config.matmul_precision):
+                    return _run(prox_f, prox_g, config, Hooks(), data, x0, z0, u0, c, A_op,
+                                B_op, data_dims=dims)
+
+            return run
+
+        return make
 
 
 def make_implicit_solver(
@@ -628,8 +744,10 @@ def make_implicit_solver(
     floating leaf, or torch's default.  ``solve.stats`` holds the last
     backward or tangent solve's ``steps`` (per lane), J applications
     (``applies``) and host ``reads``.  Initial iterates get no gradient.
-    ``torch.func.vmap`` over ``solve`` raises: use
-    ``make_implicit_batch_solver``.
+    ``torch.func.vmap`` over ``solve`` (batched data leaves, c or
+    iterates) runs the batch as lanes of one runner, and under
+    ``vmap(grad(...))`` its backward as the lanes' adjoint, each lane
+    frozen at its own stop: what ``make_implicit_batch_solver`` runs.
     """
     fac = _Factory(prox_f, prox_g, config, A, B, nA, nB, m, shape_x, shape_z, dtype, mode,
                    vjp_method, vjp_maxiters, vjp_tol, device)
@@ -688,19 +806,25 @@ def make_implicit_batch_solver(
 
 
 def _sharded_reduce(mesh, sharded):
-    """The Neumann norms' reduction over ``mesh``'s ranks for the leaves
-    flagged in ``sharded``; None on a stacked mesh (nothing to add)."""
+    """The linear solves' reduction over ``mesh``'s ranks for the leaves
+    flagged in ``sharded``: ``reduce(parts, ...)`` takes lists of per-leaf
+    partial sums and returns them with the sharded leaves' summed over
+    the ranks, every list in one collective.  None on a stacked mesh
+    (nothing to add)."""
     if mesh is None or mesh.group is None:
         return None
+    idx = [i for i, flag in enumerate(sharded) if flag]
 
-    def reduce(parts):
-        idx = [i for i, flag in enumerate(sharded) if flag]
-        red = mesh.psum(*(parts[i] for i in idx))
-        red = red if isinstance(red, tuple) else (red,)
-        parts = list(parts)
-        for i, r in zip(idx, red):
-            parts[i] = r
-        return parts
+    def reduce(*lists):
+        red = mesh.psum(*(parts[i] for parts in lists for i in idx))
+        red = iter(red if isinstance(red, tuple) else (red,))
+        out = []
+        for parts in lists:
+            parts = list(parts)
+            for i in idx:
+                parts[i] = next(red)
+            out.append(parts)
+        return out if len(lists) > 1 else out[0]
 
     return reduce
 
@@ -722,21 +846,22 @@ def _sharded_problem(runner, one_iter, data, mode, vjp_method, vjp_tol, vjp_maxi
     constant 0-d ``c`` (the sharded runners have no constraint offset)."""
     leaves, rebuild = _flatten(data)
     c = torch.zeros((), dtype=w0[0].dtype, device=w0[0].device)
+
+    def lanes_runner(leaf_dims, c_dim):
+        return functools.partial(runner, dims=rebuild(leaf_dims, keep=False))
+
     problem = _Problem(runner, lambda w, _c, d: one_iter(w, d), rebuild, mode, vjp_method,
-                       vjp_tol, vjp_maxiters, stats, reduce=_sharded_reduce(mesh, sharded))
+                       vjp_tol, vjp_maxiters, stats, lanes_runner,
+                       reduce=_sharded_reduce(mesh, sharded))
     return _Implicit.apply(problem, c, *w0, *leaves)
 
 
-def _check_sharded(mesh, vjp_method, W):
-    """The mesh of a sharded implicit solver (stacked when None) and its
-    rank count, with the factory's checks."""
-    if mesh is not None and mesh.group is not None:
-        if vjp_method != "neumann":
-            raise ValueError("over a process group the implicit sharded solvers take "
-                             "vjp_method='neumann' (GMRES runs on a stacked mesh only)")
-        if W % mesh.world:
-            raise ValueError(f"W={W} shards do not divide over the {mesh.world} ranks of the "
-                             f"mesh's process group")
+def _check_sharded(mesh, W):
+    """The mesh of a sharded implicit solver (stacked when None), with the
+    factory's check that its shards divide over the ranks."""
+    if mesh is not None and mesh.group is not None and W % mesh.world:
+        raise ValueError(f"W={W} shards do not divide over the {mesh.world} ranks of the "
+                         f"mesh's process group")
     return mesh
 
 
@@ -777,22 +902,21 @@ def make_implicit_consensus_solver(
     (aggregate ``x* = xi.mean(0)`` over every shard as the consensus
     solution); ``solve.stats`` as in ``make_implicit_solver``.
     """
-    from .config import resolve_unroll
     from .parallel.consensus import _consensus_solve
 
     _check_diffable_config(config, mode, vjp_method)
     # unroll='auto': the factory cannot classify the user prox body.
     config = resolve_unroll(config, "default")
-    mesh = _check_sharded(mesh, vjp_method, int(W))
+    mesh = _check_sharded(mesh, int(W))
     W, n = int(W), int(n)
     relax = float(config.relax)
     use_relax = relax != 1.0
     rho = float(config.rho)
     stats = {"applies": 0, "reads": 0, "steps": None}
 
-    def runner(xi0, z0, ui0, _c, data):
+    def runner(xi0, z0, ui0, _c, data, dims=None):
         out = _consensus_solve(local_prox, global_prox, config, W, n, data, xi0, ui0, z0,
-                               mesh=run_mesh(xi0), local_state=True)
+                               data_dims=dims, mesh=run_mesh(xi0), local_state=True)
         return {"xopt": out["xi"], "zopt": out["zopt"], "uopt": out["ui"]}
 
     def run_mesh(t):
@@ -874,22 +998,23 @@ def make_implicit_unwrapped_solver(
 
     Returns ``solve(data, x0=None, zi0=None, ui0=None) -> (x, zi, ui)``.
     """
-    from .config import resolve_unroll
     from .parallel.transpose_reduction import _unwrapped_solve
 
     _check_diffable_config(config, mode, vjp_method)
     config = resolve_unroll(config, "gemv")
-    mesh = _check_sharded(mesh, vjp_method, int(W))
+    mesh = _check_sharded(mesh, int(W))
     m, n, W = int(m), int(n), int(W)
     relax = float(config.relax)
     use_relax = relax != 1.0
     rho = float(config.rho)
     stats = {"applies": 0, "reads": 0, "steps": None}
 
-    def runner(x0, zi0, ui0, _c, data):
+    def runner(x0, zi0, ui0, _c, data, dims=None):
         data = dict(data, aux=data.get("aux", ()))
+        if dims is not None:
+            dims = dict(dims, aux=dims.get("aux", ()))
         out = _unwrapped_solve(prox_g_shard, None, None, config, m, data, x0, zi0, ui0,
-                               mesh=mesh, local_state=True)
+                               data_dims=dims, mesh=mesh, local_state=True)
         return {"xopt": out["xopt"], "zopt": out["zopt"], "uopt": out["uopt"]}
 
     def one_iter(w, data):

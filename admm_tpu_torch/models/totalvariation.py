@@ -12,7 +12,8 @@ xminTotalVariation (getProxOps.m:1044-1048).
 x-update:  (I + rho D^T D)^{-1} (s + rho D^T (z - u)), by a dense inverse
            from one eigendecomposition ('dense') or by cyclic reduction of
            the fixed tridiagonal system ('cr', 'cr_masked'; on a CUDA
-           device through the kernel of ``ops/tridiag.cr_solve``).
+           device through the kernel of ``ops/tridiag.cr_solve``; 'cr_packed'
+           in plain PyTorch on every device).
 z-update:  soft_threshold(u + D x, lambda / rho)
 
 D and D^T apply matrix-free in O(n) (``linop.DiffOp``).
@@ -30,7 +31,7 @@ from ..device import resolve_device
 from ..engine import Hooks, admm
 from ..linop import DiffOp
 from ..ops.prox import soft_threshold
-from ..ops.tridiag import CyclicReductionSolver
+from ..ops.tridiag import CyclicReductionSolver, PackedCyclicReductionSolver
 from ..results import ADMMResults
 from . import register
 from ._common import as_tensor, bind_data, merge_config, timed_solver
@@ -100,24 +101,23 @@ def make_prox_ops(s, lam, config: ADMMConfig = ADMMConfig(), solver: str = "auto
     fixed tridiagonal system, with ``admm_tpu``'s hybrid dense tail
     (cutoff 1023) for n > 16384 or ``batched`` (the lanes of ``tv_batch``),
     else the pure masked form;
-    'cr_masked' runs every level masked; 'auto' picks 'cr' for n > 2048
-    with static rho.  'cr_packed' (``admm_tpu``'s measured negative) is
-    not ported and raises.
+    'cr_masked' runs every level masked; 'cr_packed' the per-level packed
+    layout (``ops/tridiag.PackedCyclicReductionSolver``, plain PyTorch on
+    every device); 'auto' picks 'cr' for n > 2048 with static rho.
     """
     n = s.shape[0]
     D = DiffOp(n)
     data = {"s": s, "lam": torch.as_tensor(lam, dtype=s.dtype, device=s.device), "D": D}
 
     solver = _resolve_solver(solver, n, config)
-    if solver == "cr_packed":
-        raise NotImplementedError(
-            "solver='cr_packed' (admm_tpu's PackedCyclicReductionSolver, its "
-            "measured negative result) is not ported; see ROADMAP.md queue 1, "
-            "slice 6")
-    if solver in ("cr", "cr_masked") and config.dynamic_rho:
+    if solver in ("cr", "cr_masked", "cr_packed") and config.dynamic_rho:
         raise ValueError("cyclic-reduction TV requires static rho")
 
-    if solver in ("cr", "cr_masked"):
+    if solver == "cr_packed":
+        data["cr"] = PackedCyclicReductionSolver.from_tridiag(
+            *tv_system(n, config.rho), device=s.device, dtype=s.dtype)
+        prox_f = _prox_f_cr
+    elif solver in ("cr", "cr_masked"):
         # admm_tpu's gate: the hybrid tail pays off only at depth
         # (n > 16384) for one signal; batched lanes always take it.
         cutoff = 1023 if (solver == "cr" and (batched or n > 16384)) else None

@@ -29,9 +29,11 @@ kernel's tile plan (``tile_plan``) and compacted coefficient stacks
 (``compact_stacks``) are built here, in Python, so the CPU tests reach
 them.
 
-``admm_tpu``'s ``PackedCyclicReductionSolver`` is not ported: it is the
-reference's measured negative result (``admm_tpu/ops/tridiag.py:45-56``),
-and the TV model refuses ``solver='cr_packed'``.
+``PackedCyclicReductionSolver`` (``admm_tpu``'s packed layout, TV's
+``solver='cr_packed'``) keeps each level's coefficients packed to its
+stratum; ``admm_tpu`` computes it in XLA ops, with no Pallas kernel, and
+the port computes it in plain PyTorch ops on every device (it is
+differentiable and vmappable as they are).
 """
 
 from __future__ import annotations
@@ -209,6 +211,109 @@ class CyclicReductionSolver:
         bb = F.pad(b.reshape(-1, n), (0, self.alphas.shape[1] - n)).contiguous()
         x = (_cr_solve_torch if plain else cr_solve)(bb, self)
         return x[:, :n].reshape(lead + (n,))
+
+
+class PackedCyclicReductionSolver:
+    """Cyclic reduction with PACKED per-level state (port of
+    ``admm_tpu/ops/tridiag.py:PackedCyclicReductionSolver``): each level's
+    coefficients packed to its stratum, so level l moves 2^(L-l) values
+    and a solve streams ~4 N values, where the masked form streams
+    full-length arrays at every level.
+
+    In packed coordinates p over the level-l system (size 2^(L-l) - 1,
+    odd), the forward pass eliminates the odd positions (whose neighbours
+    p +- 1 are even), the reduced system is the odd stratum, and back
+    substitution solves the even positions from the known odd ones and
+    interleaves them.  The b-phase is plain PyTorch: stride-2 slices, pads
+    and one interleaving reshape per level.
+    """
+
+    def __init__(self, alphas, betas, a_lv, c_lv, d_lv, n):
+        # Tuples of per-level packed tensors:
+        #   alphas[l], betas[l]: (2^(L-l-1) - 1,) forward coefficients
+        #   a_lv[l], c_lv[l], d_lv[l]: (2^(L-l-1),) back-substitution rows
+        self.alphas = alphas
+        self.betas = betas
+        self.a_lv = a_lv
+        self.c_lv = c_lv
+        self.d_lv = d_lv
+        self.n = n
+
+    @classmethod
+    def from_tridiag(cls, dl, d, du, *, device="cpu",
+                     dtype=torch.float64) -> "PackedCyclicReductionSolver":
+        """Precompute the packed elimination state on the host (NumPy f64,
+        as ``admm_tpu`` does) and store it on ``device`` in ``dtype``;
+        ``dl``/``du`` as in ``CyclicReductionSolver.from_tridiag``."""
+        dl = np.asarray(dl, np.float64)
+        d0 = np.asarray(d, np.float64)
+        du = np.asarray(du, np.float64)
+        n = d0.shape[0]
+        L = max(1, int(np.ceil(np.log2(n + 1))))
+        N = 2**L - 1
+
+        a = np.zeros(N)
+        c = np.zeros(N)
+        dd = np.ones(N)          # identity padding rows
+        a[:n] = dl
+        a[0] = 0.0
+        c[:n] = du
+        c[n - 1] = 0.0
+        c[n:] = 0.0
+        dd[:n] = d0
+
+        alphas, betas, a_lv, c_lv, d_lv = [], [], [], [], []
+        for _ in range(L):
+            odd_a, odd_c, odd_d = a[1::2], c[1::2], dd[1::2]
+            ev_a, ev_c, ev_d = a[0::2], c[0::2], dd[0::2]
+            m = odd_d.shape[0]           # 2^(L-l-1) - 1
+            alpha = odd_a / ev_d[:m]     # / d_{p-1}
+            beta = odd_c / ev_d[1:m + 1]  # / d_{p+1}
+            alphas.append(alpha)
+            betas.append(beta)
+            a_lv.append(ev_a)
+            c_lv.append(ev_c)
+            d_lv.append(ev_d)
+            # The reduced tridiagonal on the odd stratum.
+            dd = odd_d - alpha * ev_c[:m] - beta * ev_a[1:m + 1]
+            a = -alpha * ev_a[:m]
+            c = -beta * ev_c[1:m + 1]
+
+        # One host-to-device copy of every level's stacks, split into views.
+        stacks = (alphas, betas, a_lv, c_lv, d_lv)
+        sizes = [v.size for arrs in stacks for v in arrs]
+        flat = torch.tensor(np.concatenate([v for arrs in stacks for v in arrs]), dtype=dtype,
+                            device=device)
+        views = iter(torch.split(flat, sizes))
+        return cls(*(tuple(next(views) for _ in arrs) for arrs in stacks), n)
+
+    def solve(self, b, *, plain=False):
+        """Solve T x = b for ``b`` of shape ``(..., n)`` (leading batch
+        dimensions allowed), in the stacks' dtype and on their device.
+        ``plain`` is accepted for ``CyclicReductionSolver.solve``'s
+        signature: this solve is plain PyTorch on every device."""
+        del plain
+        L = len(self.alphas)
+        lead = b.shape[:-1]
+        cur = F.pad(b, (0, 2**L - 1 - self.n))
+
+        # Forward: eliminate the odd packed positions, recurse on them.
+        evens = []
+        for l in range(L):
+            odd, ev = cur[..., 1::2], cur[..., 0::2]
+            m = odd.shape[-1]
+            evens.append(ev)
+            cur = odd - self.alphas[l] * ev[..., :m] - self.betas[l] * ev[..., 1:m + 1]
+
+        # Back substitution: solve the even positions, interleave.
+        x = cur                  # the empty remnant below the last level
+        for l in range(L - 1, -1, -1):
+            m = x.shape[-1]      # the odd stratum's solutions
+            x_even = (evens[l] - self.a_lv[l] * F.pad(x, (1, 0))
+                      - self.c_lv[l] * F.pad(x, (0, 1))) / self.d_lv[l]
+            merged = torch.stack((x_even[..., :m], x), dim=-1).reshape(lead + (2 * m,))
+            x = torch.cat((merged, x_even[..., m:]), dim=-1)
+        return x[..., :self.n]
 
 
 def _tail(sol, y):

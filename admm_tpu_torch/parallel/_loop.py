@@ -58,12 +58,40 @@ def gather_tree(mesh, tree):
     return pytree.tree_unflatten(flat, spec)
 
 
-def run_loop(step, state, bufs, data, N, K, data_dims=None):
+def gather_lanes(mesh, layout, tree, sharded=()):
+    """``tree``'s lanes whole on every rank, in one ``all_gather``: each
+    rank holds the lanes of ``layout`` (``Mesh.lane_layout``), and the
+    top-level keys in ``sharded`` hold its block of their shards on dim 1
+    (dim 0 is the lanes).  With a lane row over one rank this is
+    ``gather_tree``."""
+    if layout.span == 1:
+        return gather_tree(mesh, tree)
+    keys = list(tree)
+    flat, spec = pytree.tree_flatten([tree[k] for k in keys])
+    owner = pytree.tree_flatten([pytree.tree_map(lambda _, k=k: k in sharded, tree[k])
+                                 for k in keys])[0]
+    pos = [i for i, leaf in enumerate(flat) if isinstance(leaf, torch.Tensor)]
+    whole = mesh.gather(*(flat[i] for i in pos))
+    q, rows = layout.span, mesh.shape[0]
+    for i, t in zip(pos, whole if len(pos) > 1 else (whole,)):
+        t = t.reshape((rows, q) + tuple(flat[i].shape))       # (rows, q, b, ...)
+        if owner[i]:
+            t = t.movedim(1, 2)                                # (rows, b, q, w, ...)
+            flat[i] = t.reshape((rows * t.shape[1], q * t.shape[3]) + tuple(t.shape[4:]))
+        else:
+            flat[i] = t[:, 0].reshape((-1,) + tuple(flat[i].shape[1:]))
+    return dict(zip(keys, pytree.tree_unflatten(flat, spec)))
+
+
+def run_loop(step, state, bufs, data, N, K, data_dims=None, agree=None):
     """Run ``step`` in chunks of K sub-steps until done or N steps; returns
     the final ``(state, bufs)``.  With ``data_dims`` (``data``'s keys: 0
     for a leaf stacked over lanes, None for a shared one) the state and
     buffers carry a leading lane axis and the sub-step runs under
-    ``torch.func.vmap``; the lanes run until every one is frozen."""
+    ``torch.func.vmap``; the lanes run until every one is frozen.
+    ``agree`` (lanes whose shards span ranks: ``Mesh.all_min``) takes the
+    chunk's flags to their minimum over every rank, so that all ranks
+    leave the loop after the same chunk."""
     lanes = data_dims is not None
     freeze = K > 1 or lanes
     put = _put_new if lanes else _put_in_place
@@ -79,8 +107,10 @@ def run_loop(step, state, bufs, data, N, K, data_dims=None):
 
     if lanes:
         run = torch.func.vmap(sub, in_dims=(0, 0, data_dims))
-        flags = lambda: torch.stack((cur[0]["k"].min(),  # noqa: E731
-                                     (cur[0]["done"] | (cur[0]["k"] >= N)).all().long()))
+        def flags():
+            s = cur[0]
+            f = torch.stack((s["k"].min(), (s["done"] | (s["k"] >= N)).all().long()))
+            return f if agree is None else agree(f)
     else:
         run = sub
         flags = lambda: torch.stack((cur[0]["k"], cur[0]["done"].long()))  # noqa: E731

@@ -44,9 +44,13 @@ reduction over the shard axis goes through the mesh (``Mesh.pmean``,
 (``xbar`` with ``ubar``: 2n floats; the residual scalars, with the alg-2
 d-value's part), and Anderson acceleration two more.  The per-shard
 results ``xi``/``ui`` come back whole on every rank through one
-``all_gather`` (``Mesh.gather``).  The lanes x shards batches place the
-lanes over the ranks and stack every shard of a lane on its rank, so
-their steps issue no collective.  The loop is ``_loop.run_loop``: chunks
+``all_gather`` (``Mesh.gather``).  The lanes x shards batches take the
+2-D mesh's layout (``Mesh.lane_layout``): with the ranks dividing the
+lanes each rank stacks every shard of its lanes and its steps issue no
+collective; with a lane row over several ranks each holds its block of
+the row's shards, the means and sums run over the row's subgroup (one
+collective for all the row's lanes under vmap), and each chunk's flags
+over the whole group.  The loop is ``_loop.run_loop``: chunks
 of K sub-steps, one host read a chunk; over ranks every rank reads the
 same ``(k, done)``, which comes only from reduced values.  A per-shard
 local solve is a batched GEMV (``torch.einsum`` over the (W, n, n)
@@ -71,7 +75,7 @@ from ..ops.matfun import covsel_ns_prox
 from ..ops.prox import covsel_eig_prox, soft_threshold
 from ..ops.solve import cho_factor, cho_solve
 from ..results import ADMMResults
-from ._loop import gather_tree, history, run_loop, traces
+from ._loop import gather_lanes, history, run_loop, traces
 from .mesh import Mesh, lane_shard_count, pad_rows, resolve_mesh, shard_count, shard_rows
 
 
@@ -224,14 +228,15 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
 
 def _consensus_solve(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, data,
                      xi0, ui0, z0, data_dims=None, mesh: Optional[Mesh] = None,
-                     local_state: bool = False) -> dict:
+                     local_state: bool = False, agree=None) -> dict:
     """Run the consensus iteration from (xi0, ui0, z0), the whole (W, n)
     stacks; returns the raw result dict.  Over ``mesh``'s process group
     the state is this rank's block of shards (``data``'s shard-axis leaves
     are that block) and ``xi``/``ui`` come back whole; with
     ``local_state`` xi0/ui0 are this rank's block already and the results
     stay so.  With ``data_dims`` the state carries a leading lane axis
-    (``_loop.run_loop``) and the shards are local."""
+    (``_loop.run_loop``) and ``mesh`` takes its block of shards on dim 1
+    (lanes whose shards span ranks: ``agree``, as in ``run_loop``)."""
     mesh = Mesh((W,), ("shards",), z0.device) if mesh is None else mesh
     lead = tuple(z0.shape[:-1])
     rdtype, device = z0.dtype, z0.device
@@ -241,10 +246,11 @@ def _consensus_solve(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, d
     false = torch.zeros(lead, dtype=torch.bool, device=device)
     names = _consensus_names(cfg)
     if local_state:
-        xbar0, ubar0 = mesh.pmean(xi0, ui0)
+        pmean = mesh.pmean if data_dims is None else torch.func.vmap(mesh.pmean)
+        xbar0, ubar0 = pmean(xi0, ui0)
     else:
         xbar0, ubar0 = torch.mean(xi0, dim=-2), torch.mean(ui0, dim=-2)
-        xi0, ui0 = mesh.take(xi0), mesh.take(ui0)
+        xi0, ui0 = mesh.take(xi0, dim=-2), mesh.take(ui0, dim=-2)
     wu0 = cfg.rho * ubar0
     window = (AndersonWindow(cfg, [n, xi0.shape[-2] * n], dtype=rdtype, device=device,
                              sharded=[False, True], psum=mesh.psum)
@@ -275,7 +281,7 @@ def _consensus_solve(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, d
 
     step = _make_consensus_step(local_prox, global_prox, cfg, W, n, window, mesh)
     with matmul_precision(cfg.matmul_precision):
-        s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll), data_dims)
+        s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll), data_dims, agree)
     xi, ui = s["xi"], s["ui"]
     if data_dims is None and not local_state:
         xi, ui = mesh.gather(xi, ui)
@@ -740,14 +746,17 @@ def consensus_covsel(
 # ---- lanes x shards: B instances, each row-sharded W ways -----------------
 
 
-def _consensus_batch(local, global_prox, data, mapped, cfg, W, n, xi0, ui0, z0, Bn, device,
-                     rdtype, body, mesh):
+def _consensus_batch(local, global_prox, data, mapped, sharded, cfg, W, n, xi0, ui0, z0, Bn,
+                     device, rdtype, body, mesh):
     """Run B consensus lanes as one program (``torch.func.vmap`` over the
     step, a freeze select at every sub-step); returns the raw dict and the
-    loop's wall time.  ``mapped`` names the data keys stacked over lanes.
-    Over ``mesh``'s process group each rank runs its block of lanes, every
-    shard of them stacked on its device, and the results come back whole
-    through one ``all_gather``."""
+    loop's wall time.  ``mapped`` names the data keys stacked over lanes
+    and ``sharded`` those with a shard axis (dim 1 of a mapped key, dim 0
+    of a shared one).  Over ``mesh``'s process group each rank runs its
+    part (``Mesh.lane_layout``): its lanes with every shard, or, with a
+    lane row over several ranks, its row's lanes with its block of shards,
+    the shard-axis means over the row's subgroup.  The results come back
+    whole through one ``all_gather``."""
     def init(v, shape, what):
         if v is None:
             return torch.zeros(shape, dtype=rdtype, device=device)
@@ -761,15 +770,26 @@ def _consensus_batch(local, global_prox, data, mapped, cfg, W, n, xi0, ui0, z0, 
     z0 = init(z0, (Bn, n), "z0")
     cfg = resolve_unroll(cfg, body)
     dims = {k: (0 if k in mapped else None) for k in data}
-    rows = mesh.rows(Bn, "lanes")
-    data = {k: (v[rows] if k in mapped else v) for k, v in data.items()}
+    lay = mesh.lane_layout(Bn, W)
+
+    def part(k, v):
+        if k in mapped:
+            v = v[lay.lanes]
+            return v[:, lay.shards] if k in sharded else v
+        return v[lay.shards] if k in sharded else v
+
+    data = {k: part(k, v) for k, v in data.items()}
+    rows = lay.lanes
     _sync(device)
     t0 = time.perf_counter()
     out = _consensus_solve(local, global_prox, cfg, W, n, data, xi0[rows], ui0[rows], z0[rows],
-                           data_dims=dims, mesh=mesh.local())
+                           data_dims=dims, mesh=lay.inner, agree=lay.agree)
     _sync(device)
     runtime = time.perf_counter() - t0
-    return gather_tree(mesh, out), runtime
+    out = gather_lanes(mesh, lay, out, sharded=("xi", "ui"))
+    if lay.span > 1:
+        out["xopt"], out["uopt"] = torch.mean(out["xi"], dim=-2), torch.mean(out["ui"], dim=-2)
+    return out, runtime
 
 
 def _batch_results(out, runtime, W, mesh, shape=None):
@@ -814,8 +834,9 @@ def _consensus_ls_batch(D, S, penalties, global_prox, config, *, mesh, nshards, 
     mapped = {"Dtsi"} | set(penalties)
     for key, val in penalties.items():
         data[key] = _lane_values(val, Bn, D.dtype, device)
-    out, runtime = _consensus_batch(local, global_prox, data, mapped, config, W, n, xi0, ui0,
-                                    z0, Bn, device, D.dtype, "gemv", mesh)
+    out, runtime = _consensus_batch(local, global_prox, data, mapped, {"Dtsi", "Minv", "V", "w"},
+                                    config, W, n, xi0, ui0, z0, Bn, device, D.dtype, "gemv",
+                                    mesh)
     return _batch_results(out, runtime, W, mesh)
 
 
@@ -835,7 +856,9 @@ def consensus_lasso_batch(
     """B independent LASSO instances — one shared dictionary ``D``, a
     per-lane signal ``S[b]`` and penalty ``lams[b]`` — each solved by
     consensus ADMM with its rows in W shards, as one program over a 2-D
-    (lanes x shards) mesh (default 1 lane x all devices).  B must divide
+    (lanes x shards) mesh (default 1 lane x all devices; over a process
+    group, every device of every rank, the shard axis over the ranks, as
+    ``admm_tpu``'s default over a cluster).  B must divide
     over the lane axis and ``nshards`` (default: the shard-axis size) over
     the shard axis.  ``xi0``/``ui0`` (B, W, n) and ``z0`` (B, n) warm-start
     the lanes.  Returns ``models.batch.BatchResults`` with the final
@@ -911,7 +934,7 @@ def consensus_covsel_batch(
             "wgt": torch.as_tensor(1.0 / W, dtype=dt, device=device)}
     nn = p * p
     flat = lambda v, shape: None if v is None else as_tensor(v).reshape(shape)  # noqa: E731
-    out, runtime = _consensus_batch(local, _lasso_global_prox, data, {"Si", "lam"}, config, W,
-                                    nn, flat(xi0, (Bn, W, nn)), flat(ui0, (Bn, W, nn)),
+    out, runtime = _consensus_batch(local, _lasso_global_prox, data, {"Si", "lam"}, {"Si"},
+                                    config, W, nn, flat(xi0, (Bn, W, nn)), flat(ui0, (Bn, W, nn)),
                                     flat(z0, (Bn, nn)), Bn, device, dt, "heavy", mesh)
     return _batch_results(out, runtime, W, mesh, shape=(p, p))

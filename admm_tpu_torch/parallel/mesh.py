@@ -16,6 +16,18 @@ process and an optional ``torch.distributed`` process ``group``.
   shards stacked on dim 0 of its own device (``Mesh.rows``), and every
   reduction over the shard axis is the rank's local reduction followed by
   one ``torch.distributed.all_reduce``.
+- A 2-D (lanes x shards) mesh over P ranks is laid out as ``admm_tpu``'s
+  process-major device grid: the grid flattened row-major, each rank a
+  contiguous block of its positions (``make_mesh2d``).  Either the ranks
+  divide the lanes (each rank its lanes, every shard of them), or the
+  lanes divide the ranks and each lane row's shards span P/lanes ranks,
+  whose shard-axis reductions run over that row's subgroup
+  (``Mesh.lane_layout``).
+
+Under ``torch.func.vmap`` (the lanes runner) a reduction over a group is
+one collective for all the lanes: ``_AllReduceSum`` and ``_Bcast`` have
+vmap rules that move the lane axis to the front and reduce the whole
+(B, ...) tensor in one ``all_reduce``.
 
 The runners reduce over the shard axis only through ``Mesh.psum``,
 ``Mesh.pmean`` and ``Mesh.gather``, so one code path serves both
@@ -36,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +58,19 @@ from ..device import resolve_device
 
 def _new_stats():
     return {"calls": {}, "bytes": {}}
+
+
+def _batched(t) -> bool:
+    """Whether ``t`` is a lane of ``torch.func.vmap``."""
+    return torch._C._functorch.is_batchedtensor(t)
+
+
+def _payload(t) -> int:
+    """The bytes a collective moves for ``t``: every lane of a tensor
+    batched by ``torch.func.vmap``."""
+    while _batched(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t.numel() * t.element_size()
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -70,6 +95,15 @@ class _AllReduceSum(torch.autograd.Function):
     def backward(ctx, grad):
         return _Bcast.apply(grad, ctx.group), None
 
+    @staticmethod
+    def vmap(info, in_dims, flat, group):
+        # All the lanes in one collective: the lane axis first, the whole
+        # (B, ...) tensor reduced at once.
+        d = in_dims[0]
+        if d is None:
+            return _AllReduceSum.apply(flat, group), None
+        return _AllReduceSum.apply(flat.movedim(d, 0), group), 0
+
 
 class _Bcast(torch.autograd.Function):
     """A value every rank holds whole, handed to a computation on this
@@ -88,6 +122,24 @@ class _Bcast(torch.autograd.Function):
     def backward(ctx, grad):
         return _AllReduceSum.apply(grad.contiguous(), ctx.group), None
 
+    @staticmethod
+    def vmap(info, in_dims, t, group):
+        return _Bcast.apply(t, group), in_dims[0]
+
+
+class LaneLayout(NamedTuple):
+    """This rank's part of a lanes x shards solve (``Mesh.lane_layout``):
+    its ``lanes`` and ``shards`` (slices of the B lanes and the W shards),
+    the ``inner`` mesh the lanes' step reduces over (no group, or the lane
+    row's subgroup), the ranks a lane row spans (``span``), and ``agree``:
+    the chunk flags' minimum over the whole group, or None."""
+
+    lanes: slice
+    shards: slice
+    inner: "Mesh"
+    span: int
+    agree: Optional[Callable]
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -98,6 +150,9 @@ class Mesh:
     axis_names: Tuple[str, ...]
     device: torch.device
     group: Any = None
+    # A 2-D mesh whose lane rows span several ranks: this rank's lane
+    # row's subgroup (``make_mesh2d``); None otherwise.
+    lane_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     # Collectives issued through this mesh (and its sub-meshes): calls and
     # payload bytes per operation; ``reset_stats`` empties it.
     stats: dict = dataclasses.field(default_factory=_new_stats, compare=False, repr=False)
@@ -128,7 +183,7 @@ class Mesh:
     def local(self) -> "Mesh":
         """The mesh without its group: what one rank holds, stacked, with
         counts of its own (its reductions are no collectives)."""
-        return dataclasses.replace(self, group=None, stats=_new_stats())
+        return dataclasses.replace(self, group=None, lane_group=None, stats=_new_stats())
 
     def reset_stats(self) -> dict:
         """Empty the collective counts; returns the counts it held."""
@@ -147,12 +202,55 @@ class Mesh:
         per = count // P
         return slice(self.rank * per, (self.rank + 1) * per)
 
-    def take(self, t, count: Optional[int] = None, what: str = "shards"):
-        """This rank's block of dim 0 of ``t`` (the whole of it without a
-        group); ``count`` defaults to ``t.shape[0]``."""
+    def take(self, t, count: Optional[int] = None, what: str = "shards", dim: int = 0):
+        """This rank's block of dim ``dim`` of ``t`` (the whole of it
+        without a group); ``count`` defaults to the dim's size."""
         if self.group is None:
             return t
-        return t[self.rows(t.shape[0] if count is None else count, what)]
+        rows = self.rows(t.shape[dim] if count is None else count, what)
+        return t[(slice(None),) * (dim % t.ndim) + (rows,)]
+
+    @property
+    def span(self) -> int:
+        """The ranks a lane row of a 2-D mesh spans: 1 unless the lanes
+        divide the ranks (``make_mesh2d``)."""
+        if self.group is None or len(self.shape) != 2:
+            return 1
+        return max(self.world // self.shape[0], 1)
+
+    def lane_layout(self, Bn: int, W: int) -> LaneLayout:
+        """This rank's part of B lanes of W shards each on this 2-D mesh.
+        Without a group: everything, stacked.  With the ranks dividing the
+        lanes: its block of lanes, every shard, an inner mesh without a
+        group.  With a lane row over ``span`` ranks: the lanes of its row,
+        its block of W/span shards, the row's subgroup as the inner mesh
+        (its reductions count in this mesh's ``stats``), and ``agree``,
+        which takes the chunk's ``(k, frozen)`` flags to their minimum over
+        every rank, so that every rank leaves the chunk loop at once."""
+        everything = slice(0, None)
+        if self.group is None:
+            return LaneLayout(everything, everything, self.local(), 1, None)
+        q = self.span
+        if q == 1:
+            return LaneLayout(self.rows(Bn, "lanes"), everything, self.local(), 1, None)
+        row, col = divmod(self.rank, q)
+        per, ws = Bn // self.shape[0], W // q
+        inner = Mesh((W,), (self.axis_names[1],), self.device, self.lane_group,
+                     stats=self.stats)
+        return LaneLayout(slice(row * per, (row + 1) * per), slice(col * ws, (col + 1) * ws),
+                          inner, q, self.all_min)
+
+    def all_min(self, t):
+        """The elementwise minimum of ``t`` over every rank of the group,
+        in one ``all_reduce`` (``t`` itself without a group)."""
+        if self.group is None:
+            return t
+        import torch.distributed as dist
+
+        self._count("all_reduce", _payload(t))
+        t = t.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+        return t
 
     def _count(self, op: str, nbytes: int) -> None:
         calls, nb = self.stats["calls"], self.stats["bytes"]
@@ -164,13 +262,16 @@ class Mesh:
         sum (a tensor of any shape, all of one dtype), in one
         ``all_reduce``; without a group the parts themselves.  ``grad``:
         differentiable (``_AllReduceSum``), for an implicit solver's map;
-        the runners' calls skip the Function's host cost."""
-        nbytes = sum(p.numel() * p.element_size() for p in parts)
-        self._count("all_reduce", nbytes)
+        the runners' calls skip the Function's host cost.  Under
+        ``torch.func.vmap`` the call is one ``all_reduce`` of every lane
+        (``_AllReduceSum``'s vmap rule), counted once with every lane's
+        bytes."""
         if self.group is None:
+            self._count("all_reduce", sum(_payload(p) for p in parts))
             return parts if len(parts) > 1 else parts[0]
         flat = torch.cat([p.reshape(-1) for p in parts])
-        if grad:
+        self._count("all_reduce", _payload(flat))
+        if grad or _batched(flat):
             flat = _AllReduceSum.apply(flat, self.group)
         else:
             import torch.distributed as dist
@@ -196,7 +297,7 @@ class Mesh:
         the rank count (exact for a power of two, and for one rank the
         local mean itself).  ``grad`` as in ``psum``."""
         if self.group is None:
-            self._count("all_reduce", sum(s[0].numel() * s.element_size() for s in stacks))
+            self._count("all_reduce", sum(_payload(s[0]) for s in stacks))
             out = tuple(torch.mean(s, dim=0) for s in stacks)
             return out if len(out) > 1 else out[0]
         P = self.world
@@ -287,23 +388,49 @@ def make_mesh2d(lanes: int, shards: int,
                 axis_names: Tuple[str, str] = ("lanes", "shards"), *,
                 device=None, group=None) -> Mesh:
     """A 2-D (lanes x shards) mesh: instance lanes on axis 0, consensus /
-    transpose-reduction row shards on axis 1.  Over a process ``group``
-    the LANES axis lies over the ranks (``lanes`` a multiple of the rank
-    count) and each rank stacks every shard of its lanes on its own device
-    (the layout of ``admm_tpu``'s two-process 2-D mesh), so a lanes step
-    issues no collective."""
+    transpose-reduction row shards on axis 1.
+
+    Over a process ``group`` of P ranks the grid is laid out as
+    ``admm_tpu``'s process-major device grid (``jax.devices()`` reshaped
+    to (lanes, shards)): flattened row-major, each rank a contiguous block
+    of lanes*shards/P positions.  Two layouts follow:
+
+    - P divides ``lanes``: each rank holds lanes/P lane rows, every shard
+      of them stacked on its device; a lanes step issues no collective.
+    - ``lanes`` divides P and P/lanes divides ``shards``: each lane row's
+      shards span P/lanes ranks, which reduce over the row's subgroup.
+      The subgroups are made here, once, by every rank in the same order
+      (``torch.distributed.new_group``); with one lane row the subgroup is
+      ``group`` itself.
+
+    Any other shape raises ``ValueError``."""
     if lanes < 1 or shards < 1:
         raise ValueError(f"mesh {lanes}x{shards} needs positive sizes")
     device = _group_device(device, group)
+    lane_group = None
     if group is not None:
         import torch.distributed as dist
 
         P = dist.get_world_size(group)
         if lanes % P:
-            raise ValueError(f"a {lanes}x{shards} mesh places its lane axis over the {P} "
-                             f"ranks of its process group; {lanes} lanes do not divide "
-                             f"over them")
-    return Mesh((int(lanes), int(shards)), tuple(axis_names), device, group)
+            q = P // lanes
+            if P % lanes or shards % q:
+                raise ValueError(
+                    f"a {lanes}x{shards} mesh does not lay out over the {P} ranks of its "
+                    f"process group: the ranks must divide the lanes (each rank whole lane "
+                    f"rows), or the lanes must divide the ranks and the ranks of a lane row "
+                    f"({P}/lanes) divide the shards (each lane row's shards over a subgroup)")
+            if lanes == 1:
+                lane_group = group
+            else:
+                ranks = dist.get_process_group_ranks(group)
+                me = dist.get_rank(group)
+                for r in range(lanes):
+                    sub = dist.new_group(ranks[r * q:(r + 1) * q])
+                    if r == me // q:
+                        lane_group = sub
+    return Mesh((int(lanes), int(shards)), tuple(axis_names), device, group,
+                lane_group=lane_group)
 
 
 def pad_rows(M, multiple: int):
@@ -339,9 +466,18 @@ def resolve_mesh(mesh: Optional[Mesh], device, *operands, ndim: int = 1):
         if device is not None and torch.device(device).type != mesh.device.type:
             raise ValueError(f"device={device!r} differs from the mesh's {mesh.device}")
         return mesh, mesh.device
-    device = resolve_device(device, *operands)
     if ndim == 2:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            # admm_tpu's default over a cluster: 1 lane x every device of
+            # every process, the shard axis over the ranks.
+            group = dist.group.WORLD
+            mesh = make_mesh2d(1, dist.get_world_size(group), device=device, group=group)
+            return mesh, mesh.device
+        device = resolve_device(device, *operands)
         return make_mesh2d(1, visible_devices(device), device=device), device
+    device = resolve_device(device, *operands)
     return make_mesh(device=device), device
 
 

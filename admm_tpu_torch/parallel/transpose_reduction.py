@@ -54,7 +54,7 @@ from ..models._common import as_tensor
 from ..models.unwrapped import random_start
 from ..ops.prox import hinge_prox, zero_one_prox
 from ..results import ADMMResults
-from ._loop import gather_tree, history, run_loop, traces
+from ._loop import gather_lanes, history, run_loop, traces
 from .mesh import Mesh, lane_shard_count, pad_rows, resolve_mesh, shard_count, shard_rows
 
 
@@ -215,14 +215,16 @@ def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window, mesh: Me
 
 def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: int, data,
                      x0, z0, u0, data_dims=None, mesh: Optional[Mesh] = None,
-                     local_state: bool = False) -> dict:
+                     local_state: bool = False, agree=None) -> dict:
     """Run the unwrapped iteration from (x0, z0, u0); ``data`` holds
     ``Di`` (W, m/W, n), ``Winv`` (n, n), ``mask`` (W, m/W) and ``aux`` (a
     tuple of per-row (W, m/W) tensors), and z0/u0 are (W, m/W) — over
     ``mesh``'s process group, this rank's block of shards, the row-space
     results coming back whole (with ``local_state``, staying this rank's
     block).  Returns the raw result dict; with ``data_dims`` the state
-    carries a leading lane axis and the shards are local."""
+    carries a leading lane axis, the shards are ``mesh``'s (the whole of
+    them, or this rank's block over a lane row's subgroup) and ``agree``
+    is ``run_loop``'s."""
     mesh = Mesh((1,), ("shards",), x0.device) if mesh is None else mesh
     lead = tuple(x0.shape[:-1])
     rdtype, device = x0.dtype, x0.device
@@ -258,7 +260,7 @@ def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: in
 
     step = _make_unwrapped_step(prox_g_shard, cfg, m, window, mesh)
     with matmul_precision(cfg.matmul_precision):
-        s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll), data_dims)
+        s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll), data_dims, agree)
         objopt = None
         if obj_shard is not None or obj_global is not None:
             def objective(x, zi, d):
@@ -425,9 +427,11 @@ def svm_batch_sharded(
     Lane b's random start is the next draw of one ``random_start``
     generator (x0, z0, u0 of lane 0, then of lane 1, ...); explicit ``x0``
     (B, n) / ``z0``/``u0`` (B, m) override.  Returns
-    ``models.batch.BatchResults``.  Over a mesh with a process group the
-    lanes lie over the ranks, every shard of a lane on its rank, and the
-    results come back whole through one ``all_gather``."""
+    ``models.batch.BatchResults``.  Over a mesh with a process group each
+    rank runs its part (``Mesh.lane_layout``: its lanes with every shard,
+    or its lane row's lanes with its block of shards, the shard-axis sums
+    over the row's subgroup), and the results come back whole through one
+    ``all_gather``."""
     from ..models.batch import BatchResults
 
     mesh, device = resolve_mesh(mesh, device, D, ells, ndim=2)
@@ -477,15 +481,19 @@ def svm_batch_sharded(
 
     z0, u0 = row_state(z0, drawn[1], "z0"), row_state(u0, drawn[2], "u0")
     dims = {"Di": None, "Winv": None, "mask": None, "aux": (0, None, None)}
-    rows = mesh.rows(Bn, "lanes")
-    data["aux"] = (data["aux"][0][rows],) + data["aux"][1:]
+    lay = mesh.lane_layout(Bn, W)
+    rows, cols = lay.lanes, lay.shards
+    aux = data["aux"]
+    data = {"Di": Di[cols], "Winv": data["Winv"], "mask": data["mask"][cols],
+            "aux": (aux[0][rows][:, cols], aux[1][cols], aux[2][cols])}
     _sync(device)
     t0 = time.perf_counter()
-    out = _unwrapped_solve(prox, obj, _svm_obj_global, cfg, m, data, x0[rows], z0[rows],
-                           u0[rows], data_dims=dims, mesh=mesh.local())
+    out = _unwrapped_solve(prox, obj, _svm_obj_global, cfg, m, data, x0[rows],
+                           z0[rows][:, cols], u0[rows][:, cols], data_dims=dims,
+                           mesh=lay.inner, agree=lay.agree)
     _sync(device)
     runtime = time.perf_counter() - t0
-    out = gather_tree(mesh, out)
+    out = gather_lanes(mesh, lay, out, sharded=("zopt", "uopt"))
     return BatchResults(xopt=out["xopt"], zopt=out["zopt"], uopt=out["uopt"],
                         steps=out["steps"], objopt=out["objopt"], rho_final=out["rho_final"],
                         runtime=runtime, hist=out["hist"],

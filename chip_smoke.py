@@ -318,8 +318,9 @@ through the functions a user calls and checks what comes out:
          payloads, and ``z18b_runs`` in f64: ``linearsvm_sharded``,
          ``exchange_quadratic``, ``sdp_sharded``, a sliced
          ``admm(parallel='both')``, ``consensus_lasso_batch`` on a 2-D
-         mesh (lanes over the ranks) and the implicit consensus solver's
-         gradient (Z18B_ADJOINT_STEPS Neumann steps); every result the same
+         mesh (each rank its lane row) and the implicit consensus solver's
+         gradient (rho ``IMPLICIT_RHO``, Z18B_ADJOINT_STEPS Neumann steps);
+         every result the same
          bits on both ranks, the
          stacked run's steps (or one apart, the deciding pnorm printed),
          the objective (or gradient) within 1e-5 of the stacked run's and
@@ -334,7 +335,31 @@ through the functions a user calls and checks what comes out:
          run and why;
      (z18d) ``python -m admm_tpu_torch scaling --devices 8 --iters 50`` and
          ``scaling --predict``, each exit 0.
+     The sliced solve's inputs are made on the card, so over the ranks it
+     equals the stacked run bit for bit, in f64 and in f32.
      No run of (z18) launches K1-K4 (each gloo rank checks its own).
+ 18. slice 10c (``slice10c_phase``, (z19)):
+     (z19a) ``consensus_lasso_batch`` at full width (4 lanes of (z17a)'s
+         8 x 65536 x 1024 f32 problem, lambdas ``Z19_LANES`` times its
+         own) on ``make_mesh2d(1, 8)`` over two gloo ranks on the card
+         (``Z19_WORKER``), each rank 4 shards of every lane, the shard-axis
+         means over the lane row's group: the stacked 4 x 8 run's steps,
+         each lane's objective within 1e-5 of it (the f32 spread printed),
+         the collectives a sub-step from ``Mesh.stats``, iter/s a rank;
+     (z19b) the implicit consensus LASSO's gradient (8 shards of 512 x 64,
+         f64, rho ``IMPLICIT_RHO``) with ``vjp_method='gmres'`` over the two
+         ranks: within 1e-10 of the stacked GMRES gradient and 1e-5 of the
+         stacked Neumann gradient;
+     (z19c) ``vmap(grad(loss))`` over the serial TV implicit solve at
+         n = 65536 f32 for the four lambdas of ``Z19C_LAMS``: each lane
+         within 1e-5 of the serial gradient, one K4 launch of all lanes
+         per J^T application of the backward;
+     (z19d) ``totalvariation(solver='cr_packed')`` at n = 65536 in f32 and
+         f64 against the hybrid (f64: its steps, 1e-9; f32: 1e-4), and one
+         packed solve's device time beside K4's;
+     (z19e) NumPy's inverse of a 2048-square matrix in this process and in
+         a rank with one thread: how many f32 entries differ (why (z18b)
+         makes the sliced solve's inputs on the card).
 
 Kernel times are device times: CUDA events around replays of a CUDA
 graph that holds several calls (``graph_ms``), so that the host's time per
@@ -436,6 +461,10 @@ Z17_ORACLE = dict(maxiters=5000, abstol=1e-7, reltol=1e-6, stallwindow=100, unro
 Z18_TIMED_STEPS = 500
 Z18B_TIMEOUT_S = 600
 Z18B_ADJOINT_STEPS = 100  # the gradient's Neumann steps (the same cap on every run)
+# The implicit consensus gradients' rho ((z18b), (z19b)): the forward
+# converges in tens of steps and Neumann in hundreds (at rho = 1 the
+# forward ran its 4000-step cap, 24 s over the gloo ranks).
+IMPLICIT_RHO = 30.0
 Z18B_BARS = {"linearsvm_sharded": 1e-3, "exchange_quadratic": 1e-3, "sdp_sharded": 1e-3,
              "sliced_both": 1e-9, "consensus_lasso_batch": 1e-9, "implicit_consensus": None}
 # The f32 runs of (z18b)'s runners against serial f64: (z17b)'s 1e-3 bar of
@@ -447,6 +476,16 @@ Z18B_F32_BAR = 1e-3
 # at none and ran all 5000 in (z17b)).
 Z18B_F32_EXCHANGE_STEPS = 3000
 # Slice 7b (z11)-(z13) and slice 8 (z14).
+# Slice 10c, (z19): lanes x shards over ranks, GMRES over a group, vmap
+# over the implicit solvers, the packed cyclic reduction.
+Z19_LANES = (0.5, 1.0, 1.5, 2.0)     # (z19a): the lanes' lambdas, in units of (z17a)'s
+Z19_TIMED_STEPS = 200
+Z19B_VJP_TOL = 1e-10
+Z19B_VJP_MAXITERS = {"gmres": 50, "neumann": 20000}   # restart cycles; Neumann steps
+Z19C_LAMS = (0.3, 0.4, 0.5, 0.6)     # about TV_LAM, (z15a)'s
+Z19D_BARS = {"float32": 1e-4, "float64": 1e-9}
+Z19E_N = 2048                         # the sliced solve's order ((z18b))
+
 RPCA_N = 256
 RPCA_RANK = 16
 SPECTRAL_TIMED_STEPS = 200
@@ -3053,8 +3092,14 @@ def z18b_runs(dev, mesh8, mesh2d, dtype=None, reverse=False):
     P, Q = rng.standard_normal((nm, nm)), rng.standard_normal((nm, nm))
     r_, q_ = rng.standard_normal(nm), rng.standard_normal(nm)
     if not reverse:
-        PtPinv, QtQinv = (cast(np.linalg.inv(M.T @ M + np.eye(nm))) for M in (P, Q))
-        Ptr, Qts = cast(P.T @ r_), cast(Q.T @ q_)
+        # The inverses and products on the card, in f64: NumPy's LAPACK
+        # rounds an inverse differently with another thread count, so the
+        # host's would hand the ranks (one thread each) other inputs than
+        # this process (z19's witness).
+        eye = torch.eye(nm, dtype=torch.float64, device=dev)
+        PtPinv, QtQinv = (torch.linalg.inv(f64c(M).T @ f64c(M) + eye).to(dtype)
+                          for M in (P, Q))
+        Ptr, Qts = ((f64c(M).T @ f64c(v)).to(dtype) for M, v in ((P, r_), (Q, q_)))
         L = nm // 8
 
         def pfs(x, z, u, rho, k):
@@ -3081,11 +3126,12 @@ def z18b_runs(dev, mesh8, mesh2d, dtype=None, reverse=False):
     sg = Dg @ (rng.standard_normal(64) * (rng.random(64) < 0.5)) + 0.1 * rng.standard_normal(
         8 * 512)
     setup = TC.ls_setup(mesh8.take(shard_rows(pad_rows(f64c(Dg), 8)[0], 8)),
-                        mesh8.take(shard_rows(pad_rows(f64c(sg), 8)[0], 8)), False, 1.0)
+                        mesh8.take(shard_rows(pad_rows(f64c(sg), 8)[0], 8)), False,
+                        IMPLICIT_RHO)
     solve = make_implicit_consensus_solver(
         TC._lasso_local_prox, TC._lasso_global_prox,
-        ADMMConfig(maxiters=4000, abstol=1e-10, reltol=1e-10), 64, 8, mesh=mesh8,
-        vjp_maxiters=Z18B_ADJOINT_STEPS)
+        ADMMConfig(rho=IMPLICIT_RHO, maxiters=4000, abstol=1e-10, reltol=1e-10), 64, 8,
+        mesh=mesh8, vjp_maxiters=Z18B_ADJOINT_STEPS)
     lam = torch.tensor(0.3, dtype=torch.float64, device=dev)
     t0 = time.perf_counter()
     g = torch.func.grad(lambda lm: torch.sum(solve(dict(setup, lam=lm))[1] ** 2))(lam)
@@ -3353,6 +3399,15 @@ def slice10b_phase(dev, z17a):
               f"{float(r1['f32:' + name + '.ips']):.1f} steps/s (stacked {ref32[name]['ips']:.1f})")
         check(_within(name, got, ser, Z18B_F32_BAR),
               f"(z18b) f32 {name} within {Z18B_F32_BAR} of serial f64")
+    # The sliced solve's inputs are made on the card, the same bits in
+    # every process, and its prox gathers whole blocks: over the ranks it
+    # is the stacked run bit for bit, in f64 and in f32 (with inverses
+    # taken by the host's LAPACK the f32 run was 1.8e-6 away: (z19e)).
+    for tag, refs in (("", ref), ("f32:", ref32)):
+        same = _same_bits(r0[tag + "sliced_both.x"], refs["sliced_both"]["x"])
+        print(f"  (z18b) {tag or 'f64:'} sliced_both over the ranks "
+              f"{'equals' if same else 'DIFFERS from'} the stacked run bit for bit")
+        check(same, f"(z18b) {tag or 'f64:'} sliced_both equals the stacked run bit for bit")
 
     # (z18c) two NCCL ranks, a card each.
     cards = torch.cuda.device_count()
@@ -3443,6 +3498,275 @@ def z18b_serial(dev):
     return out
 
 
+def z19a_problem(dev):
+    """(z19a)'s lanes: (z17a)'s D (8 x 65536 x 1024 f32, 2 GiB) shared, its
+    signal in every lane, the lanes' lambdas Z19_LANES times (z17a)'s."""
+    import torch
+
+    D, s, lam = z17_problem(dev)
+    S = s.expand(len(Z19_LANES), -1).contiguous()
+    return D, S, torch.tensor([lam * f for f in Z19_LANES], device=dev)
+
+
+def lane_objectives(D, S, lams, Z):
+    """Each lane's 0.5 ||D z - s||^2 + lam ||z||_1, in f64 on the card."""
+    import torch
+
+    R = Z.double() @ D.double().T - S.double()
+    return (0.5 * torch.sum(R * R, dim=1) + lams.double() * torch.sum(torch.abs(Z.double()),
+                                                                      dim=1)).cpu().numpy()
+
+
+def z19b_gradient(dev, mesh8, method):
+    """(z19b): d sum(z*^2) / d lambda of (z18b)'s implicit consensus LASSO
+    (8 shards of 512 x 64 in f64, rho IMPLICIT_RHO) over ``mesh8`` with
+    ``vjp_method``;
+    returns (gradient, the backward's cycles or steps, seconds, the
+    collectives of the gradient's call)."""
+    import torch
+
+    from admm_tpu_torch import ADMMConfig, make_implicit_consensus_solver
+    from admm_tpu_torch.parallel import consensus as TC
+    from admm_tpu_torch.parallel.mesh import pad_rows, shard_rows
+
+    rng = np.random.default_rng(18)
+    Dg = rng.standard_normal((8 * 512, 64))
+    sg = Dg @ (rng.standard_normal(64) * (rng.random(64) < 0.5)) + 0.1 * rng.standard_normal(
+        8 * 512)
+    f64c = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    setup = TC.ls_setup(mesh8.take(shard_rows(pad_rows(f64c(Dg), 8)[0], 8)),
+                        mesh8.take(shard_rows(pad_rows(f64c(sg), 8)[0], 8)), False,
+                        IMPLICIT_RHO)
+    solve = make_implicit_consensus_solver(
+        TC._lasso_local_prox, TC._lasso_global_prox,
+        ADMMConfig(rho=IMPLICIT_RHO, maxiters=4000, abstol=1e-10, reltol=1e-10), 64, 8,
+        mesh=mesh8, vjp_method=method, vjp_tol=Z19B_VJP_TOL, vjp_maxiters=Z19B_VJP_MAXITERS[method])
+    lam = torch.tensor(0.3, dtype=torch.float64, device=dev)
+    mesh8.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = torch.func.grad(lambda lm: torch.sum(solve(dict(setup, lam=lm))[1] ** 2))(lam)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return float(g), solve.stats["steps"][0], secs, mesh8.reset_stats()["calls"]
+
+
+def host_inverse():
+    """(z19e)'s witness: NumPy's inverse of the sliced solve's P^T P + I
+    ((z18b)'s order, its own seeded P), cast to f32 as (z18b) cast it."""
+    rng = np.random.default_rng(18)
+    P = rng.standard_normal((Z19E_N, Z19E_N))
+    return np.linalg.inv(P.T @ P + np.eye(Z19E_N)).astype(np.float32)
+
+
+# (z19a), (z19b) and (z19e)'s work on each of two gloo ranks on the card.
+Z19_WORKER = """
+import chip_smoke as C
+import admm_tpu_torch.parallel as TP
+from admm_tpu_torch import ADMMConfig
+dev = mesh.device
+say = lambda msg: print(f"  (z19) [rank {rank}] {msg}", flush=True)
+C.reset_counts()
+m18 = TP.make_mesh2d(1, 8, group=mesh.group)
+D, S, lams = C.z19a_problem(dev)
+r = TP.consensus_lasso_batch(D, S, lams, ADMMConfig(maxiters=5000), mesh=m18)
+torch.cuda.synchronize()
+st = m18.reset_stats()
+res = {"a.steps": r.steps, "a.zopt": r.zopt, "a.calls": st["calls"]["all_reduce"],
+       "a.gathers": st["calls"]["all_gather"]}
+say(f"consensus_lasso_batch {S.shape[0]} lanes x 8 shards of 65536 x 1024 f32, a lane row "
+    f"over {m18.span} ranks, 4 shards of every lane a rank: steps {r.steps.tolist()}, "
+    f"collectives {st['calls']}")
+tcfg = ADMMConfig(maxiters=C.Z19_TIMED_STEPS, domaxiters=True, unroll="auto")
+rt = TP.consensus_lasso_batch(D, S, lams, tcfg, mesh=m18)
+st = m18.reset_stats()
+res["a.ips"] = C.Z19_TIMED_STEPS / rt.runtime
+res["a.timed_calls"] = st["calls"]["all_reduce"]
+say(f"timed {C.Z19_TIMED_STEPS} steps: {res['a.ips']:.1f} iter/s a rank "
+    f"({res['a.ips'] * S.shape[0]:.1f} inst-iter/s), {st['calls']['all_reduce']} all_reduce")
+del D, S, r, rt
+g8 = TP.make_mesh(8, group=mesh.group)
+cold = C.z19b_gradient(dev, g8, "gmres")[2]   # the rank's first linear-algebra calls
+g, cycles, secs, calls = C.z19b_gradient(dev, g8, "gmres")
+res.update({"b.g": g, "b.cycles": cycles, "b.secs": secs, "b.cold": cold,
+            "b.calls": calls.get("all_reduce", 0)})
+say(f"implicit consensus, GMRES over the ranks: d/dlam {g!r}, {cycles} restart cycles, "
+    f"{secs:.3f}s (first call {cold:.3f}s), {calls}")
+res["e.inv"] = C.host_inverse()
+res["launches"] = np.array([v for _, v in sorted(C.read_counts().items())])
+save(**res)
+"""
+
+
+def slice10c_phase(dev):
+    """Slice 10c, (z19a)-(z19e): lanes x shards over ranks, GMRES over a
+    group, vmap over the serial implicit solve, the packed cyclic
+    reduction, and the witness of (z18b)'s sliced gap.  Returns every
+    kernel's launches over the phase's main paths (K4's: (z19c)'s and
+    (z19d)'s hybrid runs)."""
+    import os
+
+    import torch
+
+    import admm_tpu_torch.parallel as TP
+    from admm_tpu_torch import ADMMConfig, make_implicit_solver, totalvariation
+    from admm_tpu_torch.benchmarks.timing import graph_ms
+    from admm_tpu_torch.linop import DiffOp
+    from admm_tpu_torch.models.totalvariation import make_prox_ops, tv_system
+    from admm_tpu_torch.ops.tridiag import (CyclicReductionSolver, PackedCyclicReductionSolver,
+                                            cr_solve)
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    total = dict.fromkeys(kernel_counts(), 0)
+    mp = functools.partial(main_path, tally=total)
+    print(f"slice 10c: lanes x shards over ranks, GMRES over a group, vmap over the implicit "
+          f"solve, cr_packed ({smi})")
+
+    # (z19a) the stacked 4 x 8 reference, then the two gloo ranks.
+    D, S, lams = z19a_problem(dev)
+    st_mesh = TP.make_mesh2d(1, 8, device=dev)
+    ref = mp("z19a stacked", lambda: TP.consensus_lasso_batch(D, S, lams,
+                                                               ADMMConfig(maxiters=5000),
+                                                               mesh=st_mesh))
+    tcfg = ADMMConfig(maxiters=Z19_TIMED_STEPS, domaxiters=True, unroll="auto")
+    rt = TP.consensus_lasso_batch(D, S, lams, tcfg, mesh=st_mesh)
+    ref_ips = Z19_TIMED_STEPS / rt.runtime
+    f_ref = lane_objectives(D, S, lams, ref.zopt)
+    # (z19b)'s stacked references: GMRES and Neumann.
+    g8 = TP.make_mesh(8, device=dev)
+    g_gm, c_gm, s_gm, _ = z19b_gradient(dev, g8, "gmres")
+    g_ne, c_ne, s_ne, _ = z19b_gradient(dev, g8, "neumann")
+    r0, r1 = _two_ranks("z19", Z19_WORKER, "gloo")
+    for key in r0:
+        if key not in ("a.ips", "b.secs", "b.cold"):
+            check(_same_bits(r0[key], r1[key]), f"(z19) rank 0 and rank 1 hold the same {key}")
+    check(not r0["launches"].any() and not r1["launches"].any(),
+          "(z19) no K1-K4 launch on either rank")
+    steps = r0["a.steps"].tolist()
+    Z = torch.as_tensor(r0["a.zopt"], device=dev)
+    f_got = lane_objectives(D, S, lams, Z)
+    rel_f = np.abs(f_got - f_ref) / np.abs(f_ref)
+    spread = float(torch.max(torch.abs(Z - ref.zopt)) / torch.max(torch.abs(ref.zopt)))
+    nsub = max(steps)
+    print(f"  (z19a) ranks: steps {steps} (stacked {ref.steps.tolist()}); objectives "
+          f"rel. to the stacked run {', '.join(f'{v:.3e}' for v in rel_f)} (bar 1e-5); f32 "
+          f"spread max|z - z_stacked| / max|z_stacked| {spread:.3e}; collectives "
+          f"{int(r0['a.calls'])} all_reduce over {nsub} sub-steps "
+          f"({int(r0['a.calls']) / nsub:.2f} a sub-step: 2 shard-axis reductions of all 4 "
+          f"lanes, 1 chunk flag), {int(r0['a.gathers'])} all_gather; timed "
+          f"{float(r0['a.ips']):.1f} / {float(r1['a.ips']):.1f} iter/s a rank, stacked "
+          f"{ref_ips:.1f} iter/s ({smi})")
+    check(steps == ref.steps.tolist(), "(z19a) each lane takes the stacked run's steps")
+    check(bool(np.all(rel_f <= 1e-5)), "(z19a) each lane within 1e-5 of the stacked run")
+    check(int(r0["a.gathers"]) == 1 and int(r0["a.calls"]) >= 2 * nsub,
+          "(z19a) two shard-axis collectives a sub-step for all lanes, one all_gather")
+    del D, S, ref, rt, Z
+
+    g = float(r0["b.g"])
+    e_gm, e_ne = abs(g - g_gm) / abs(g_gm), abs(g - g_ne) / abs(g_ne)
+    print(f"  (z19b) implicit consensus f64, d/dlam over the ranks (GMRES, "
+          f"{int(r0['b.cycles'])} cycles, {float(r0['b.secs']):.3f}s, the rank's first call "
+          f"{float(r0['b.cold']):.3f}s, "
+          f"{int(r0['b.calls'])} all_reduce) {g!r}; stacked GMRES {g_gm!r} ({c_gm} cycles, "
+          f"{s_gm:.3f}s), rel. {e_gm:.3e} (bar 1e-10); stacked Neumann {g_ne!r} ({c_ne} "
+          f"steps, {s_ne:.3f}s), rel. {e_ne:.3e} (bar 1e-5)")
+    check(e_gm <= 1e-10, "(z19b) GMRES over the ranks within 1e-10 of the stacked GMRES")
+    check(e_ne <= 1e-5, "(z19b) GMRES over the ranks within 1e-5 of Neumann")
+
+    # (z19c) vmap(grad) over the serial TV implicit solve, n = 65536 f32.
+    n = HG_N
+    truth, sig = staircase_pair(n)
+    cfg = ADMMConfig(maxiters=HG_MAXITERS, unroll="auto", **HG_STOP["float32"])
+    pf, pg, _, data, _ = make_prox_ops(torch.from_numpy(sig).to(dev), TV_LAM, cfg, solver="cr")
+    check(data["cr"].Tinv is not None, f"(z19c) n={n} 'cr' is the hybrid form")
+    solve = make_implicit_solver(pf, pg, cfg, A=DiffOp(n), nA=n, nB=n,
+                                 vjp_tol=HG_VJP_TOL["float32"], vjp_maxiters=HG_VJP_MAXITERS)
+    t = torch.from_numpy(truth).to(dev)
+    loss = lambda lam: torch.mean((solve(dict(data, lam=lam))[0] - t) ** 2)  # noqa: E731
+    lam4 = torch.tensor(Z19C_LAMS, device=dev)
+    torch.func.vmap(torch.func.grad(loss))(lam4)     # warm-up
+    reset_counts()
+    with torch.no_grad():
+        torch.func.vmap(loss)(lam4)
+    torch.cuda.synchronize()
+    fwd = read_counts()
+    reset_counts()
+    t1 = time.perf_counter()
+    g4 = torch.func.vmap(torch.func.grad(loss))(lam4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    both = read_counts()
+    st = dict(solve.stats)
+    for k, v in both.items():
+        total[k] += v
+    t1 = time.perf_counter()
+    serial = [float(torch.func.grad(loss)(lam4[i])) for i in range(len(Z19C_LAMS))]
+    torch.cuda.synchronize()
+    wall_serial = time.perf_counter() - t1
+    errs = [abs(float(g4[i]) - serial[i]) / abs(serial[i]) for i in range(len(serial))]
+    bwd_k4 = both["K4"] - fwd["K4"]
+    print(f"  (z19c) vmap(grad) over the serial TV solve, n={n} f32, lambdas {Z19C_LAMS}: "
+          f"{[float(v) for v in g4]}; against the serial gradients rel. "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (bar 1e-5); adjoint steps per lane "
+          f"{st['steps']}, {st['applies']} J^T applications; K4 launches {both['K4']} "
+          f"(forward {fwd['K4']}, backward {bwd_k4}, each a (4, N) launch); wall "
+          f"{wall:.3f}s against {wall_serial:.3f}s for the 4 serial gradients ({smi})")
+    check(max(errs) <= 1e-5, "(z19c) each lane within 1e-5 of the serial gradient")
+    check(bwd_k4 == st["applies"] + 2 and sum(both.values()) == both["K4"],
+          f"(z19c) backward: one K4 launch of all lanes per J^T application plus 2 "
+          f"({bwd_k4} for {st['applies']}), no other kernel")
+
+    # (z19d) solver='cr_packed' against the hybrid at n = 65536.
+    cfg = ADMMConfig(maxiters=TV_MAXITERS, unroll="auto")
+    sig = staircase(n)
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        x = sig.astype(np.float64) if dtype == torch.float64 else sig
+        rp = mp(f"z19d cr_packed {dn}", lambda: totalvariation(x, TV_LAM, cfg,
+                                                               solver="cr_packed", device=dev))
+        reset_counts()
+        rh = totalvariation(x, TV_LAM, cfg, solver="cr", device=dev)
+        torch.cuda.synchronize()
+        total["K4"] += read_counts()["K4"]
+        err = rel(rp.xopt, rh.xopt)
+        sol = CyclicReductionSolver.from_tridiag(*tv_system(n, 1.0), dense_cutoff=1023,
+                                                 device=dev, dtype=dtype)
+        pk = PackedCyclicReductionSolver.from_tridiag(*tv_system(n, 1.0), device=dev,
+                                                      dtype=dtype)
+        b = torch.from_numpy(np.random.default_rng(19).standard_normal(n)).to(dev, dtype)
+        bb = torch.nn.functional.pad(b, (0, sol.alphas.shape[1] - n)).reshape(1, -1)
+        xp, xh = pk.solve(b), sol.solve(b)
+        solve_err = float(torch.max(torch.abs(xp - xh)) / torch.max(torch.abs(xh)))
+        k4s, pks = [], []
+        for packed in (False, True, True, False):
+            fn = (lambda: pk.solve(b)) if packed else (lambda: cr_solve(bb, sol))
+            (pks if packed else k4s).append(graph_ms(fn, 200) * 1e3)
+        times[dn] = (min(pks), min(k4s))
+        print(f"  (z19d) {dn}: cr_packed steps {rp.steps}, hybrid {rh.steps}; xopt rel. "
+              f"{err:.3e} (bar {Z19D_BARS[dn]}); one solve (1, {n}) device time by graph "
+              f"replay: packed {pks[0]:.2f} / {pks[1]:.2f} us, K4 hybrid {k4s[0]:.2f} / "
+              f"{k4s[1]:.2f} us ({min(pks) / min(k4s):.1f}x), max rel. solve difference "
+              f"{solve_err:.3e} ({smi})")
+        if dtype == torch.float64:
+            check(rp.steps == rh.steps, "(z19d) f64 cr_packed takes the hybrid's steps")
+        check(err <= Z19D_BARS[dn], f"(z19d) {dn} cr_packed within {Z19D_BARS[dn]} of the "
+              f"hybrid")
+
+    # (z19e) the witness of (z18b)'s sliced gap: the host's inverse in this
+    # process against a rank's (one thread each).
+    mine = host_inverse()
+    differ = int(np.sum(mine != r0["e.inv"]))
+    print(f"  (z19e) NumPy inverse of a {Z19E_N}-square P^T P + I cast to f32: {differ} of "
+          f"{mine.size} entries differ between this process ({os.cpu_count()} cores, "
+          f"OMP_NUM_THREADS={os.environ.get('OMP_NUM_THREADS', 'unset')}) and a rank "
+          f"(OMP_NUM_THREADS=1)")
+    print(f"  (z19) kernel launches over the phase's main paths {total}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    return total
+
+
 def _check_acceleration(out):
     objs = [f for _, f in out.values()]
     check(max(objs) - min(objs) <= 1e-6 * (1.0 + abs(objs[0]))
@@ -3523,6 +3847,7 @@ def main():
     z16 = slice11b_phase(dev)
     z17, z17a = slice10a_phase(dev)
     z18 = slice10b_phase(dev, z17a)
+    z19 = slice10c_phase(dev)
     print(f"total {time.perf_counter() - t0:.1f}s")
 
     def row(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -3547,30 +3872,32 @@ def main():
     print(json.dumps({"kernels": [
         row("fused_soft_threshold_dual", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
             "admm_tpu/ops/kernels.py:48", {"d": k1_launches, **variants["k1"], "z17": z17["K1"],
-                                            "z18": z18["K1"]},
+                                            "z18": z18["K1"], "z19": z19["K1"]},
             k1_err, k1_ms,
             k1_plain_ms, k1_bound, None),
         row("fused_zu_tail", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
             "admm_tpu/ops/kernels.py:48", {"a": k1b_launches, "z16": z16["K1b"],
-                                            "z17": z17["K1b"], "z18": z18["K1b"]}, k1b_err,
+                                            "z17": z17["K1b"], "z18": z18["K1b"],
+                                            "z19": z19["K1b"]}, k1b_err,
             k1b_ms, k1b_plain_ms, k1b_bound, None),
         row("cr_solve", "cuda", "admm_tpu_torch/csrc/cr_solve.cu",
             "experiments/pallas_cr_kernel.py:103",
             {"f": k4_launches, "z14": k4_batch_launches, **hg_launches["K4"], "z16": z16["K4"],
-             "z17": z17["K4"], "z18": z18["K4"]},
+             "z17": z17["K4"], "z18": z18["K4"], "z19": z19["K4"]},
             k4_err, k4_ms,
             k4_plain_ms, k4_bound, None),
         dict(row("gemv_pair", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
                  "experiments/pallas_probe.py:52",
                  {"k": k2_launches, **variants["k2"], **hg_launches["K2"], "z16": z16["K2"],
-                  "z17": z17["K2"], "z18": z18["K2"]},
+                  "z17": z17["K2"], "z18": z18["K2"], "z19": z19["K2"]},
                  k2_err, k2_ms, k2_plain_ms, k2_bound, k2_library_ms),
              backward={"ms": k2_backward["kernel"], "plain_ms": k2_backward["plain"],
                        "bound_ms": k2_backward["bound"][0],
                        "bound_by": k2_backward["bound"][1]}),
         row("resident_lasso", "cuda", "admm_tpu_torch/csrc/gemv_pair.cu",
             "experiments/resident_iter_proto.py:77", {"k3": k3_launches, "z17": z17["K3"],
-                                                      "z18": z18["K3"]}, k3_err,
+                                                      "z18": z18["K3"], "z19": z19["K3"]},
+            k3_err,
             k3_ms,
             k3_plain_ms, k3_bound, None),
     ]}))

@@ -186,8 +186,8 @@ def test_backward_api_equals_torch_func_grad(rng):
 # ---- TestComposition ---------------------------------------------------------
 
 def test_lambda_lanes_through_the_batch_solver(rng):
-    # tests/test_diff.py's vmap over lambda: the port's lanes are the batch
-    # solver, and vmap over the serial solve raises, naming it.
+    # tests/test_diff.py's vmap over lambda: the batch solver's lanes, and
+    # torch.func.vmap over the serial solve, which runs the same lanes.
     d = _lasso_np(rng)
     data = _t(d)
     solve, jsolve = _pair()
@@ -205,8 +205,102 @@ def test_lambda_lanes_through_the_batch_solver(rng):
         _close(grads[i], torch.func.grad(serial_loss)(lams[i]), 1e-8)
     jloss = lambda l: jnp.sum(jsolve(dict(_j(d), lam=l))[0] ** 2)  # noqa: E731
     _close(grads, jax.vmap(jax.grad(jloss))(jnp.asarray(lams.numpy())), 1e-8)
-    with pytest.raises(RuntimeError, match="make_implicit_batch_solver"):
-        torch.func.vmap(serial_loss)(lams)
+    vvals = torch.func.vmap(serial_loss)(lams)
+    assert torch.equal(vvals, vals)
+
+
+def test_vmap_and_vmap_of_grad_over_the_serial_solver(rng):
+    # tests/test_diff.py::TestComposition::test_jit_and_vmap_over_lambda:
+    # vmap(loss) and vmap(grad(loss)) over the serial solve, each lane
+    # against the serial value (1e-10) and gradient (1e-8), and against
+    # jax.vmap of admm_tpu's.  The forward is one lanes runner, the
+    # backward one lanes adjoint (each lane frozen at its own stop).
+    d = _lasso_np(rng)
+    data = _t(d)
+    solve, jsolve = _pair()
+
+    def loss_at(lam):
+        return torch.sum(solve(dict(data, lam=lam))[0] ** 2)
+
+    lams = torch.tensor([0.1, 0.35, 0.8], dtype=T64)
+    vals = torch.func.vmap(loss_at)(lams)
+    grads = torch.func.vmap(torch.func.grad(loss_at))(lams)
+    steps = list(solve.stats["steps"])
+    assert len(steps) == 3
+    for i in range(3):
+        _close(vals[i], loss_at(lams[i]), 1e-10)
+        _close(grads[i], torch.func.grad(loss_at)(lams[i]), 1e-8)
+        assert solve.stats["steps"] == [steps[i]]
+    jloss = lambda l: jnp.sum(jsolve(dict(_j(d), lam=l))[0] ** 2)  # noqa: E731
+    jl = jnp.asarray(lams.numpy())
+    _close(vals, jax.vmap(jloss)(jl), 1e-10)
+    _close(grads, jax.vmap(jax.grad(jloss))(jl), 1e-8)
+
+
+def test_vmap_over_data_and_iterates_of_the_serial_solver(rng):
+    # A batched b (a data leaf of more than one dimension) and a batched
+    # start x0, the lanes sharing A: every lane equals its serial solve.
+    d = _lasso_np(rng)
+    data = _t(d)
+    solve, _ = _pair()
+    bs = torch.from_numpy(rng.standard_normal((2, 12)))
+    x0s = torch.from_numpy(rng.standard_normal((2, 8)))
+    X, Z, U = torch.func.vmap(lambda b, x0: solve(dict(data, b=b), x0=x0))(bs, x0s)
+    gb = torch.func.vmap(torch.func.grad(
+        lambda b: torch.sum(solve(dict(data, b=b))[0] ** 2)))(bs)
+    for i in range(2):
+        x, z, u = solve(dict(data, b=bs[i]), x0=x0s[i])
+        _close(X[i], x, 1e-10, 1e-14)
+        _close(Z[i], z, 1e-10, 1e-14)
+        _close(U[i], u, 1e-10, 1e-14)
+        g = torch.func.grad(lambda b: torch.sum(solve(dict(data, b=b))[0] ** 2))(bs[i])
+        _close(gb[i], g, 1e-8, 1e-12)
+
+
+def test_jacrev_over_the_batch_solver_matches_jax(rng):
+    # jacrev over make_implicit_batch_solver's solve: torch.func.vmap over
+    # its backward folds the cotangent batch into the lanes (outer batch
+    # major), against jax.jacrev of admm_tpu's batch solver.
+    d = _lasso_np(rng)
+    data = _t(d)
+    batch = make_implicit_batch_solver(lasso_prox_f, lasso_prox_g, _CFG, mapped={"lam"},
+                                       device="cpu", **_SHAPE)
+    jbatch = jax_batch_solver(j_lasso_prox_f, j_lasso_prox_g, _JCFG, mapped={"lam"}, **_SHAPE)
+    lams = np.array([0.1, 0.35, 0.8])
+    J = torch.func.jacrev(lambda l: batch(dict(data, lam=l))[0])(torch.from_numpy(lams))
+    jJ = jax.jacrev(lambda l: jbatch(dict(_j(d), lam=l))[0])(jnp.asarray(lams))
+    assert J.shape == (3, 8, 3)
+    _close(J, jJ, 1e-8, 1e-12)
+    # Lanes do not couple: the off-diagonal blocks are exact zeros.
+    for i in range(3):
+        for k in range(3):
+            if i != k:
+                assert not J[i, :, k].any()
+
+
+def test_vmap_of_jvp_and_jacfwd_over_the_lanes(rng):
+    # Forward mode under vmap: vmap(jvp) over the serial solve equals the
+    # serial tangents (1e-10), and jacfwd over the batch solver (its
+    # tangents folded into the lanes) equals jacrev (rtol 1e-5, as
+    # test_jacfwd_matches_jacrev; atol 1e-8 of entries that are zero up to
+    # the linear solves' 1e-9 tolerance).
+    d = _lasso_np(rng)
+    data = _t(d)
+    solve, _ = _pair(mode="jvp")
+
+    def loss(lam):
+        return torch.sum(solve(dict(data, lam=lam))[0] ** 2)
+
+    lams = torch.tensor([0.1, 0.35, 0.8], dtype=T64)
+    tan = torch.func.vmap(lambda l: torch.func.jvp(loss, (l,), (torch.ones_like(l),))[1])(lams)
+    for i in range(3):
+        _close(tan[i], torch.func.jvp(loss, (lams[i],), (torch.ones_like(lams[i]),))[1], 1e-10)
+    kw = dict(mapped={"lam"}, device="cpu", **_SHAPE)
+    fwd = make_implicit_batch_solver(lasso_prox_f, lasso_prox_g, _CFG, mode="jvp", **kw)
+    rev = make_implicit_batch_solver(lasso_prox_f, lasso_prox_g, _CFG, **kw)
+    Jf = torch.func.jacfwd(lambda l: fwd(dict(data, lam=l))[0])(lams)
+    Jr = torch.func.jacrev(lambda l: rev(dict(data, lam=l))[0])(lams)
+    _close(Jf, Jr, 1e-5, 1e-8)
 
 
 def test_no_gradient_to_initial_iterates(rng):

@@ -281,3 +281,109 @@ def test_sharded_gradients_over_two_processes(tmp_path):
         got = np.concatenate([r0[key], r1[key]])
         np.testing.assert_allclose(got, ref.numpy(), rtol=1e-8,
                                    atol=1e-8 * np.abs(ref.numpy()).max())
+
+
+def test_gmres_gradients_over_two_processes(tmp_path):
+    """vjp_method='gmres' over two ranks: every inner product of the
+    Krylov solve adds the ranks' parts of the sharded leaves (one
+    collective a Gram-Schmidt pass), so both ranks take the same restarts
+    and stop together.  The consensus lambda gradient and the smooth
+    unwrapped solver's per-shard gradient equal the stacked GMRES ones
+    (1e-10) and admm_tpu's GMRES ones (1e-8); vmap of grad over the
+    consensus solver over the ranks equals the stacked vmap (1e-10)."""
+    _, _, data, jdata = consensus_data()
+    solve, jsolve = _solvers(vjp_method="gmres")
+    g_lam = torch.func.grad(lambda lm: torch.sum(solve(dict(data, lam=lm))[1] ** 2))(
+        data["lam"])
+    jg_lam = jax.grad(lambda lm: jnp.sum(jsolve(dict(jdata, lam=lm))[1] ** 2))(jdata["lam"])
+    _, _, udata, rng = unwrapped_data()
+    s_rows = torch.as_tensor(rng.standard_normal(tuple(udata["mask"].shape))) * udata["mask"]
+    udata = dict(udata, aux=(s_rows, torch.tensor(1.3, dtype=torch.float64)))
+    ucfg = dict(_CFG, nodualerror=True)
+    usolve = make_implicit_unwrapped_solver(_wls_shard_prox, ADMMConfig(**ucfg), 64, 6, W,
+                                            vjp_method="gmres")
+    g_s = torch.func.grad(lambda d: torch.sum(usolve(d)[0] ** 2))(udata)["aux"][0]
+    jus = j_unwrapped(_wls_shard_prox, JConfig(**ucfg), 64, 6, W, vjp_method="gmres")
+    jg_s = jax.grad(lambda d: jnp.sum(jus(d)[0] ** 2))(_jax_data(udata))["aux"][0]
+    rc, init, out, res = run_ranks('''
+        import test_torch_diff_sharded as M
+        from admm_tpu_torch import ADMMConfig, make_implicit_consensus_solver
+        from admm_tpu_torch import make_implicit_unwrapped_solver
+        from admm_tpu_torch.parallel import make_mesh
+        from admm_tpu_torch.parallel import consensus as TC
+        g8 = make_mesh(M.W, group=mesh.group)
+        _, _, data, _ = M.consensus_data()
+        data = {k: (g8.take(v) if v.ndim else v) for k, v in data.items()}
+        solve = make_implicit_consensus_solver(TC._lasso_local_prox, TC._lasso_global_prox,
+                                               ADMMConfig(**M._CFG), M.N, M.W, mesh=g8,
+                                               vjp_method="gmres")
+        g_lam = torch.func.grad(lambda lm: torch.sum(solve(dict(data, lam=lm))[1] ** 2))(
+            data["lam"])
+        cycles, reads = list(solve.stats["steps"]), solve.stats["reads"]
+        g_vmap = torch.func.vmap(torch.func.grad(
+            lambda lm: torch.sum(solve(dict(data, lam=lm))[1] ** 2)))(
+            torch.tensor([0.2, 0.5], dtype=torch.float64))
+        _, _, ud, rng = M.unwrapped_data()
+        s_rows = torch.as_tensor(rng.standard_normal(tuple(ud["mask"].shape))) * ud["mask"]
+        ud = {"Di": g8.take(ud["Di"]), "Winv": ud["Winv"], "mask": g8.take(ud["mask"]),
+              "aux": (g8.take(s_rows), torch.tensor(1.3, dtype=torch.float64))}
+        us = make_implicit_unwrapped_solver(M._wls_shard_prox, ADMMConfig(**dict(
+            M._CFG, nodualerror=True)), 64, 6, M.W, mesh=g8, vjp_method="gmres")
+        g_s = torch.func.grad(lambda d: torch.sum(us(d)[0] ** 2))(ud)["aux"][0]
+        save(g_lam=g_lam, g_s=g_s, cycles=np.asarray(cycles + list(us.stats["steps"])),
+             reads=reads, g_vmap=g_vmap)
+    ''', tmp_path)
+    check(rc, init, out)
+    r0, r1 = res
+    assert np.array_equal(r0["g_lam"], r1["g_lam"])
+    assert r0["cycles"].tolist() == r1["cycles"].tolist() and int(r0["reads"]) == solve.stats[
+        "reads"]
+    np.testing.assert_allclose(r0["g_lam"], float(g_lam), rtol=1e-10)
+    np.testing.assert_allclose(r0["g_lam"], float(jg_lam), rtol=1e-8)
+    got = np.concatenate([r0["g_s"], r1["g_s"]])
+    for ref, bar in ((g_s.numpy(), 1e-10), (np.asarray(jg_s), 1e-8)):
+        np.testing.assert_allclose(got, ref, rtol=bar, atol=bar * np.abs(ref).max())
+    # vmap(grad) over the ranks: the lanes' collectives one each for both
+    # lanes (the vmap rules of the mesh's reductions), the stacked lanes.
+    assert np.array_equal(r0["g_vmap"], r1["g_vmap"])
+    g_vmap = torch.func.vmap(torch.func.grad(
+        lambda lm: torch.sum(solve(dict(data, lam=lm))[1] ** 2)))(
+        torch.tensor([0.2, 0.5], dtype=torch.float64))
+    np.testing.assert_allclose(r0["g_vmap"], g_vmap.numpy(), rtol=1e-10)
+
+
+@pytest.mark.parametrize("method", ["neumann", "gmres"])
+def test_vmap_of_grad_over_the_sharded_solvers(method):
+    """torch.func.vmap(torch.func.grad(loss)) over both sharded implicit
+    solvers (8 stacked shards): the batch runs as lanes of the sharded
+    runner and its backward as the lanes' adjoint; each lane equals its
+    serial gradient (1e-8) and jax.vmap(jax.grad) of admm_tpu's (1e-8)."""
+    _, _, data, jdata = consensus_data()
+    solve, jsolve = _solvers(vjp_method=method)
+    lams = torch.tensor([0.2, 0.3, 0.5], dtype=torch.float64)
+
+    def loss(lm):
+        return torch.sum(solve(dict(data, lam=lm))[1] ** 2)
+
+    g = torch.func.vmap(torch.func.grad(loss))(lams)
+    assert len(solve.stats["steps"]) == 3
+    jg = jax.vmap(jax.grad(lambda lm: jnp.sum(jsolve(dict(jdata, lam=lm))[1] ** 2)))(
+        jnp.asarray(lams.numpy()))
+    for i in range(3):
+        np.testing.assert_allclose(float(g[i]), float(torch.func.grad(loss)(lams[i])),
+                                   rtol=1e-8)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-8)
+
+    _, _, udata, rng = unwrapped_data()
+    s_rows = torch.as_tensor(rng.standard_normal(tuple(udata["mask"].shape))) * udata["mask"]
+    ucfg = ADMMConfig(**dict(_CFG, nodualerror=True))
+    usolve = make_implicit_unwrapped_solver(_wls_shard_prox, ucfg, 64, 6, W, vjp_method=method)
+    gams = torch.tensor([0.8, 1.3], dtype=torch.float64)
+
+    def uloss(gam):
+        return torch.sum(usolve(dict(udata, aux=(s_rows, gam)))[0] ** 2)
+
+    ug = torch.func.vmap(torch.func.grad(uloss))(gams)
+    for i in range(2):
+        np.testing.assert_allclose(float(ug[i]), float(torch.func.grad(uloss)(gams[i])),
+                                   rtol=1e-8, atol=1e-12)

@@ -241,6 +241,42 @@ def test_tv_lanes_through_the_op_equal_the_serial_gradients(monkeypatch, op_call
         np.testing.assert_allclose(float(g[i]), float(gi), rtol=1e-9)
 
 
+def test_vmap_of_grad_over_the_serial_tv_solve_is_one_solve_of_all_lanes(monkeypatch,
+                                                                         op_calls):
+    # torch.func.vmap(torch.func.grad(loss)) over the SERIAL solver at 4
+    # values of lambda: the forward is one lanes runner and the backward
+    # one lanes adjoint, so under the op every solve takes the 4 lanes at
+    # once; each lane's gradient equals the serial one.
+    monkeypatch.setattr(tridiag, "cr_solve", cr_solve_op)
+    truth, s = _signal(255, seed=2)
+    cfg = ADMMConfig(**_KW)
+    pf, pg, _, data, _ = make_prox_ops(torch.from_numpy(s), 1.0, cfg, solver="cr",
+                                       batched=True)
+    serial = make_implicit_solver(pf, pg, cfg, A=DiffOp(255), nA=255, nB=255)
+    t = torch.from_numpy(truth)
+    lams = torch.tensor([0.25, 0.5, 1.0, 2.0], dtype=T64)
+
+    def loss(lam):
+        return torch.mean((serial(dict(data, lam=lam))[0] - t) ** 2)
+
+    op_calls.clear()
+    g = torch.func.vmap(torch.func.grad(loss))(lams)
+    assert op_calls and all(c[0] == 4 for c in op_calls)
+    adjoint = serial.stats["applies"]
+    for i in range(4):
+        gi = torch.func.grad(loss)(lams[i])
+        np.testing.assert_allclose(float(g[i]), float(gi), rtol=1e-10)
+    op_calls.clear()
+    with torch.no_grad():
+        torch.func.vmap(loss)(lams)
+    forward = len(op_calls)
+    op_calls.clear()
+    torch.func.vmap(torch.func.grad(loss))(lams)
+    # The backward: one solve of all lanes per application of J^T, one for
+    # the linearization at w* and one for the data VJP's primal.
+    assert len(op_calls) - forward == adjoint + 2
+
+
 def test_hypergradient_tuning_matches_admm_tpu():
     from admm_tpu_torch.examples.hypergradient import hypergradient_tuning
     from examples.hypergradient import hypergradient_tuning as jax_tuning

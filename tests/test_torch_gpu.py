@@ -17,7 +17,11 @@ CPU; and the same three for every runner of the distributed layer
 (slice 10a, W shards stacked on the card); and its process groups (slice
 10b): a one-rank NCCL group equal to the stacked run bit for bit, two
 gloo ranks sharing the card, and ``initialize_cluster`` refusing NCCL
-ranks on one card.
+ranks on one card; and slice 10c: a reduction over a one-rank NCCL group
+under ``torch.func.vmap`` as one all_reduce of CUDA tensors, two gloo
+ranks holding each lane's shards between them, vmap of grad over the
+serial TV solve through K4, and ``solver='cr_packed'`` on the card
+against the CPU.
 
 Every case needs a CUDA device and skips without one.  This file imports
 no JAX, so it also runs where JAX is not installed; skip the repo's
@@ -1355,3 +1359,127 @@ def test_initialize_cluster_refuses_nccl_ranks_sharing_a_card(cuda, tmp_path):
         multihost.initialize_cluster("file://" + str(tmp_path / "pg"), count + 1, count,
                                      backend="nccl")
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_vmapped_reduction_is_one_nccl_all_reduce(cuda, tmp_path, monkeypatch, lanes):
+    """Mesh.psum and Mesh.pmean under torch.func.vmap over a one-rank NCCL
+    group: one all_reduce of the whole (B, ...) CUDA payload a call,
+    counted once, the stacked values bit for bit."""
+    import torch.distributed as dist
+
+    import admm_tpu_torch.parallel as TP
+    from admm_tpu_torch.parallel import multihost
+
+    assert multihost.initialize_cluster("file://" + str(tmp_path / "pg"), 1, 0,
+                                        backend="nccl", timeout=120) == 1
+    calls = []
+    real = dist.all_reduce
+
+    def spy(t, *a, **kw):
+        calls.append((tuple(t.shape), t.device.type))
+        return real(t, *a, **kw)
+
+    monkeypatch.setattr(dist, "all_reduce", spy)
+    try:
+        mesh = TP.make_mesh(4, group=TP.global_mesh().group)
+        x = torch.randn(lanes, 4, 3, dtype=torch.float64, device=cuda)
+        xbar, a = torch.func.vmap(lambda xi: (mesh.pmean(xi), mesh.psum(torch.sum(xi))))(x)
+        torch.cuda.synchronize()
+        stats = mesh.reset_stats()
+    finally:
+        multihost.shutdown()
+    assert calls == [((lanes, 3), "cuda"), ((lanes, 1), "cuda")]
+    assert stats["calls"] == {"all_reduce": 2}
+    assert torch.equal(xbar, x.mean(dim=1)) and torch.equal(a, x.sum(dim=(1, 2)))
+
+
+def test_lanes_over_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """consensus_lasso_batch on make_mesh2d(1, 8) over two gloo ranks on
+    the card (each rank 4 of every lane's 8 shards, CUDA tensors through
+    gloo), f64: the same bits on both ranks, the stacked steps, 1e-10."""
+    import admm_tpu_torch.parallel as TP
+
+    from _torch_ranks import check, run_ranks
+
+    rng = np.random.default_rng(5)
+    D, S = rng.standard_normal((64, 10)), rng.standard_normal((4, 64))
+    lams = np.geomspace(0.05, 0.4, 4)
+    ref = TP.consensus_lasso_batch(D, S, lams, ADMMConfig(maxiters=500),
+                                   mesh=TP.make_mesh2d(1, 8, device=cuda))
+    rc, init, out, res = run_ranks('''
+        from admm_tpu_torch import ADMMConfig
+        from admm_tpu_torch.parallel import consensus_lasso_batch, make_mesh2d
+        rng = np.random.default_rng(5)
+        D, S = rng.standard_normal((64, 10)), rng.standard_normal((4, 64))
+        m = make_mesh2d(1, 8, group=mesh.group)
+        assert m.device.type == "cuda" and m.span == 2
+        r = consensus_lasso_batch(D, S, np.geomspace(0.05, 0.4, 4), ADMMConfig(maxiters=500),
+                                  mesh=m)
+        save(steps=r.steps, zopt=r.zopt, xi=r.extra["xi"])
+    ''', tmp_path, join=dict(backend="gloo"))
+    check(rc, init, out)
+    r0, r1 = res
+    for key in r0:
+        assert r0[key].tobytes() == r1[key].tobytes(), key
+    assert r0["steps"].tolist() == ref.steps.tolist()
+    for key, want in (("zopt", ref.zopt), ("xi", ref.extra["xi"])):
+        want = want.cpu().numpy()
+        np.testing.assert_allclose(r0[key], want, rtol=1e-10, atol=1e-10 * np.abs(want).max())
+
+
+def test_vmap_of_grad_over_the_serial_tv_solve_goes_through_k4(cuda, cr_launches):
+    """torch.func.vmap(torch.func.grad(loss)) over the serial implicit TV
+    solve (the hybrid form), f64: each lane equals the serial gradient
+    (1e-8), and every solve of its backward is one K4 launch of all
+    lanes."""
+    from admm_tpu_torch import make_implicit_solver
+    from admm_tpu_torch.linop import DiffOp
+    from admm_tpu_torch.models.totalvariation import make_prox_ops
+
+    n = 4096
+    rng = np.random.default_rng(3)
+    truth = np.repeat(rng.standard_normal(n // 64), 64)
+    s = torch.as_tensor(truth + 0.5 * rng.standard_normal(n), device=cuda)
+    cfg = ADMMConfig(maxiters=3000, abstol=1e-10, reltol=1e-10)
+    pf, pg, _, data, _ = make_prox_ops(s, 0.5, cfg, solver="cr", batched=True)
+    solve = make_implicit_solver(pf, pg, cfg, A=DiffOp(n), nA=n, nB=n, vjp_tol=1e-10)
+    t = torch.as_tensor(truth, device=cuda)
+
+    def loss(lam):
+        return torch.mean((solve(dict(data, lam=lam))[0] - t) ** 2)
+
+    lams = torch.tensor([0.3, 0.5, 0.8], dtype=torch.float64, device=cuda)
+    with torch.no_grad():
+        torch.func.vmap(loss)(lams)
+    forward = cr_launches()
+    g = torch.func.vmap(torch.func.grad(loss))(lams)
+    torch.cuda.synchronize()
+    assert cr_launches() - 2 * forward == solve.stats["applies"] + 2
+    for i in range(3):
+        gi = torch.func.grad(loss)(lams[i])
+        np.testing.assert_allclose(float(g[i]), float(gi), rtol=1e-8)
+
+
+def test_cr_packed_on_the_card_equals_the_cpu(cuda):
+    """solver='cr_packed' (plain PyTorch, no kernel) on the card in f64:
+    one solve equals the CPU's bit for bit; a TV run takes the CPU's steps
+    and lands within 1e-10 of it (the engine's norms sum in another
+    order)."""
+    from admm_tpu_torch.ops.tridiag import PackedCyclicReductionSolver
+
+    n = 70000
+    b = np.random.default_rng(1).standard_normal(n)
+    sols = [PackedCyclicReductionSolver.from_tridiag(*tv_system(n, 1.0), device=d)
+            for d in (cuda, "cpu")]
+    x_gpu = sols[0].solve(torch.as_tensor(b, device=cuda))
+    x_cpu = sols[1].solve(torch.as_tensor(b))
+    assert torch.equal(x_gpu.cpu(), x_cpu)
+    rng = np.random.default_rng(7)
+    sig = np.repeat(rng.standard_normal(300), 64) + 0.3 * rng.standard_normal(300 * 64)
+    cfg = ADMMConfig(maxiters=2000)
+    r_gpu = totalvariation(sig, 0.5, cfg, solver="cr_packed", device=cuda)
+    r_cpu = totalvariation(sig, 0.5, cfg, solver="cr_packed", device="cpu")
+    assert r_gpu.steps == r_cpu.steps
+    np.testing.assert_allclose(r_gpu.xopt.cpu().numpy(), r_cpu.xopt.numpy(), rtol=1e-10,
+                               atol=1e-10 * float(r_cpu.xopt.abs().max()))

@@ -178,8 +178,29 @@ def test_convert_refuses_the_packed_solver():
         numpy_state(jdata)
 
 
+def test_tv_cr_variants_agree():
+    """tests/test_tridiag.py::test_tv_cr_variants_agree: 'cr_packed',
+    'cr_masked' and the dense path take the same trajectory (equal steps,
+    xopt within 1e-9 of the masked run and 1e-6 of the dense one), and
+    'cr_packed' against admm_tpu's 'cr_packed' (equal steps, 1e-10)."""
+    sig = _staircase(300)
+    cfg = ADMMConfig(maxiters=400)
+    r_p = totalvariation(sig, 0.8, cfg, solver="cr_packed", device="cpu")
+    r_m = totalvariation(sig, 0.8, cfg, solver="cr_masked", device="cpu")
+    r_d = totalvariation(sig, 0.8, cfg, solver="dense", device="cpu")
+    assert r_p.steps == r_m.steps
+    np.testing.assert_allclose(r_p.xopt.numpy(), r_m.xopt.numpy(), rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(r_p.xopt.numpy(), r_d.xopt.numpy(), rtol=1e-6, atol=1e-8)
+    jres = jax_tv(sig, 0.8, JaxConfig(maxiters=400), solver="cr_packed")
+    assert r_p.steps == int(jres.steps)
+    np.testing.assert_allclose(r_p.xopt.numpy(), np.asarray(jres.xopt), rtol=1e-10,
+                               atol=1e-12)
+    assert isinstance(tv_mod.make_prox_ops(torch.from_numpy(sig), 0.8, cfg, "cr_packed")[3]["cr"],
+                      tv_mod.PackedCyclicReductionSolver)
+
+
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(solver="cr_packed"), NotImplementedError, "ROADMAP.md"),
+    (dict(solver="cr_packed", adaptive=True), ValueError, "static rho"),
     (dict(solver="cr", adaptive=True), ValueError, "static rho"),
     (dict(solver="cr_masked", rbadaptive=True), ValueError, "static rho"),
     (dict(adaptive=True), NotImplementedError, "slice 2"),
@@ -187,7 +208,9 @@ def test_convert_refuses_the_packed_solver():
     (dict(solver="dense", _plain_cr=True), ValueError, "cyclic-reduction"),
 ])
 def test_unported_tv_modes_raise(kw, exc, match):
-    """The refusals that stay.  Adaptive TV, which raised until slice 2,
+    """The refusals that stay ('cr_packed', which raised until slice 10c,
+    runs: test_tv_cr_variants_agree; it keeps the reference's refusal of
+    dynamic rho).  Adaptive TV, which raised until slice 2,
     now takes the dense eigenbasis x-update and is held against
     admm_tpu's adaptive TV, with and without the convtest monitor that
     lets rho move."""

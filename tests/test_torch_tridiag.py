@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from admm_tpu.ops.tridiag import CyclicReductionSolver as JaxCR
+from admm_tpu.ops.tridiag import PackedCyclicReductionSolver as JaxPacked
 from admm_tpu_torch.models.totalvariation import tv_system
 from admm_tpu_torch.ops import tridiag
 from admm_tpu_torch.ops.tridiag import (
-    CyclicReductionSolver, TilePlan, _cr_solve_torch, _tail, compact_stacks, cr_solve,
+    CyclicReductionSolver, PackedCyclicReductionSolver, TilePlan, _cr_solve_torch, _tail, compact_stacks, cr_solve,
     level_offsets, tile_plan)
 
 torch.set_num_threads(1)
@@ -300,3 +301,44 @@ def test_cr_solve_refuses_what_it_does_not_take():
         cr_solve(torch.zeros((1, 100), dtype=torch.float64), sol)
     with pytest.raises(ValueError, match="float32"):
         cr_solve(torch.zeros((1, N), dtype=torch.float32), sol)
+
+
+PACKED = ("alphas", "betas", "a_lv", "c_lv", "d_lv")
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 64, 255, 300, 1000])
+def test_packed_solver_matches_jax_and_the_masked_solver(n):
+    # The packed layout (admm_tpu's PackedCyclicReductionSolver): the same
+    # NumPy f64 precompute, packed stacks equal admm_tpu's bit for bit; the
+    # solve against admm_tpu's packed solve (1e-13), the masked solve and
+    # the dense solution (1e-10, tests/test_tridiag.py's bars), and with a
+    # leading batch dimension against single solves.
+    args = _random_system(n, seed=n + 1)
+    j = JaxPacked.from_tridiag(*args)
+    t = PackedCyclicReductionSolver.from_tridiag(*args)
+    for name in PACKED:
+        assert len(getattr(t, name)) == len(getattr(j, name))
+        for got, ref in zip(getattr(t, name), getattr(j, name)):
+            assert got.dtype == torch.float64
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    rng = np.random.default_rng(n)
+    B = rng.standard_normal((3, n))
+    got = t.solve(torch.from_numpy(B))
+    want = np.stack([np.asarray(j.solve(jnp.asarray(b))) for b in B])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-14)
+    masked = CyclicReductionSolver.from_tridiag(*args).solve(torch.from_numpy(B))
+    np.testing.assert_allclose(got.numpy(), masked.numpy(), rtol=1e-10, atol=1e-12)
+    dl, d, du = args
+    T = np.diag(d) + np.diag(dl[1:], -1) + np.diag(du[:-1], 1)
+    np.testing.assert_allclose(got.numpy(), np.linalg.solve(T, B.T).T, rtol=1e-10,
+                               atol=1e-12)
+    for i in range(3):
+        assert torch.equal(t.solve(torch.from_numpy(B[i])), got[i])
+
+
+def test_packed_solver_stores_in_the_solve_dtype_and_vmaps():
+    args = _tv_system(300)
+    t = PackedCyclicReductionSolver.from_tridiag(*args, dtype=torch.float32)
+    assert all(v.dtype == torch.float32 for v in t.alphas + t.d_lv)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 300))).float()
+    assert torch.equal(torch.func.vmap(t.solve)(b), t.solve(b))
