@@ -59,6 +59,7 @@ from .device import resolve_device
 from .linop import ScaledIdentityOp, as_linop
 from .ops.kernels import fused_zu_tail, zu_tail_scratch
 from .results import ADMMResults
+from .utils.profiling import span
 
 
 def _fro2(v):
@@ -235,82 +236,84 @@ def admm(
     split, a vector of lengths, or a (slicesx, slicesz) pair for 'both').
     Sliced proxes do not take ``data`` and slice 1-D iterates only.
     """
-    config = resolve_unroll(config, "default")
-    device = resolve_device(device, x0, z0, u0, c, A, B, data)
+    with span("admm_tpu_torch.prepare"):
+        config = resolve_unroll(config, "default")
+        device = resolve_device(device, x0, z0, u0, c, A, B, data)
 
-    if dtype is None:
-        dtype = next((_as_tensor(cand).dtype for cand in (x0, z0, u0, c)
-                      if cand is not None and hasattr(cand, "dtype")),
-                     torch.get_default_dtype())
-    A = as_linop(A, device=device, dtype=dtype)
-    B = as_linop(B, device=device, dtype=dtype)
+        if dtype is None:
+            dtype = next((_as_tensor(cand).dtype for cand in (x0, z0, u0, c)
+                          if cand is not None and hasattr(cand, "dtype")),
+                         torch.get_default_dtype())
+        A = as_linop(A, device=device, dtype=dtype)
+        B = as_linop(B, device=device, dtype=dtype)
 
-    # --- shape/initial-state resolution (reference admm.m:79-259).
-    if nA is None and isinstance(A, ScaledIdentityOp) and m is not None:
-        nA = m
-    if nB is None and isinstance(B, ScaledIdentityOp) and m is not None:
-        nB = m
-    if shape_x is None:
-        if nA is None and x0 is None:
-            raise ValueError("must provide nA, shape_x, or x0")
-        shape_x = (nA,) if x0 is None else tuple(np.shape(x0))
-    if shape_z is None:
-        if nB is None and z0 is None:
-            raise ValueError("must provide nB, shape_z, or z0")
-        shape_z = (nB,) if z0 is None else tuple(np.shape(z0))
+        # --- shape/initial-state resolution (reference admm.m:79-259).
+        if nA is None and isinstance(A, ScaledIdentityOp) and m is not None:
+            nA = m
+        if nB is None and isinstance(B, ScaledIdentityOp) and m is not None:
+            nB = m
+        if shape_x is None:
+            if nA is None and x0 is None:
+                raise ValueError("must provide nA, shape_x, or x0")
+            shape_x = (nA,) if x0 is None else tuple(np.shape(x0))
+        if shape_z is None:
+            if nB is None and z0 is None:
+                raise ValueError("must provide nB, shape_z, or z0")
+            shape_z = (nB,) if z0 is None else tuple(np.shape(z0))
 
-    def init(v, shape):
-        if v is None:
-            return torch.zeros(shape, dtype=dtype, device=device)
-        return _as_tensor(v).to(device=device, dtype=dtype)
+        def init(v, shape):
+            if v is None:
+                return torch.zeros(shape, dtype=dtype, device=device)
+            return _as_tensor(v).to(device=device, dtype=dtype)
 
-    x0 = init(x0, shape_x)
-    z0 = init(z0, shape_z)
-    # c: scalar 0 means zeros of the constraint-output shape (admm.m:99-110)
-    c_arr = _as_tensor(c).to(device=device, dtype=dtype)
-    if c_arr.ndim == 0:
-        shape_c = A.out_shape(shape_x)
-        if shape_c is None:
-            if m is None:
-                raise ValueError("c is scalar and A is matrix-free: provide m")
-            shape_c = (m,)
-        c_arr = c_arr.expand(shape_c).contiguous()
-    u0 = init(u0, tuple(c_arr.shape))
+        x0 = init(x0, shape_x)
+        z0 = init(z0, shape_z)
+        # c: scalar 0 means zeros of the constraint-output shape (admm.m:99-110)
+        c_arr = _as_tensor(c).to(device=device, dtype=dtype)
+        if c_arr.ndim == 0:
+            shape_c = A.out_shape(shape_x)
+            if shape_c is None:
+                if m is None:
+                    raise ValueError("c is scalar and A is matrix-free: provide m")
+                shape_c = (m,)
+            c_arr = c_arr.expand(shape_c).contiguous()
+        u0 = init(u0, tuple(c_arr.shape))
 
-    if parallel is not None:
-        # Engine-level sliced proxes (admm.m:343-467), sized from the
-        # resolved iterate shapes.
-        from .parallel.mesh import make_mesh
-        from .parallel.sliced import make_parallel_proxes
+        if parallel is not None:
+            # Engine-level sliced proxes (admm.m:343-467), sized from the
+            # resolved iterate shapes.
+            from .parallel.mesh import make_mesh
+            from .parallel.sliced import make_parallel_proxes
 
-        if data is not None:
-            raise ValueError(
-                "parallel= sliced proxes do not take the data argument; close over "
-                "problem data in the per-slice prox instead")
-        if len(shape_x) != 1 or len(shape_z) != 1:
-            # The sliced gather reassembles a flat vector; the reference
-            # slices vectors only (admm.m:343-467).
-            raise ValueError(
-                "parallel= supports 1-D (vector) iterates only; got "
-                f"shape_x={tuple(shape_x)}, shape_z={tuple(shape_z)}")
-        prox_f, prox_g = make_parallel_proxes(
-            prox_f, prox_g, parallel, slices, nx=shape_x[0], nz=shape_z[0],
-            mesh=make_mesh(device=device) if mesh is None else mesh)
+            if data is not None:
+                raise ValueError(
+                    "parallel= sliced proxes do not take the data argument; close over "
+                    "problem data in the per-slice prox instead")
+            if len(shape_x) != 1 or len(shape_z) != 1:
+                # The sliced gather reassembles a flat vector; the reference
+                # slices vectors only (admm.m:343-467).
+                raise ValueError(
+                    "parallel= supports 1-D (vector) iterates only; got "
+                    f"shape_x={tuple(shape_x)}, shape_z={tuple(shape_z)}")
+            prox_f, prox_g = make_parallel_proxes(
+                prox_f, prox_g, parallel, slices, nx=shape_x[0], nz=shape_z[0],
+                mesh=make_mesh(device=device) if mesh is None else mesh)
 
-    if hooks.fused_zu is not None:
-        _check_fused_splitting(A, B, c_arr)
+        if hooks.fused_zu is not None:
+            _check_fused_splitting(A, B, c_arr)
 
-    if hooks.preprocess is not None:
-        # Hooks follow the data convention (trailing data arg when given).
-        hooks.preprocess(data) if data is not None else hooks.preprocess()
+        if hooks.preprocess is not None:
+            # Hooks follow the data convention (trailing data arg when given).
+            hooks.preprocess(data) if data is not None else hooks.preprocess()
 
-    _sync(device)
+        _sync(device)
     t0 = time.perf_counter()
     with matmul_precision(config.matmul_precision):
         raw = _run(prox_f, prox_g, config, hooks, data, x0, z0, u0, c_arr, A, B)
     _sync(device)
     runtime = time.perf_counter() - t0
-    res = ADMMResults.from_raw(raw, config, x0=x0, z0=z0, u0=u0)
+    with span("admm_tpu_torch.result"):
+        res = ADMMResults.from_raw(raw, config, x0=x0, z0=z0, u0=u0)
     res.runtime = runtime
     if not config.quiet:
         # Final summary line (reference admm.m:759-765).
@@ -500,10 +503,6 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         pf, pg, obj_fn, altu_fn, norms_fn, fused_fn = (
             _bound(h, d) for h in (prox_f, prox_g, hooks.obj, hooks.altu,
                                    hooks.specialnorms, hooks.fused_zu))
-        # frozen gates this sub-step; one instance at K = 1 has the host
-        # check k and done before every step, so nothing is ever frozen
-        # and no select runs.
-        frozen = (s.done | (s.k >= N)) if freeze else None
         k, rho = s.k, s.rho
         i = k + 1  # the reference's 1-based iteration counter
         x, z, u = s.x, s.z, s.u
@@ -511,165 +510,171 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         bufs = dict(bufs)
 
         # ---- x-update (admm.m:501-511) --------------------------------
-        if alg == 0:
-            x = pf(x, z, u, rho)
-            uhat = u
-        else:
-            uprev, uhat = u, s.uhat
-            x = pf(x, s.v, uhat, rho)
+        with span("admm_tpu_torch.step.xupdate"):
+            if alg == 0:
+                x = pf(x, z, u, rho)
+                uhat = u
+            else:
+                uprev, uhat = u, s.uhat
+                x = pf(x, s.v, uhat, rho)
 
-        # ---- relaxation + z-update (admm.m:515-532) -------------------
-        Ax_for_g = x
-        Axhat = None
-        if use_relax:
-            Axhat = relax * A.mv(x) - (1.0 - relax) * (B.mv(zprev) - c)
-            Ax_for_g = Axhat
-        if use_fused:
-            z, u_fused = fused_fn(x, u, rho)
-        else:
-            z = pg(Ax_for_g, z, u if alg == 0 else uhat, rho)
+        with span("admm_tpu_torch.step.tail"):
+            # frozen gates this sub-step; one instance at K = 1 has the host
+            # check k and done before every step, so nothing is ever frozen
+            # and no select runs.
+            frozen = (s.done | (s.k >= N)) if freeze else None
+            # ---- relaxation + z-update (admm.m:515-532) -------------------
+            Ax_for_g = x
+            Axhat = None
+            if use_relax:
+                Axhat = relax * A.mv(x) - (1.0 - relax) * (B.mv(zprev) - c)
+                Ax_for_g = Axhat
+            if use_fused:
+                z, u_fused = fused_fn(x, u, rho)
+            else:
+                z = pg(Ax_for_g, z, u if alg == 0 else uhat, rho)
 
-        Ax = A.mv(x)
-        Bz = B.mv(z)
-        Axr = Axhat if use_relax else Ax
+            Ax = A.mv(x)
+            Bz = B.mv(z)
+            Axr = Axhat if use_relax else Ax
 
-        # ---- dual update (admm.m:538-560) -----------------------------
-        if use_fused:
-            u = u_fused
-        elif altu_fn is not None:
-            u = altu_fn(u, Axr, Bz, c)
-        else:
-            u = (u if alg == 0 else uhat) + (Axr + Bz - c)
+            # ---- dual update (admm.m:538-560) -----------------------------
+            if use_fused:
+                u = u_fused
+            elif altu_fn is not None:
+                u = altu_fn(u, Axr, Bz, c)
+            else:
+                u = (u if alg == 0 else uhat) + (Axr + Bz - c)
 
-        # ---- fast / accelerated updates (admm.m:563-600) --------------
-        v_new, uhat_new, a_new, d_new, restarted_i = s.v, s.uhat, s.a, s.d, None
-        if alg:
-            dval = ((1.0 / rho) * _fro2(u - uhat) + rho * _fro2(B.mv(z - s.v))
-                    if alg == 2 else None)
-            v_new, uhat_new, a_new, d2, r2 = fast_update(
-                alg, cfg, aprev=s.a, dprev=s.d, z=z, zprev=zprev, u=u, uprev=uprev,
-                v=s.v, dval=dval)
-            if alg == 2:
-                d_new, restarted_i = d2, r2
-
-        # ---- norms (admm.m:612-637) -----------------------------------
-        if norms_fn is not None:
-            pnorm, dnorm = (scalar(v) for v in norms_fn(x, z, u, rho))
-        else:
-            pnorm = _fro(Ax + Bz - c)
-            if cfg.nodualerror:
-                dnorm = nan
-            elif alg == 1:
-                dnorm = rho * _fro(A.rmv(B.mv(z - v_new)))
-            else:  # alg 0 (and alg 2, recorded for observability)
-                dnorm = _fro(rho * A.rmv(B.mv(z - zprev)))
-
-        # ---- Boyd errors (admm.m:639-658) -----------------------------
-        M2 = float(Bz.numel())
-        perr = perr_abs + cfg.reltol * torch.maximum(
-            torch.maximum(_fro(Ax), _fro(Bz)), cnorm)
-        if cfg.nodualerror:
-            derr = nan
-        else:
-            derr = math.sqrt(M2) * cfg.abstol + cfg.reltol * _fro(rho * A.rmv(u))
-
-        # ---- H-norm / divergence monitor (admm.m:676-703) -------------
-        diverged_i = ~torch.isfinite(pnorm) if cfg.nanguard else no
-        Hsq = wz_new = wu_new = None
-        if needs_h:
-            wz_new, wu_new = z, rho * u
-            # H uses the setup-time rho (MATLAB closure capture,
-            # admm.m:305-306), while w itself carries the current rho.
-            Hsq = rho0 * _fro2(B.mv(s.wz - wz_new)) + rho0 * _fro2(s.wu - wu_new)
-            if cfg.convtest and alg == 0:
-                H1, H2 = s.Hprev, Hsq
-                diverged_i = diverged_i | (
-                    (i >= 2) & (H1 > eps) & (H2 > H1) & ((H2 - H1) > H1 * cfg.convtol))
-
-        # ---- plateau detector (ADMMConfig.stallwindow) ----------------
-        stall_i = no
-        best_new = since_new = None
-        if use_stall:
-            # A NaN pnorm never counts as progress (the comparison is
-            # False), so a NaN plateau also trips the window.
-            improved = pnorm < s.best_p * (1.0 - cfg.stalltol)
-            best_new = torch.minimum(s.best_p, pnorm)
-            since_new = torch.where(improved, 0, s.since + 1)
-            stall_i = since_new >= cfg.stallwindow
-
-        # ---- stopping (admm.m:705-722) --------------------------------
-        stop = no
-        if alg == 2:
-            # Not gated on domaxiters: the reference's accelerated d-value
-            # stop ignores it (admm.m:706-707).
-            stop = (i >= 2) & (torch.abs(d_new - s.d) <= cfg.dvaltol * s.d)
-        elif std_stop and not cfg.domaxiters:
-            stop = pnorm < perr
-            if not cfg.nodualerror:
-                stop = stop & (dnorm < derr)
-        if h_stop and not cfg.domaxiters:
-            stop = stop | ((i > 2) & (Hsq <= cfg.hnormtol))
-        done = stop | diverged_i | stall_i
-
-        # ---- adaptive rho (admm.m:724-741) ----------------------------
-        rho_new = rho
-        if cfg.adaptive and cfg.convtest:
-            rho_new = adaptive_rho_update(cfg, Hprev=s.Hprev, Hsq=Hsq, rho=rho, i=i,
-                                          done=done, eps=eps)
-        elif cfg.rbadaptive and alg == 0:
-            # Residual balancing with the scaled-dual rescale u * rho/rho_new.
-            factor = residual_balance_factor(cfg, pnorm=pnorm, dnorm=dnorm, done=done,
-                                             dtype=rdtype)
-            rho_new = rho * factor
-            u = u / factor
-
-        # ---- Anderson acceleration (anderson.py) ----------------------
-        # The plain sweep above is the map T(s); the candidate replaces
-        # only the next step's start, after the rbadaptive rescale.
-        # Residuals, stop and history stay those of the plain sweep.
-        x_next, z_next, u_next = x, z, u
-        acnt_new = abest_new = None
-        if use_aa:
-            flat = lambda a, b, c_: torch.cat((a.reshape(-1), b.reshape(-1), c_.reshape(-1)))
-            (s_next,), acnt_new, abest_new, bufs["aF"], bufs["aT"] = window.step(
-                [flat(s.x, s.z, s.u)], [flat(x, z, u)], s.acnt, s.abest,
-                bufs["aF"], bufs["aT"], done=done, frozen=frozen, put=put)
-            nx, nz = x.numel(), z.numel()
-            x_next = s_next[:nx].reshape(x.shape)
-            z_next = s_next[nx:nx + nz].reshape(z.shape)
-            u_next = s_next[nx + nz:].reshape(u.shape)
-
-        # ---- history and iterate records (admm.m:596-610) -------------
-        slot = (k if frozen is None else torch.where(frozen, n_spare, k)).reshape(1)
-        vals = ([pnorm, dnorm, perr, derr] + ([obj_fn(x, z)] if record_obj else [])
-                + ([Hsq] if needs_h else []) + ([d_new] if alg == 2 else [])
-                + ([a_new] if alg else []))
-        bufs["hist"] = put(bufs["hist"], 1, slot, torch.stack(vals).reshape(-1, 1))
-        if alg == 2:
-            bufs["restarted"] = put(bufs["restarted"], 0, slot, restarted_i.reshape(1))
-        if record:
-            # Under rbadaptive u was rescaled above and rho_new*u keeps the
-            # scaled-dual product rho*u_pre; elsewhere w carries the
-            # current rho (adaptation comes after recording, admm.m:724).
-            w_rho = rho_new if cfg.rbadaptive else rho
-            rows = {"xvals": x, "zvals": z, "uvals": u,
-                    "wvals": torch.cat((x.reshape(-1), z.reshape(-1), (w_rho * u).reshape(-1)))}
+            # ---- fast / accelerated updates (admm.m:563-600) --------------
+            v_new, uhat_new, a_new, d_new, restarted_i = s.v, s.uhat, s.a, s.d, None
             if alg:
-                rows.update(vvals=v_new, uhatvals=uhat_new)
-            for name, val in rows.items():
-                bufs[name] = put(bufs[name], 0, slot, val.unsqueeze(0))
+                dval = ((1.0 / rho) * _fro2(u - uhat) + rho * _fro2(B.mv(z - s.v))
+                        if alg == 2 else None)
+                v_new, uhat_new, a_new, d2, r2 = fast_update(
+                    alg, cfg, aprev=s.a, dprev=s.d, z=z, zprev=zprev, u=u, uprev=uprev,
+                    v=s.v, dval=dval)
+                if alg == 2:
+                    d_new, restarted_i = d2, r2
 
-        new = _State(
-            k=k + 1, x=x_next, z=z_next, u=u_next, rho=rho_new,
-            v=v_new, uhat=uhat_new, a=a_new, d=d_new,
-            wz=wz_new, wu=wu_new, Hprev=Hsq,
-            best_p=best_new, since=since_new, acnt=acnt_new, abest=abest_new,
-            done=done, diverged=s.diverged | diverged_i, stalled=s.stalled | stall_i,
-        )
-        if frozen is None:
-            return new, bufs
-        return _State(*(None if b is None else torch.where(frozen, a, b)
-                        for a, b in zip(s, new))), bufs
+            # ---- norms (admm.m:612-637) -----------------------------------
+            if norms_fn is not None:
+                pnorm, dnorm = (scalar(v) for v in norms_fn(x, z, u, rho))
+            else:
+                pnorm = _fro(Ax + Bz - c)
+                if cfg.nodualerror:
+                    dnorm = nan
+                elif alg == 1:
+                    dnorm = rho * _fro(A.rmv(B.mv(z - v_new)))
+                else:  # alg 0 (and alg 2, recorded for observability)
+                    dnorm = _fro(rho * A.rmv(B.mv(z - zprev)))
+
+            # ---- Boyd errors (admm.m:639-658) -----------------------------
+            M2 = float(Bz.numel())
+            perr = perr_abs + cfg.reltol * torch.maximum(
+                torch.maximum(_fro(Ax), _fro(Bz)), cnorm)
+            if cfg.nodualerror:
+                derr = nan
+            else:
+                derr = math.sqrt(M2) * cfg.abstol + cfg.reltol * _fro(rho * A.rmv(u))
+
+            # ---- H-norm / divergence monitor (admm.m:676-703) -------------
+            diverged_i = ~torch.isfinite(pnorm) if cfg.nanguard else no
+            Hsq = wz_new = wu_new = None
+            if needs_h:
+                wz_new, wu_new = z, rho * u
+                # H uses the setup-time rho (MATLAB closure capture,
+                # admm.m:305-306), while w itself carries the current rho.
+                Hsq = rho0 * _fro2(B.mv(s.wz - wz_new)) + rho0 * _fro2(s.wu - wu_new)
+                if cfg.convtest and alg == 0:
+                    H1, H2 = s.Hprev, Hsq
+                    diverged_i = diverged_i | (
+                        (i >= 2) & (H1 > eps) & (H2 > H1) & ((H2 - H1) > H1 * cfg.convtol))
+
+            # ---- plateau detector (ADMMConfig.stallwindow) ----------------
+            stall_i = no
+            best_new = since_new = None
+            if use_stall:
+                # A NaN pnorm never counts as progress (the comparison is
+                # False), so a NaN plateau also trips the window.
+                improved = pnorm < s.best_p * (1.0 - cfg.stalltol)
+                best_new = torch.minimum(s.best_p, pnorm)
+                since_new = torch.where(improved, 0, s.since + 1)
+                stall_i = since_new >= cfg.stallwindow
+
+            # ---- stopping (admm.m:705-722) --------------------------------
+            stop = no
+            if alg == 2:
+                # Not gated on domaxiters: the reference's accelerated d-value
+                # stop ignores it (admm.m:706-707).
+                stop = (i >= 2) & (torch.abs(d_new - s.d) <= cfg.dvaltol * s.d)
+            elif std_stop and not cfg.domaxiters:
+                stop = pnorm < perr
+                if not cfg.nodualerror:
+                    stop = stop & (dnorm < derr)
+            if h_stop and not cfg.domaxiters:
+                stop = stop | ((i > 2) & (Hsq <= cfg.hnormtol))
+            done = stop | diverged_i | stall_i
+
+            # ---- adaptive rho (admm.m:724-741) ----------------------------
+            rho_new = rho
+            if cfg.adaptive and cfg.convtest:
+                rho_new = adaptive_rho_update(cfg, Hprev=s.Hprev, Hsq=Hsq, rho=rho, i=i,
+                                              done=done, eps=eps)
+            elif cfg.rbadaptive and alg == 0:
+                # Residual balancing with the scaled-dual rescale u * rho/rho_new.
+                factor = residual_balance_factor(cfg, pnorm=pnorm, dnorm=dnorm, done=done,
+                                                 dtype=rdtype)
+                rho_new = rho * factor
+                u = u / factor
+
+            # ---- Anderson acceleration (anderson.py) ----------------------
+            # The plain sweep above is the map T(s); the candidate replaces
+            # only the next step's start, after the rbadaptive rescale.
+            # Residuals, stop and history stay those of the plain sweep.
+            x_next, z_next, u_next = x, z, u
+            acnt_new = abest_new = None
+            if use_aa:
+                flat = lambda a, b, c_: torch.cat((a.reshape(-1), b.reshape(-1), c_.reshape(-1)))
+                (s_next,), acnt_new, abest_new, bufs["aF"], bufs["aT"] = window.step(
+                    [flat(s.x, s.z, s.u)], [flat(x, z, u)], s.acnt, s.abest,
+                    bufs["aF"], bufs["aT"], done=done, frozen=frozen, put=put)
+                nx, nz = x.numel(), z.numel()
+                x_next = s_next[:nx].reshape(x.shape)
+                z_next = s_next[nx:nx + nz].reshape(z.shape)
+                u_next = s_next[nx + nz:].reshape(u.shape)
+
+            # ---- history and iterate records (admm.m:596-610) -------------
+            slot = (k if frozen is None else torch.where(frozen, n_spare, k)).reshape(1)
+            vals = ([pnorm, dnorm, perr, derr] + ([obj_fn(x, z)] if record_obj else [])
+                    + ([Hsq] if needs_h else []) + ([d_new] if alg == 2 else [])
+                    + ([a_new] if alg else []))
+            bufs["hist"] = put(bufs["hist"], 1, slot, torch.stack(vals).reshape(-1, 1))
+            if alg == 2:
+                bufs["restarted"] = put(bufs["restarted"], 0, slot, restarted_i.reshape(1))
+            if record:
+                # Under rbadaptive u was rescaled above and rho_new*u keeps the
+                # scaled-dual product rho*u_pre; elsewhere w carries the
+                # current rho (adaptation comes after recording, admm.m:724).
+                w_rho = rho_new if cfg.rbadaptive else rho
+                rows = {"xvals": x, "zvals": z, "uvals": u,
+                        "wvals": torch.cat((x.reshape(-1), z.reshape(-1), (w_rho * u).reshape(-1)))}
+                if alg:
+                    rows.update(vvals=v_new, uhatvals=uhat_new)
+                for name, val in rows.items():
+                    bufs[name] = put(bufs[name], 0, slot, val.unsqueeze(0))
+
+            new = _State(
+                k=k + 1, x=x_next, z=z_next, u=u_next, rho=rho_new,
+                v=v_new, uhat=uhat_new, a=a_new, d=d_new,
+                wz=wz_new, wu=wu_new, Hprev=Hsq,
+                best_p=best_new, since=since_new, acnt=acnt_new, abest=abest_new,
+                done=done, diverged=s.diverged | diverged_i, stalled=s.stalled | stall_i,
+            )
+            if frozen is None:
+                return new, bufs
+            return _State(*(None if b is None else torch.where(frozen, a, b)
+                            for a, b in zip(s, new))), bufs
 
     hist = bufs["hist"]
     lam_of = getattr(hooks.fused_zu, "soft_threshold_lam", None) if use_fused else None
@@ -687,13 +692,16 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
                        scratch=zu_tail_scratch(x.numel(), rdtype, device))
 
         def tail_step():
-            if record_obj:
-                slot = torch.where((st[1] != 0) | (st[0] >= N), n_spare, st[0])
-            fused_zu_tail(pf(x, z, u, rho0), x, z, u, lam, rho0, st, hist, **tail_kw)
-            if record_obj:
-                # x and z now hold this step's values unless it was frozen,
-                # and then the write goes to the spare slot.
-                hist[4].index_copy_(0, slot.reshape(1), obj_fn(x, z).reshape(1))
+            with span("admm_tpu_torch.step.xupdate"):
+                x_new = pf(x, z, u, rho0)
+            with span("admm_tpu_torch.step.tail"):
+                if record_obj:
+                    slot = torch.where((st[1] != 0) | (st[0] >= N), n_spare, st[0])
+                fused_zu_tail(x_new, x, z, u, lam, rho0, st, hist, **tail_kw)
+                if record_obj:
+                    # x and z now hold this step's values unless it was frozen,
+                    # and then the write goes to the spare slot.
+                    hist[4].index_copy_(0, slot.reshape(1), obj_fn(x, z).reshape(1))
 
         _run_chunks(tail_step, lambda: st[:2], N, K, table)
         steps, rho, diverged, stalled = st[0], rho0, st[2] != 0, no
@@ -784,38 +792,41 @@ def _run_chunks(step, flags, N, K, table=None, lane_k=None):
     frozen state, whose values the freeze select sends to the history's
     spare column N.  Lanes print in lane order at each sub-step (JAX
     prints them in an order of its own)."""
-    k0 = 0
-    while True:
-        kb = lane_k() if lane_k is not None else None
-        for _ in range(K):
-            step()
-        if table is None:
-            k_host, done_host = flags().tolist()
-        elif lane_k is None:
-            hi = min(k0 + K, N)
-            got = torch.cat((flags().double(), table()[:4, k0:hi].double().reshape(-1))).tolist()
-            k_host, done_host = int(got[0]), got[1]
-            cols = [got[2 + r * (hi - k0): 2 + (r + 1) * (hi - k0)] for r in range(4)]
-            for j in range(k_host - k0):
-                _table_row(k0 + j + 1, *(row[j] for row in cols))
-            k0 = k_host
-        else:
-            hist = table()[:, :4]
-            B = hist.shape[0]
-            idx = (kb[:, None] + torch.arange(K, device=kb.device)).clamp(max=N)
-            chunk = hist.gather(2, idx[:, None, :].expand(B, 4, K))  # (B, 4, K)
-            got = torch.cat((flags().double(), kb.double(), lane_k().double(),
-                             chunk.double().reshape(-1), hist[:, :, N].double().reshape(-1)))
-            got = got.tolist()
-            k_host, done_host = int(got[0]), got[1]
-            k_before, k_after = got[2:2 + B], got[2 + B:2 + 2 * B]
-            live, spare = got[2 + 2 * B:2 + 2 * B + 4 * B * K], got[2 + 2 * B + 4 * B * K:]
-            for j in range(K):
-                for b in range(B):
-                    if k_before[b] + j < k_after[b]:
-                        vals = live[b * 4 * K + j::K][:4]
-                        _table_row(int(k_before[b]) + j + 1, *vals)
-                    else:
-                        _table_row(int(k_after[b]) + 1, *spare[4 * b:4 * b + 4])
-        if done_host or k_host >= N:
-            return
+    with span("admm_tpu_torch.loop"):
+        k0 = 0
+        while True:
+            kb = lane_k() if lane_k is not None else None
+            for _ in range(K):
+                with span("admm_tpu_torch.step"):
+                    step()
+            if table is None:
+                k_host, done_host = flags().tolist()
+            elif lane_k is None:
+                hi = min(k0 + K, N)
+                got = torch.cat((flags().double(),
+                                 table()[:4, k0:hi].double().reshape(-1))).tolist()
+                k_host, done_host = int(got[0]), got[1]
+                cols = [got[2 + r * (hi - k0): 2 + (r + 1) * (hi - k0)] for r in range(4)]
+                for j in range(k_host - k0):
+                    _table_row(k0 + j + 1, *(row[j] for row in cols))
+                k0 = k_host
+            else:
+                hist = table()[:, :4]
+                B = hist.shape[0]
+                idx = (kb[:, None] + torch.arange(K, device=kb.device)).clamp(max=N)
+                chunk = hist.gather(2, idx[:, None, :].expand(B, 4, K))  # (B, 4, K)
+                got = torch.cat((flags().double(), kb.double(), lane_k().double(),
+                                 chunk.double().reshape(-1), hist[:, :, N].double().reshape(-1)))
+                got = got.tolist()
+                k_host, done_host = int(got[0]), got[1]
+                k_before, k_after = got[2:2 + B], got[2 + B:2 + 2 * B]
+                live, spare = got[2 + 2 * B:2 + 2 * B + 4 * B * K], got[2 + 2 * B + 4 * B * K:]
+                for j in range(K):
+                    for b in range(B):
+                        if k_before[b] + j < k_after[b]:
+                            vals = live[b * 4 * K + j::K][:4]
+                            _table_row(int(k_before[b]) + j + 1, *vals)
+                        else:
+                            _table_row(int(k_after[b]) + 1, *spare[4 * b:4 * b + 4])
+            if done_host or k_host >= N:
+                return

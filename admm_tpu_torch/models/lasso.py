@@ -27,6 +27,7 @@ from ..ops.kernels import fused_soft_threshold_dual, soft_threshold_pass
 from ..ops.prox import soft_threshold
 from ..ops.solve import FatShiftSolver, SymShiftSolver, WoodburySolver
 from ..results import ADMMResults
+from ..utils.profiling import span
 from . import register
 from ._common import bind_data, check_data_vector, merge_config, place_data, timed_solver
 
@@ -105,8 +106,9 @@ def make_ls_xprox(D, s, config: ADMMConfig, stream_dtype=None):
 
 def make_prox_ops(D, s, lam, config: ADMMConfig = ADMMConfig(), stream_dtype=None):
     """Build (prox_f, prox_g, obj, data) for LASSO (getProxOps.m:313-456)."""
-    prox_f, data = make_ls_xprox(D, s, config, stream_dtype)
-    data["lam"] = torch.as_tensor(lam, dtype=D.dtype, device=D.device)
+    with span("admm_tpu_torch.setup"):
+        prox_f, data = make_ls_xprox(D, s, config, stream_dtype)
+        data["lam"] = torch.as_tensor(lam, dtype=D.dtype, device=D.device)
     return prox_f, _prox_g, _obj, data
 
 

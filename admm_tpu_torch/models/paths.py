@@ -22,6 +22,7 @@ import torch
 from ..config import ADMMConfig, matmul_precision
 from ..device import resolve_device
 from ..engine import Hooks, _sync, make_admm_runner
+from ..utils.profiling import span
 from ._common import as_tensor, merge_config
 
 
@@ -61,10 +62,11 @@ def solve_lanes(prox_f, prox_g, obj, config, mapped, data, x0, z0, u0, c, A, B):
     """Run the lanes to the end and return ``(raw dict, runtime)``: the
     runner's outputs with a leading lane axis and the loop's wall clock
     (set-up flushed before it starts)."""
-    run = make_admm_runner(prox_f, prox_g, config, A, B, Hooks(obj=obj), has_data=True,
-                           lanes=True, mapped=mapped)
-    device = x0.device
-    _sync(device)
+    with span("admm_tpu_torch.prepare"):
+        run = make_admm_runner(prox_f, prox_g, config, A, B, Hooks(obj=obj), has_data=True,
+                               lanes=True, mapped=mapped)
+        device = x0.device
+        _sync(device)
     t0 = time.perf_counter()
     out = run(x0, z0, u0, c, data)
     _sync(device)
@@ -89,9 +91,10 @@ def _path(prox_f, prox_g, obj, config, key, vals, data, x0, z0, u0, c, A, B):
     data = dict(data)
     data[key] = vals  # the stacked leaf
     out, runtime = solve_lanes(prox_f, prox_g, obj, config, {key}, data, x0, z0, u0, c, A, B)
-    return PathResults(xopt=out["xopt"], zopt=out["zopt"], uopt=out["uopt"],
-                       steps=out["steps"], lams=vals, objopt=out["objopt"],
-                       runtime=runtime, hist=out["hist"])
+    with span("admm_tpu_torch.result"):
+        return PathResults(xopt=out["xopt"], zopt=out["zopt"], uopt=out["uopt"],
+                           steps=out["steps"], lams=vals, objopt=out["objopt"],
+                           runtime=runtime, hist=out["hist"])
 
 
 @highest_precision_setup

@@ -33,6 +33,7 @@ from ..linop import DiffOp
 from ..ops.prox import soft_threshold
 from ..ops.tridiag import CyclicReductionSolver, PackedCyclicReductionSolver
 from ..results import ADMMResults
+from ..utils.profiling import span
 from . import register
 from ._common import as_tensor, bind_data, merge_config, timed_solver
 
@@ -105,39 +106,40 @@ def make_prox_ops(s, lam, config: ADMMConfig = ADMMConfig(), solver: str = "auto
     layout (``ops/tridiag.PackedCyclicReductionSolver``, plain PyTorch on
     every device); 'auto' picks 'cr' for n > 2048 with static rho.
     """
-    n = s.shape[0]
-    D = DiffOp(n)
-    data = {"s": s, "lam": torch.as_tensor(lam, dtype=s.dtype, device=s.device), "D": D}
+    with span("admm_tpu_torch.setup"):
+        n = s.shape[0]
+        D = DiffOp(n)
+        data = {"s": s, "lam": torch.as_tensor(lam, dtype=s.dtype, device=s.device), "D": D}
 
-    solver = _resolve_solver(solver, n, config)
-    if solver in ("cr", "cr_masked", "cr_packed") and config.dynamic_rho:
-        raise ValueError("cyclic-reduction TV requires static rho")
+        solver = _resolve_solver(solver, n, config)
+        if solver in ("cr", "cr_masked", "cr_packed") and config.dynamic_rho:
+            raise ValueError("cyclic-reduction TV requires static rho")
 
-    if solver == "cr_packed":
-        data["cr"] = PackedCyclicReductionSolver.from_tridiag(
-            *tv_system(n, config.rho), device=s.device, dtype=s.dtype)
-        prox_f = _prox_f_cr
-    elif solver in ("cr", "cr_masked"):
-        # admm_tpu's gate: the hybrid tail pays off only at depth
-        # (n > 16384) for one signal; batched lanes always take it.
-        cutoff = 1023 if (solver == "cr" and (batched or n > 16384)) else None
-        data["cr"] = CyclicReductionSolver.from_tridiag(
-            *tv_system(n, config.rho), dense_cutoff=cutoff, device=s.device,
-            dtype=s.dtype)
-        prox_f = _prox_f_cr
-    elif solver == "dense":
-        Dd = D.dense(s.dtype, s.device)
-        DtD = Dd.T @ Dd  # dense D^T D (tridiagonal), built once at setup
-        DtD = 0.5 * (DtD + DtD.T)
-        w, V = torch.linalg.eigh(DtD)
-        if config.dynamic_rho:
-            data["V"], data["w"] = V, w
-            prox_f = _prox_f_adaptive
+        if solver == "cr_packed":
+            data["cr"] = PackedCyclicReductionSolver.from_tridiag(
+                *tv_system(n, config.rho), device=s.device, dtype=s.dtype)
+            prox_f = _prox_f_cr
+        elif solver in ("cr", "cr_masked"):
+            # admm_tpu's gate: the hybrid tail pays off only at depth
+            # (n > 16384) for one signal; batched lanes always take it.
+            cutoff = 1023 if (solver == "cr" and (batched or n > 16384)) else None
+            data["cr"] = CyclicReductionSolver.from_tridiag(
+                *tv_system(n, config.rho), dense_cutoff=cutoff, device=s.device,
+                dtype=s.dtype)
+            prox_f = _prox_f_cr
+        elif solver == "dense":
+            Dd = D.dense(s.dtype, s.device)
+            DtD = Dd.T @ Dd  # dense D^T D (tridiagonal), built once at setup
+            DtD = 0.5 * (DtD + DtD.T)
+            w, V = torch.linalg.eigh(DtD)
+            if config.dynamic_rho:
+                data["V"], data["w"] = V, w
+                prox_f = _prox_f_adaptive
+            else:
+                data["Minv"] = (V / (1.0 + config.rho * w)[None, :]) @ V.T
+                prox_f = _prox_f_static
         else:
-            data["Minv"] = (V / (1.0 + config.rho * w)[None, :]) @ V.T
-            prox_f = _prox_f_static
-    else:
-        raise ValueError(f"unknown TV solver {solver!r}")
+            raise ValueError(f"unknown TV solver {solver!r}")
 
     prox_g = _prox_g if config.relax == 1.0 else _prox_g_relaxed
     return prox_f, prox_g, _obj, data, D
