@@ -42,6 +42,14 @@ updates its x, z and u in place: the engine copies x0, z0 and u0 once at
 the start, so a caller's tensors are never written.  Any option the tail
 does not compute (``_tail_computes``) takes the generic step, with the
 hook's z/u pass (K1's z/u mode) in place of ``prox_g``.
+
+On a CUDA device a solve whose step runs only callables and operators
+marked ``graphs.capture_safe`` (the package's LASSO and TV proxes), with
+``quiet=True``, no Anderson window and nothing that autograd or
+``torch.func`` follows, captures one sub-step as a CUDA graph and runs
+each chunk as K replays of it (``graphs.py``): the step then works on
+buffers the solve owns, and steps, histories and results are the eager
+chunk's.  Every other solve runs its chunks eagerly.
 """
 
 from __future__ import annotations
@@ -52,11 +60,14 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from . import graphs
 from .anderson import AndersonWindow
 from .config import ADMMConfig, matmul_precision, resolve_unroll
 from .device import resolve_device
 from .linop import ScaledIdentityOp, as_linop
+from .ops._cuda import _traced
 from .ops.kernels import fused_zu_tail, zu_tail_scratch
 from .results import ADMMResults
 from .utils.profiling import span
@@ -679,6 +690,18 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
     hist = bufs["hist"]
     lam_of = getattr(hooks.fused_zu, "soft_threshold_lam", None) if use_fused else None
     table = None if cfg.quiet else (lambda: hist)
+    # The callables a sub-step runs.  The chunks run as replays of a CUDA
+    # graph of one sub-step (graphs.py) when the device takes one, nothing
+    # but the flags is read between chunks, each callable and operator is
+    # marked capture-safe, and no autograd or torch.func transform follows
+    # the solve.  Anderson's window solves through cuSOLVER and stays eager.
+    fns = tuple(f for f in (prox_f, hooks.fused_zu if use_fused else prox_g, hooks.altu,
+                            hooks.specialnorms, hooks.obj if record_obj else None)
+                if f is not None)
+    capture = (graphs.available(device) and table is None and not use_aa
+               and all(graphs.is_capture_safe(f) for f in fns + (type(A), type(B)))
+               and not _followed(data, x0, z0, u0, c, A, B))
+    kind = (lanes,) + fns
     if lam_of is not None and _tail_computes(cfg, hooks):
         # The soft-threshold pass: the whole tail in one fused_zu_tail.
         obj_fn = _bound(hooks.obj, data)
@@ -703,7 +726,8 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
                     # and then the write goes to the spare slot.
                     hist[4].index_copy_(0, slot.reshape(1), obj_fn(x, z).reshape(1))
 
-        _run_chunks(tail_step, lambda: st[:2], N, K, table)
+        _run_chunks(tail_step, lambda: st[:2], N, K, table,
+                    graph=graphs.ChunkGraph(device, kind) if capture else None)
         steps, rho, diverged, stalled = st[0], rho0, st[2] != 0, no
     else:
         full = lambda v: torch.full(lead, v, dtype=rdtype, device=device)
@@ -738,12 +762,29 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         def generic_step():
             cur[0], cur[1] = run_step(cur[0], cur[1], c, cnorm, data)
 
+        graph = None
+        if capture:
+            # The captured sub-step starts from buffers of the solve's own
+            # and ends by copying its state and buffers back into them.
+            leaves, spec = pytree.tree_flatten(cur)
+            fixed = [None if t is None else t.clone() for t in leaves]
+            cur[:] = owned = pytree.tree_unflatten(fixed, spec)
+
+            def commit():
+                # Each output is a new tensor or its own buffer (the in-place
+                # writes of one instance).
+                pairs = [(b, t) for b, t in zip(fixed, pytree.tree_leaves(cur))
+                         if t is not None and t is not b]
+                torch._foreach_copy_([b for b, _ in pairs], [t for _, t in pairs])
+                cur[:] = owned
+
+            graph = graphs.ChunkGraph(device, kind, commit)
         if lanes and table is not None:
             # The lanes write their history out of place: read the current one.
             _run_chunks(generic_step, flags, N, K, lambda: cur[1]["hist"],
                         lane_k=lambda: cur[0].k)
         else:
-            _run_chunks(generic_step, flags, N, K, table)
+            _run_chunks(generic_step, flags, N, K, table, graph=graph)
         s, bufs = cur
         steps, x, z, u, rho, diverged, stalled = s.k, s.x, s.z, s.u, s.rho, s.diverged, s.stalled
 
@@ -771,11 +812,24 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
     }
 
 
+def _followed(data, *objs) -> bool:
+    """Whether autograd or a ``torch.func`` transform follows the solve: a
+    transform is running, or it follows (``ops/_cuda._traced``) one of
+    ``objs``, ``data``'s leaves or the tensors these objects hold."""
+    if torch._C._functorch.maybe_current_level() is not None:
+        return True
+    for v in list(objs) + ([] if data is None else pytree.tree_leaves(data)):
+        held = (v,) if isinstance(v, torch.Tensor) else tuple(getattr(v, "__dict__", {}).values())
+        if any(isinstance(t, torch.Tensor) and _traced(t) for t in held):
+            return True
+    return False
+
+
 def _table_row(i, p, d, pe, de):
     print(f"{i}\tpnorm {p:.4e}\tperr {pe:.4e}\tdnorm {d:.4e}\tderr {de:.4e}")
 
 
-def _run_chunks(step, flags, N, K, table=None, lane_k=None):
+def _run_chunks(step, flags, N, K, table=None, lane_k=None, graph=None):
     """Run chunks of K steps until ``flags()``, the int64 device tensor
     ``(k, done)``, says the solve is done or at N steps; its one host read
     per chunk is the only one.  With ``table`` (``quiet=False``; it
@@ -791,42 +845,57 @@ def _run_chunks(step, flags, N, K, table=None, lane_k=None):
     (done, or at N steps) prints the step it would take next from its
     frozen state, whose values the freeze select sends to the history's
     spare column N.  Lanes print in lane order at each sub-step (JAX
-    prints them in an order of its own)."""
+    prints them in an order of its own).
+
+    With ``graph`` (a ``graphs.ChunkGraph``; never with ``table``) each
+    chunk is K replays of a sub-step and the flags, captured from ``step``
+    and ``flags`` at the first chunk."""
+
+    def one():
+        with span("admm_tpu_torch.step"):
+            step()
+
     with span("admm_tpu_torch.loop"):
         k0 = 0
         while True:
-            kb = lane_k() if lane_k is not None else None
-            for _ in range(K):
-                with span("admm_tpu_torch.step"):
-                    step()
-            if table is None:
-                k_host, done_host = flags().tolist()
-            elif lane_k is None:
-                hi = min(k0 + K, N)
-                got = torch.cat((flags().double(),
-                                 table()[:4, k0:hi].double().reshape(-1))).tolist()
-                k_host, done_host = int(got[0]), got[1]
-                cols = [got[2 + r * (hi - k0): 2 + (r + 1) * (hi - k0)] for r in range(4)]
-                for j in range(k_host - k0):
-                    _table_row(k0 + j + 1, *(row[j] for row in cols))
-                k0 = k_host
-            else:
-                hist = table()[:, :4]
-                B = hist.shape[0]
-                idx = (kb[:, None] + torch.arange(K, device=kb.device)).clamp(max=N)
-                chunk = hist.gather(2, idx[:, None, :].expand(B, 4, K))  # (B, 4, K)
-                got = torch.cat((flags().double(), kb.double(), lane_k().double(),
-                                 chunk.double().reshape(-1), hist[:, :, N].double().reshape(-1)))
-                got = got.tolist()
-                k_host, done_host = int(got[0]), got[1]
-                k_before, k_after = got[2:2 + B], got[2 + B:2 + 2 * B]
-                live, spare = got[2 + 2 * B:2 + 2 * B + 4 * B * K], got[2 + 2 * B + 4 * B * K:]
-                for j in range(K):
-                    for b in range(B):
-                        if k_before[b] + j < k_after[b]:
-                            vals = live[b * 4 * K + j::K][:4]
-                            _table_row(int(k_before[b]) + j + 1, *vals)
-                        else:
-                            _table_row(int(k_after[b]) + 1, *spare[4 * b:4 * b + 4])
+            with span("admm_tpu_torch.chunk"):
+                kb = lane_k() if lane_k is not None else None
+                if graph is not None:
+                    f = graph(one, flags, K)
+                else:
+                    for _ in range(K):
+                        one()
+                    f = flags()
+                if table is None:
+                    k_host, done_host = f.tolist()
+                elif lane_k is None:
+                    hi = min(k0 + K, N)
+                    got = torch.cat((f.double(),
+                                     table()[:4, k0:hi].double().reshape(-1))).tolist()
+                    k_host, done_host = int(got[0]), got[1]
+                    cols = [got[2 + r * (hi - k0): 2 + (r + 1) * (hi - k0)] for r in range(4)]
+                    for j in range(k_host - k0):
+                        _table_row(k0 + j + 1, *(row[j] for row in cols))
+                    k0 = k_host
+                else:
+                    hist = table()[:, :4]
+                    B = hist.shape[0]
+                    idx = (kb[:, None] + torch.arange(K, device=kb.device)).clamp(max=N)
+                    chunk = hist.gather(2, idx[:, None, :].expand(B, 4, K))  # (B, 4, K)
+                    got = torch.cat((f.double(), kb.double(), lane_k().double(),
+                                     chunk.double().reshape(-1),
+                                     hist[:, :, N].double().reshape(-1)))
+                    got = got.tolist()
+                    k_host, done_host = int(got[0]), got[1]
+                    k_before, k_after = got[2:2 + B], got[2 + B:2 + 2 * B]
+                    live = got[2 + 2 * B:2 + 2 * B + 4 * B * K]
+                    spare = got[2 + 2 * B + 4 * B * K:]
+                    for j in range(K):
+                        for b in range(B):
+                            if k_before[b] + j < k_after[b]:
+                                vals = live[b * 4 * K + j::K][:4]
+                                _table_row(int(k_before[b]) + j + 1, *vals)
+                            else:
+                                _table_row(int(k_after[b]) + 1, *spare[4 * b:4 * b + 4])
             if done_host or k_host >= N:
                 return

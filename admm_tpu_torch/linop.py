@@ -6,6 +6,10 @@ Every operator provides:
   - ``mv(v)``   : A @ v
   - ``rmv(v)``  : A.T @ v
   - ``out_shape(in_shape)`` for size inference.
+
+All but ``FnOp``, whose callables are the caller's, are marked
+``graphs.capture_safe``: the engine may capture their applications in a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -15,7 +19,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .graphs import capture_safe
 
+
+@capture_safe
 class ScaledIdentityOp:
     """alpha * I.  The reference's scalar-A/B fast path (admm.m:145-153)."""
 
@@ -38,6 +45,7 @@ class ScaledIdentityOp:
         return f"ScaledIdentityOp({self.alpha})"
 
 
+@capture_safe
 class DenseOp:
     """A dense matrix operator."""
 
@@ -57,6 +65,7 @@ class DenseOp:
         return f"DenseOp{tuple(self.M.shape)}"
 
 
+@capture_safe
 class DiffOp:
     """The total-variation difference operator.
 
@@ -88,6 +97,7 @@ class DiffOp:
         return f"DiffOp({self.n})"
 
 
+@capture_safe
 class StackIDiffOp:
     """The fused-lasso stacked operator A = [I; D] applied matrix-free:
     ``mv(x) = cat([x, Dx])`` (2n,), ``rmv(v) = v[:n] + D^T v[n:]``, O(n)

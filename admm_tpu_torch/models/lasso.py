@@ -23,6 +23,7 @@ import torch
 
 from ..config import ADMMConfig
 from ..engine import Hooks, admm
+from ..graphs import capture_safe
 from ..ops.kernels import fused_soft_threshold_dual, soft_threshold_pass
 from ..ops.prox import soft_threshold
 from ..ops.solve import FatShiftSolver, SymShiftSolver, WoodburySolver
@@ -44,20 +45,24 @@ def _prox_f_fat(x, z, u, rho, d):
     return d["wood"].solve(d["Dts"] + rho * (z - u), rho)
 
 
+@capture_safe
 def _prox_f_fat_static(x, z, u, rho, d):
     return d["fat"].solve(d["Dts"] + rho * (z - u))
 
 
+@capture_safe
 def _prox_g(x, z, u, rho, d):
     # zminSoftThresholding(u + x, lambda/rho) (getProxOps.m:455, 933-938)
     return soft_threshold(u + x, d["lam"] / rho)
 
 
+@capture_safe
 def _obj(x, z, d):
     # solvers/lasso.m objective: 1/2||Dx - s||^2 + lambda*||z||_1
     return 0.5 * torch.sum((d["D"] @ x - d["s"]) ** 2) + d["lam"] * torch.sum(torch.abs(z))
 
 
+@capture_safe
 @soft_threshold_pass(lambda d: d["lam"])
 def _fused_zu(x, u, rho, d):
     # One-pass z-prox + dual update (Hooks.fused_zu; ops/kernels.py).  The

@@ -29,6 +29,7 @@ import torch
 from ..config import ADMMConfig
 from ..device import resolve_device
 from ..engine import Hooks, admm
+from ..graphs import capture_safe
 from ..linop import DiffOp
 from ..ops.prox import soft_threshold
 from ..ops.tridiag import CyclicReductionSolver, PackedCyclicReductionSolver
@@ -42,6 +43,7 @@ def _prox_f_static(x, z, u, rho, d):
     return d["Minv"] @ (d["s"] + rho * d["D"].rmv(z - u))
 
 
+@capture_safe
 def _prox_f_cr(x, z, u, rho, d):
     # O(n log n) cyclic-reduction solve of the fixed tridiagonal system
     # (ops/tridiag.py) in place of the O(n^2) dense apply at large n.
@@ -59,17 +61,20 @@ def _prox_f_adaptive(x, z, u, rho, d):
     return d["V"] @ ((d["V"].T @ b) / (1.0 + rho * d["w"]))
 
 
+@capture_safe
 def _prox_g(x, z, u, rho, d):
     # The engine passes raw x; the reference z-prox applies D itself
     # (getProxOps.m case :145-199).
     return soft_threshold(u + d["D"].mv(x), d["lam"] / rho)
 
 
+@capture_safe
 def _prox_g_relaxed(Axhat, z, u, rho, d):
     # Under relaxation the engine hands Axhat (already in D-space).
     return soft_threshold(u + Axhat, d["lam"] / rho)
 
 
+@capture_safe
 def _obj(x, z, d):
     return 0.5 * torch.sum((x - d["s"]) ** 2) + d["lam"] * torch.sum(torch.abs(z))
 

@@ -171,11 +171,16 @@ class CyclicReductionSolver:
         def pack(arrs, dt=dtype):
             return put(np.stack(arrs) if arrs else np.zeros((0, N)), dt)
 
-        return cls(
+        sol = cls(
             pack(alphas), pack(betas), pack(a_lv), pack(c_lv), pack(d_lv),
             pack(masks_f, torch.bool), pack(masks_b, torch.bool), n,
             Tinv=Tinv, cut_stride=stride, bands=(dl, d0, du, dense_cutoff),
         )
+        if sol.alphas.is_cuda:
+            # The kernel's stacks now, with the set-up: built inside a captured
+            # solve (graphs.py), they would be rebuilt at every replay.
+            compact_stacks(sol)
+        return sol
 
     def transposed(self) -> "CyclicReductionSolver":
         """The solver of T^T, for the solve's backward: this solver itself
@@ -376,9 +381,9 @@ def level_offsets(N, levels):
 def compact_stacks(sol):
     """The kernel's coefficient stacks: only the active rows of each level,
     contiguous, level after level (``level_offsets``), as ``(alphas,
-    betas, a_lv, c_lv, d_lv)``.  Built at the first kernel solve and kept
-    on the solver; the plain version and the parity tests keep the full
-    stacks."""
+    betas, a_lv, c_lv, d_lv)``.  Built once and kept on the solver
+    (``from_tridiag`` builds them for a CUDA solver); the plain version and
+    the parity tests keep the full stacks."""
     if sol._compact is None:
         k = sol.alphas.shape[0]
 

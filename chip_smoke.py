@@ -841,7 +841,7 @@ def counting_syncs():
             tally[0] = len(seen)
             return tally[1]
 
-        def counted(step, flags, N, K, table=None):
+        def counted(step, flags, N, K, table=None, graph=None, **kw):
             def one_step():
                 before = syncs()
                 step()
@@ -852,7 +852,18 @@ def counting_syncs():
                 got["chunks"] += 1
                 return flags()
 
-            return run_chunks(one_step, read, N, K, table)
+            if graph is None:
+                return run_chunks(one_step, read, N, K, table, **kw)
+
+            def chunk(step_, flags_, K_):
+                # Replays run the K sub-steps without host code: count them.
+                got["chunks"] += 1
+                before = got["substeps"]
+                out = graph(step_, flags_, K_)
+                got["substeps"] = before + K_
+                return out
+
+            return run_chunks(one_step, flags, N, K, table, graph=chunk, **kw)
 
         engine._run_chunks = counted
         torch.cuda.set_sync_debug_mode("warn")

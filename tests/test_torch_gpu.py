@@ -563,7 +563,7 @@ def test_slice2_chunk_on_the_headline_reads_nothing_back(cuda, monkeypatch, laun
     syncs, reads = [], []
     run_chunks = engine_mod._run_chunks
 
-    def counted(step, flags, N, K_, table=None):
+    def counted(step, flags, N, K_, table=None, **kw):
         def one_step():
             with warnings.catch_warnings(record=True) as seen:
                 warnings.simplefilter("always")
@@ -578,7 +578,7 @@ def test_slice2_chunk_on_the_headline_reads_nothing_back(cuda, monkeypatch, laun
             reads.append(1)
             return flags()
 
-        return run_chunks(one_step, read, N, K_, table)
+        return run_chunks(one_step, read, N, K_, table, **kw)
 
     monkeypatch.setattr(engine_mod, "_run_chunks", counted)
     res = lasso(D, s, lam, ADMMConfig(maxiters=K, unroll=K, **kw), device=cuda, **extra)
@@ -704,11 +704,21 @@ _EIGH = {"covsel_eigh": ("obj", 1e-3), "sdp_dense_eigh": ("obj", 1e-3),
 
 def _chunk_syncs(monkeypatch, solve, K):
     """Run ``solve`` with the engine's chunks counted: the synchronising
-    calls of each sub-step and the reads of the stop flag."""
+    calls of each sub-step and the reads of the stop flag.  A sub-step
+    replayed from a captured graph runs no host code and makes none."""
     syncs, reads = [], []
     run_chunks = engine_mod._run_chunks
 
-    def counted(step, flags, N, K_, table=None):
+    def counted(step, flags, N, K_, table=None, graph=None, **kw):
+        if graph is not None:
+            def replayed(step_, flags_, K__):
+                before = len(syncs)
+                out = graph(step_, flags_, K__)
+                syncs.extend([0] * (K__ - (len(syncs) - before)))
+                return out
+
+            kw["graph"] = replayed
+
         def one_step():
             with warnings.catch_warnings(record=True) as seen:
                 warnings.simplefilter("always")
@@ -723,7 +733,7 @@ def _chunk_syncs(monkeypatch, solve, K):
             reads.append(1)
             return flags()
 
-        return run_chunks(one_step, read, N, K_, table)
+        return run_chunks(one_step, read, N, K_, table, **kw)
 
     monkeypatch.setattr(engine_mod, "_run_chunks", counted)
     return solve(), syncs, reads

@@ -62,12 +62,12 @@ def _traced(case, tmp_path, monkeypatch):
     reads = [0]
     run_chunks = engine._run_chunks
 
-    def counted(step, flags, N, K, table=None, lane_k=None):
+    def counted(step, flags, N, K, table=None, lane_k=None, graph=None):
         def read():
             reads[0] += 1
             return flags()
 
-        return run_chunks(step, read, N, K, table, lane_k)
+        return run_chunks(step, read, N, K, table, lane_k, graph)
 
     monkeypatch.setattr(engine, "_run_chunks", counted)
     with profiling.trace(str(tmp_path)):
@@ -88,16 +88,19 @@ CASES = ["lasso_fused", "lasso_generic", "tv", "path"]
 @pytest.mark.parametrize("case", CASES)
 def test_spans_count_and_order(case, tmp_path, monkeypatch):
     res, K, chunks, spans = _traced(case, tmp_path, monkeypatch)
-    assert set(spans) == {"setup", "prepare", "loop", "step", "step.xupdate", "step.tail",
-                          "result"}
+    assert set(spans) == {"setup", "prepare", "loop", "chunk", "step", "step.xupdate",
+                          "step.tail", "result"}
     (loop,) = spans["loop"]
     assert len(spans["prepare"]) == len(spans["result"]) == 1
     assert all(t1 <= loop[0] for _, t1 in spans["setup"] + spans["prepare"])
     assert all(t0 >= loop[1] for t0, _ in spans["result"])
     # One step span a sub-step issued: chunks of K until the longest
     # instance's stop (lanes frozen behind it run on).
-    assert chunks == math.ceil(max(_steps(res)) / K)
+    assert chunks == math.ceil(max(_steps(res)) / K) == len(spans["chunk"])
     assert len(spans["step"]) == chunks * K
+    assert all(loop[0] <= t0 and t1 <= loop[1] for t0, t1 in spans["chunk"])
+    for i, (t0, t1) in enumerate(spans["chunk"]):
+        assert all(t0 <= s0 and s1 <= t1 for s0, s1 in spans["step"][i * K:(i + 1) * K])
     assert all(loop[0] <= t0 and t1 <= loop[1] for t0, t1 in spans["step"])
     for phase in ("step.xupdate", "step.tail"):
         assert len(spans[phase]) == len(spans["step"])
