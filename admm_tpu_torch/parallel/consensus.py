@@ -75,6 +75,7 @@ from ..ops.matfun import covsel_ns_prox
 from ..ops.prox import covsel_eig_prox, soft_threshold
 from ..ops.solve import cho_factor, cho_solve
 from ..results import ADMMResults
+from ..utils.profiling import span
 from ._loop import gather_lanes, history, run_loop, traces
 from .mesh import Mesh, lane_shard_count, pad_rows, resolve_mesh, shard_count, shard_rows
 
@@ -100,24 +101,29 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
     sqn = math.sqrt(float(n))
 
     def step(c, bufs, data, frozen, slot, put):
+        # Local x-solves on the stacked (W, n) state; fast modes pull back
+        # the predictors v/uhat (engine x = pf(x, v, uhat, rho)).
+        with span("admm_tpu_torch.step.xupdate"):
+            if alg == 0:
+                xi = local_prox(c["z"], c["ui"], c["rho"], data)
+            else:
+                xi = local_prox(c["v"], c["uhat"], c["rho"], data)
+        with span("admm_tpu_torch.step.tail"):
+            return tail(c, bufs, data, frozen, slot, put, xi)
+
+    def tail(c, bufs, data, frozen, slot, put, xi):
+        """The rest of the step after the local solves ``xi``."""
         rho = c["rho"]
         rdtype = rho.dtype
         eps = torch.finfo(rdtype).eps
         rho0 = torch.full_like(rho, cfg.rho)  # setup-time rho captured inside H
         no = torch.zeros_like(c["done"])
-        k = c["k"]
-        i = k + 1  # the reference's 1-based counter
-        xi, z, ui = c["xi"], c["z"], c["ui"]
-        zprev = z
-
-        # Local x-solves on the stacked (W, n) state; fast modes pull back
-        # the predictors v/uhat (engine x = pf(x, v, uhat, rho)).
+        i = c["k"] + 1  # the reference's 1-based counter
+        zprev = c["z"]
         if alg == 0:
-            xi = local_prox(z, ui, rho, data)
-            u_base = ui
+            u_base = c["ui"]
         else:
-            ui_prev, uhat = ui, c["uhat"]
-            xi = local_prox(c["v"], uhat, rho, data)
+            ui_prev, uhat = c["ui"], c["uhat"]
             u_base = uhat
 
         # Over-relaxation on the per-slice constraint x_i - z = 0.
@@ -218,7 +224,7 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
             for name, val in rows.items():
                 bufs[name] = put(bufs[name], 0, slot, val.unsqueeze(0))
 
-        new.update(k=k + 1, xi=xi, z=z_next, ui=ui_next, xbar_prev=xbar, rho=rho_new,
+        new.update(k=c["k"] + 1, xi=xi, z=z_next, ui=ui_next, xbar_prev=xbar, rho=rho_new,
                    done=done, diverged=c["diverged"] | diverged_i,
                    stalled=c["stalled"] | stall_i)
         return new, bufs
@@ -341,32 +347,41 @@ def consensus_admm(
     rank runs its contiguous block of W/P shards: ``data``'s shard-axis
     leaves hold that block (``Mesh.take`` cuts it from the whole stack),
     ``xi0``/``ui0`` stay whole, and every rank gets the whole results.
+
+    Spans (``utils.profiling.span``): ``admm_tpu_torch.prepare`` up to the
+    device sync that opens the loop, the loop's own
+    (``engine._run_chunks``; each sub-step's local solves in
+    ``step.xupdate``, the rest in ``step.tail``) and
+    ``admm_tpu_torch.result`` around the result's assembly.
     """
-    mesh, device = resolve_mesh(mesh, device, data)
-    W = nshards if nshards is not None else mesh.size
-    data = _on_device(data, device)
-    rdtype = _data_dtype(data)
+    with span("admm_tpu_torch.prepare"):
+        mesh, device = resolve_mesh(mesh, device, data)
+        W = nshards if nshards is not None else mesh.size
+        data = _on_device(data, device)
+        rdtype = _data_dtype(data)
 
-    def init(v, shape):
-        if v is None:
-            return torch.zeros(shape, dtype=rdtype, device=device)
-        return as_tensor(v).to(device=device, dtype=rdtype)
+        def init(v, shape):
+            if v is None:
+                return torch.zeros(shape, dtype=rdtype, device=device)
+            return as_tensor(v).to(device=device, dtype=rdtype)
 
-    xi0, ui0, z0 = init(xi0, (W, n)), init(ui0, (W, n)), init(z0, (n,))
-    if tuple(xi0.shape) != (W, n) or tuple(ui0.shape) != (W, n):
-        raise ValueError(f"xi0/ui0 must have shape {(W, n)}; got {tuple(xi0.shape)}/"
-                         f"{tuple(ui0.shape)}")
-    if tuple(z0.shape) != (n,):
-        raise ValueError(f"z0 must have shape {(n,)}; got {tuple(z0.shape)}")
-    config = resolve_unroll(config, body)
+        xi0, ui0, z0 = init(xi0, (W, n)), init(ui0, (W, n)), init(z0, (n,))
+        if tuple(xi0.shape) != (W, n) or tuple(ui0.shape) != (W, n):
+            raise ValueError(f"xi0/ui0 must have shape {(W, n)}; got {tuple(xi0.shape)}/"
+                             f"{tuple(ui0.shape)}")
+        if tuple(z0.shape) != (n,):
+            raise ValueError(f"z0 must have shape {(n,)}; got {tuple(z0.shape)}")
+        config = resolve_unroll(config, body)
+        _sync(device)
 
-    _sync(device)
     t0 = time.perf_counter()
     out = _consensus_solve(local_prox, global_prox, config, W, n, data, xi0, ui0, z0,
                            mesh=mesh)
     _sync(device)
     runtime = time.perf_counter() - t0  # before from_raw's host reads
-    res = ADMMResults.from_raw({k: v for k, v in out.items() if k not in ("xi", "ui")}, config)
+    with span("admm_tpu_torch.result"):
+        res = ADMMResults.from_raw({k: v for k, v in out.items() if k not in ("xi", "ui")},
+                                   config)
     res.runtime = runtime
     res.extra.update(xi=out["xi"], ui=out["ui"], nshards=W, mesh=mesh)
     return res
@@ -425,23 +440,45 @@ def ls_setup(Di, Si, dynamic: bool, rho: float):
         return {"Minv": torch.cholesky_inverse(torch.linalg.cholesky(G)), "Dtsi": Dtsi}
 
 
-def _sharded_ls_setup(D, s, config, mesh, nshards, device):
-    """Shared consensus setup for least-squares local solves: resolve the
-    mesh and shard count, shard the rows (zero rows: exact no-ops for
-    D^T D and D^T s) and build the per-shard solve data.  Returns
-    ``(local_prox, data, n, mesh, W)``; callers add the penalty
-    parameters and pick the global prox."""
-    mesh, device = resolve_mesh(mesh, device, D, s)
-    W, mesh = shard_count(mesh, nshards)
+def _local_rows(D, s, mesh, nshards, device):
+    """``(Di, si, W, mesh)``: this rank's block of row shards, stacked
+    (W/P, m/W, n) and (W/P, m/W), from either form ``consensus_lasso``
+    takes.  A 2-D ``D`` (m, n) with ``s`` (m,) is the whole matrix: its
+    rows are zero-padded (exact no-ops for D^T D and D^T s), cut into W
+    shards, and the rank's block taken (``Mesh.take``).  A 3-D ``D`` is the
+    rank's own block already, ``s`` (W/P, m/W) beside it; W defaults to
+    W/P times the ranks (the block itself without a group)."""
     D = as_tensor(D).to(device)
     s = as_tensor(s).to(device=device, dtype=D.dtype)
-    n = D.shape[1]
-    # Over a process group each rank sets up its own block of shards.
-    Di = mesh.take(shard_rows(pad_rows(D, W)[0], W))
-    si = mesh.take(shard_rows(pad_rows(s, W)[0], W))
-    data = ls_setup(Di, si, config.dynamic_rho, float(config.rho))
+    if D.ndim == 2 and s.ndim == 1:
+        W, mesh = shard_count(mesh, nshards)
+        return (mesh.take(shard_rows(pad_rows(D, W)[0], W)),
+                mesh.take(shard_rows(pad_rows(s, W)[0], W)), W, mesh)
+    if D.ndim != 3 or s.ndim != 2 or tuple(s.shape) != tuple(D.shape[:2]):
+        raise ValueError(
+            f"D and s must be the whole matrix and signal, (m, n) and (m,), or this rank's "
+            f"block of row shards, (W/P, m/W, n) and (W/P, m/W); got {tuple(D.shape)} and "
+            f"{tuple(s.shape)}")
+    W, mesh = shard_count(mesh, D.shape[0] * mesh.world if nshards is None else nshards)
+    if W != D.shape[0] * mesh.world:
+        raise ValueError(
+            f"a block of {D.shape[0]} shards on each of {mesh.world} rank(s) is "
+            f"{D.shape[0] * mesh.world} shards, not nshards={W}")
+    return D, s, W, mesh
+
+
+def _sharded_ls_setup(D, s, config, mesh, nshards, device):
+    """Shared consensus setup for least-squares local solves: resolve the
+    mesh and shard count, take this rank's row shards (``_local_rows``)
+    and build the per-shard solve data, in one ``admm_tpu_torch.setup``
+    span.  Returns ``(local_prox, data, n, mesh, W)``; callers add the
+    penalty parameters and pick the global prox."""
+    with span("admm_tpu_torch.setup"):
+        mesh, device = resolve_mesh(mesh, device, D, s)
+        Di, si, W, mesh = _local_rows(D, s, mesh, nshards, device)
+        data = ls_setup(Di, si, config.dynamic_rho, float(config.rho))
     local = _lasso_local_prox_dynamic if config.dynamic_rho else _lasso_local_prox
-    return local, data, n, mesh, W
+    return local, data, Di.shape[-1], mesh, W
 
 
 def consensus_lasso(
@@ -462,7 +499,16 @@ def consensus_lasso(
     defaults to the mesh size; ``xi0``/``ui0``/``z0`` warm-start (resume)
     the sharded state (``consensus_admm``).  ``D`` and ``s`` are numpy
     arrays or tensors; the solve runs in D's dtype on ``device``, the
-    mesh's device, D's, or the CUDA device."""
+    mesh's device, D's, or the CUDA device.
+
+    ``D`` (m, n) and ``s`` (m,) are the whole problem, whose rows each rank
+    shards and cuts its block from.  Or, as in a deployment where each rank
+    loads only its own rows, ``D`` is this rank's block of W/P row shards
+    stacked (W/P, m/W, n) and ``s`` its (W/P, m/W) signal; ``nshards``
+    defaults to W/P times the ranks of the mesh's group (the block itself
+    without one).  Shards are taken in rank order: rank r's block is
+    shards r W/P to (r + 1) W/P - 1 of the whole, so the two forms of the
+    same rows give the same bits.  Any other shape raises ``ValueError``."""
     local_prox, data, n, mesh, W = _sharded_ls_setup(D, s, config, mesh, nshards, device)
     data["lam"] = torch.as_tensor(lam, dtype=data["Dtsi"].dtype, device=mesh.device)
     return consensus_admm(local_prox, _lasso_global_prox, data, n, config, mesh=mesh,
@@ -485,7 +531,8 @@ def consensus_elasticnet(
 ) -> ADMMResults:
     """Elastic net by consensus ADMM: the x-solves of ``consensus_lasso``,
     the elastic-net shrink-and-rescale as the global prox at threshold
-    lam*alpha/(rho W).  ``alpha=1`` recovers ``consensus_lasso`` exactly."""
+    lam*alpha/(rho W).  ``alpha=1`` recovers ``consensus_lasso`` exactly;
+    ``D`` and ``s`` take either of its forms."""
     if not 0.0 <= float(alpha) <= 1.0:
         raise ValueError(f"alpha must be in [0, 1], got {alpha}")
     local_prox, data, n, mesh, W = _sharded_ls_setup(D, s, config, mesh, nshards, device)

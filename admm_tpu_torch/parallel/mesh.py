@@ -35,7 +35,10 @@ layouts.  Without a group ``psum`` returns its arguments and ``pmean`` is
 ``torch.mean`` over dim 0, so a stacked solve computes what it computed
 before the group existed, bit for bit.  Each call counts, in
 ``Mesh.stats``, the collective it is (or, without a group, would be)
-and its payload bytes.
+and its payload bytes, and each collective issued over a group runs in
+an ``admm_tpu_torch.collective`` span (``utils.profiling.span``; on the
+card a collective's host call returns once NCCL's kernel is queued, and
+its wait for the slowest rank shows as that kernel's device time).
 
 The reference balances work with ``slicemaker`` (errorcheck.m:216-267):
 N rows over W workers, remainder spread over the first slices.  Stacked
@@ -54,6 +57,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import span
+
+# The span of every collective a mesh issues (``utils.profiling.span``).
+COLLECTIVE_SPAN = "admm_tpu_torch.collective"
 
 
 def _new_stats():
@@ -84,7 +91,8 @@ class _AllReduceSum(torch.autograd.Function):
         import torch.distributed as dist
 
         out = flat.clone()
-        dist.all_reduce(out, group=group)
+        with span(COLLECTIVE_SPAN):
+            dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
@@ -249,7 +257,8 @@ class Mesh:
 
         self._count("all_reduce", _payload(t))
         t = t.clone()
-        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+        with span(COLLECTIVE_SPAN):
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
         return t
 
     def _count(self, op: str, nbytes: int) -> None:
@@ -276,7 +285,8 @@ class Mesh:
         else:
             import torch.distributed as dist
 
-            dist.all_reduce(flat, group=self.group)
+            with span(COLLECTIVE_SPAN):
+                dist.all_reduce(flat, group=self.group)
         out, at = [], 0
         for p in parts:
             out.append(flat[at:at + p.numel()].reshape(p.shape))
@@ -322,7 +332,8 @@ class Mesh:
         # chip_smoke.py (z18b), torch 2.11): nothing is staged by hand.
         flat = torch.cat([b.reshape(-1).to(torch.float64) for b in blocks])
         parts = [torch.empty_like(flat) for _ in range(self.world)]
-        dist.all_gather(parts, flat, group=self.group)
+        with span(COLLECTIVE_SPAN):
+            dist.all_gather(parts, flat, group=self.group)
         out, at = [], 0
         for b in blocks:
             n = b.numel()
@@ -337,7 +348,8 @@ class Mesh:
             import torch.distributed as dist
 
             self._count("barrier", 0)
-            dist.barrier(group=self.group)
+            with span(COLLECTIVE_SPAN):
+                dist.barrier(group=self.group)
 
 
 def visible_devices(device) -> int:

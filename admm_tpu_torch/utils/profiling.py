@@ -8,17 +8,18 @@ that trace, and a steady-state solve-rate timer.
 
 The spans (``span``) mark the port's layers on the profiler's clock, the
 one CUPTI's device events use, as ``cpu_op`` events of the calling
-thread.  Seven names, all under ``admm_tpu_torch.``:
+thread.  The names, all under ``admm_tpu_torch.``:
 
   ``admm_tpu_torch.setup``         an entry's set-up, the x-update's
                                    factorisation (LASSO's Gram and solve;
                                    TV's tridiagonal system and its
-                                   cyclic-reduction precompute)
+                                   cyclic-reduction precompute; the
+                                   consensus entries' per-shard inverses)
   ``admm_tpu_torch.prepare``       an entry's work before its runner
                                    (``engine.admm``: shapes, operators,
                                    initial iterates; ``paths.solve_lanes``:
-                                   the runner) and the device sync that
-                                   opens the loop
+                                   the runner; ``parallel.consensus_admm``)
+                                   and the device sync that opens the loop
   ``admm_tpu_torch.loop``          the chunk loop (``engine._run_chunks``),
                                    first sub-step to last host read
   ``admm_tpu_torch.step``          one sub-step (once for all lanes)
@@ -27,7 +28,13 @@ thread.  Seven names, all under ``admm_tpu_torch.``:
                                    norms, stop, history, freeze select (on
                                    the fused LASSO, K1b's one launch)
   ``admm_tpu_torch.result``        the result's assembly and host reads
-                                   (``engine.admm``, the path's)
+                                   (``engine.admm``, the path's,
+                                   ``parallel.consensus_admm``)
+  ``admm_tpu_torch.collective``    each collective a ``parallel.mesh.Mesh``
+                                   issues over a process group
+
+and, in ``engine._run_chunks`` and ``graphs.ChunkGraph``, ``chunk``,
+``capture`` and ``replay``.
 
 In a ``trace()`` file the device is idle in a gap between kernels, and
 the innermost span over the gap says which layer of the host held it
