@@ -4,8 +4,9 @@ of ``admm_tpu/ops/tridiag.py``: ``CyclicReductionSolver``).
 The TV x-update solves the FIXED tridiagonal system (I + rho D^T D) x = b
 every iteration (getProxOps.m:1044-1048).  The elimination coefficients
 (alpha, beta, pivots) of every level are computed once at setup, in f64 on
-the host, exactly as ``admm_tpu`` computes them; each ``solve(b)`` runs
-only the b-phase over the system padded to N = 2^L - 1 with identity rows:
+the solve's device, with the bits of ``admm_tpu``'s NumPy precompute; each
+``solve(b)`` runs only the b-phase over the system padded to N = 2^L - 1
+with identity rows:
 
   forward, level l (stride s = 2^l):   active i (i mod 2s == 2s-1):
       b_i -= alpha^l_i b_{i-s} + beta^l_i b_{i+s}
@@ -47,14 +48,14 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-def _shift_up(v, s):
-    """v_{i-s} along the last axis, with zeros shifted in."""
-    return F.pad(v[..., : v.shape[-1] - s], (s, 0))
+def _shift_up(v, s, fill=0.0):
+    """v_{i-s} along the last axis, with ``fill`` shifted in."""
+    return F.pad(v[..., : v.shape[-1] - s], (s, 0), value=fill)
 
 
-def _shift_down(v, s):
-    """v_{i+s} along the last axis, with zeros shifted in."""
-    return F.pad(v[..., s:], (0, s))
+def _shift_down(v, s, fill=0.0):
+    """v_{i+s} along the last axis, with ``fill`` shifted in."""
+    return F.pad(v[..., s:], (0, s), value=fill)
 
 
 class CyclicReductionSolver:
@@ -69,6 +70,12 @@ class CyclicReductionSolver:
     dtype, cast once from the f64 precompute (f64 -> f32 rounds to
     nearest, as ``.astype`` does in ``admm_tpu``).
     """
+
+    # Calls of ``from_tridiag`` in this process whose recurrence ran on a
+    # CUDA device (every call does the whole precompute: nothing is kept
+    # across calls).  Callers reset it to 0 and read it back, as they do
+    # ``cr_solve.launches``; a CPU build never counts.
+    device_precomputes = 0
 
     def __init__(self, alphas, betas, a_lv, c_lv, d_lv, masks_f, masks_b, n,
                  Tinv=None, cut_stride=1, bands=None):
@@ -89,30 +96,39 @@ class CyclicReductionSolver:
     @classmethod
     def from_tridiag(cls, dl, d, du, dense_cutoff=None, *, device="cpu",
                      dtype=torch.float64) -> "CyclicReductionSolver":
-        """Precompute the elimination state on the host (NumPy f64, as
-        ``admm_tpu`` does) and store it on ``device`` in ``dtype``.
+        """Precompute the elimination state in f64 on ``device`` and store
+        it there in ``dtype``.
 
         ``dl[i] = T[i, i-1]`` (dl[0] unused), ``du[i] = T[i, i+1]``
         (du[-1] unused).  ``dense_cutoff``: stop the masked elimination
         once the reduced system is at most this size and finish it with a
         precomputed dense inverse.
+
+        The levels are ``admm_tpu``'s NumPy recurrence as separate torch
+        ops in the same order (no fused multiply-add), so every device
+        rounds them as NumPy does.  The dense inverse is NumPy's on the CPU,
+        where the JAX package's bits are the reference, and
+        ``torch.linalg.inv_ex`` elsewhere.  On a CUDA device nothing here
+        waits for the device.
         """
         dl = np.asarray(dl, np.float64)
         d0 = np.asarray(d, np.float64)
         du = np.asarray(du, np.float64)
+        device = torch.device(device)
         n = d0.shape[0]
         L = max(1, int(np.ceil(np.log2(n + 1))))
         N = 2**L - 1
 
-        a = np.zeros(N)
-        c = np.zeros(N)
-        dd = np.ones(N)          # identity padding rows
-        a[:n] = dl
-        a[0] = 0.0
-        c[:n] = du
-        c[n - 1] = 0.0
-        c[n:] = 0.0
-        dd[:n] = d0
+        # The bands go up in one copy, from pinned memory on a CUDA device so
+        # that the copy does not wait for the device, and are padded there:
+        # identity rows, a[0] = 0, c[n-1:] = 0.
+        bands = torch.from_numpy(np.stack((dl, d0, du)))
+        if device.type == "cuda":
+            bands = bands.pin_memory()
+        bands = bands.to(device, non_blocking=True)
+        a = F.pad(bands[0, 1:], (1, N - n))
+        c = F.pad(bands[2, : n - 1], (0, N - n + 1))
+        dd = F.pad(bands[1], (0, N - n), value=1.0)
 
         # Hybrid cut: number of masked levels before the dense tail.
         n_levels = L
@@ -125,58 +141,51 @@ class CyclicReductionSolver:
         alphas, betas = [], []
         a_lv, c_lv, d_lv = [], [], []
         masks_f, masks_b = [], []
-        idx = np.arange(N)
+        idx = torch.arange(N, device=device)
         for l in range(n_levels):
             s = 2**l
-            mf = (idx % (2 * s)) == (2 * s - 1)      # forward-active
-            mb = (idx % (2 * s)) == (s - 1)          # backsub-active
-            a_lv.append(a.copy())
-            c_lv.append(c.copy())
-            d_lv.append(dd.copy())
+            mf = idx % (2 * s) == 2 * s - 1      # forward-active
+            mb = idx % (2 * s) == s - 1          # backsub-active
+            a_lv.append(a)
+            c_lv.append(c)
+            d_lv.append(dd)
             masks_b.append(mb)
 
-            am = np.roll(dd, s); am[:s] = 1.0        # d_{i-s}
-            ap = np.roll(dd, -s); ap[-s:] = 1.0      # d_{i+s}
-            alpha = np.where(mf, a / am, 0.0)
-            beta = np.where(mf, c / ap, 0.0)
+            alpha = torch.where(mf, a / _shift_up(dd, s, 1.0), 0.0)
+            beta = torch.where(mf, c / _shift_down(dd, s, 1.0), 0.0)
             alphas.append(alpha)
             betas.append(beta)
             masks_f.append(mf)
 
-            a_up = np.roll(a, s); a_up[:s] = 0.0
-            c_up = np.roll(c, s); c_up[:s] = 0.0
-            a_dn = np.roll(a, -s); a_dn[-s:] = 0.0
-            c_dn = np.roll(c, -s); c_dn[-s:] = 0.0
-            dd = np.where(mf, dd - alpha * c_up - beta * a_dn, dd)
-            a_new = np.where(mf, -alpha * a_up, a)
-            c_new = np.where(mf, -beta * c_dn, c)
-            a, c = a_new, c_new
-
-        def put(arr, dt=dtype):
-            return torch.tensor(arr, dtype=dt, device=device)
+            dd = torch.where(mf, dd - alpha * _shift_up(c, s) - beta * _shift_down(a, s), dd)
+            a, c = (torch.where(mf, -alpha * _shift_up(a, s), a),
+                    torch.where(mf, -beta * _shift_down(c, s), c))
 
         Tinv, stride = None, 1
         if n_levels < L:
             # Dense inverse of the level-k reduced tridiagonal, which
             # lives on the stratum i = 2^k - 1 :: 2^k.
             stride = 2 ** n_levels
-            sl = slice(stride - 1, None, stride)
-            av, cv, dv = a[sl], c[sl], dd[sl]
-            M = dv.shape[0]
-            Tk = np.diag(dv)
-            if M > 1:
-                Tk += np.diag(av[1:], -1) + np.diag(cv[:-1], 1)
-            Tinv = put(np.linalg.inv(Tk))
+            av, cv, dv = (v[stride - 1 :: stride] for v in (a, c, dd))
+            Tk = torch.diag(dv) + torch.diag(av[1:], -1) + torch.diag(cv[:-1], 1)
+            if device.type == "cpu":
+                Tinv = torch.from_numpy(np.linalg.inv(Tk.numpy()))
+            else:
+                Tinv = torch.linalg.inv_ex(Tk).inverse  # no error check, no wait
+            Tinv = Tinv.to(dtype)
 
         def pack(arrs, dt=dtype):
-            return put(np.stack(arrs) if arrs else np.zeros((0, N)), dt)
+            if not arrs:
+                return torch.zeros((0, N), dtype=dt, device=device)
+            return torch.stack(arrs).to(dt)
 
         sol = cls(
             pack(alphas), pack(betas), pack(a_lv), pack(c_lv), pack(d_lv),
             pack(masks_f, torch.bool), pack(masks_b, torch.bool), n,
             Tinv=Tinv, cut_stride=stride, bands=(dl, d0, du, dense_cutoff),
         )
-        if sol.alphas.is_cuda:
+        if device.type == "cuda":
+            CyclicReductionSolver.device_precomputes += 1
             # The kernel's stacks now, with the set-up: built inside a captured
             # solve (graphs.py), they would be rebuilt at every replay.
             compact_stacks(sol)

@@ -1,7 +1,8 @@
 """The port on a CUDA device: the CUDA C++ z/u kernel in both its modes
 (K1, the z/u pass; K1b, the pass with the whole engine tail) and the
 cyclic-reduction, GEMV-pair and resident-LASSO kernels against their
-plain PyTorch versions, the LASSO, group-lasso and TV slices going
+plain PyTorch versions, the cyclic-reduction precompute built on the card
+against the CPU build, the LASSO, group-lasso and TV slices going
 through them, and the engine variants (slice 2): one chunk of each on the
 headline problem without a synchronising call inside its steps, and each
 against the same solve on the CPU; and the families of slices 3 and 4
@@ -51,7 +52,8 @@ from admm_tpu_torch.ops.gemv_pair import (
 from admm_tpu_torch.ops.kernels import (
     _fused_torch, _fused_zu_tail_torch, fused_soft_threshold_dual, fused_zu_tail)
 from admm_tpu_torch.ops.solve import FatShiftSolver
-from admm_tpu_torch.ops.tridiag import CyclicReductionSolver, _cr_solve_torch, cr_solve
+from admm_tpu_torch.ops.tridiag import (
+    CyclicReductionSolver, _cr_solve_torch, compact_stacks, cr_solve)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -372,6 +374,114 @@ def test_totalvariation_on_gpu_goes_through_the_kernel(cuda, cr_launches, n, sol
     # and the dense tail sum in other orders.
     np.testing.assert_allclose(res.xopt.cpu().numpy(), cpu.xopt.numpy(),
                                rtol=1e-9, atol=1e-10)
+
+
+@pytest.fixture
+def precomputes(monkeypatch):
+    monkeypatch.setattr(CyclicReductionSolver, "device_precomputes", 0)
+    return lambda: CyclicReductionSolver.device_precomputes
+
+
+_CR_STACKS = ("alphas", "betas", "a_lv", "c_lv", "d_lv", "masks_f", "masks_b")
+
+
+def _cr_bits(t):
+    return t.view({torch.float32: torch.int32, torch.float64: torch.int64}.get(t.dtype, t.dtype))
+
+
+def _moved_to(sol, device):
+    """A solver built on the CPU, its stacks copied to ``device``."""
+    moved = CyclicReductionSolver(
+        *(getattr(sol, name).to(device) for name in _CR_STACKS), sol.n,
+        Tinv=None if sol.Tinv is None else sol.Tinv.to(device), cut_stride=sol.cut_stride,
+        bands=sol._bands)
+    compact_stacks(moved)
+    return moved
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,cutoff", [
+    (65536, 1023),  # the TV cell: 7 masked levels, then a 1023-row inverse
+    (20000, 1023),
+    (5000, 63),
+    (300, 1023),    # no masked level: the inverse does it all
+    (4097, None),   # pure masked
+    (1000, None),
+    (1, None),
+])
+@pytest.mark.parametrize("system", [_tv_system, _random_system])
+def test_cr_precompute_on_the_card_equals_the_cpu_build(cuda, precomputes, dtype, n, cutoff,
+                                                        system):
+    # The levels are separate elementwise ops in NumPy's order on both
+    # devices, so they round alike: every stack, full and compacted, equal
+    # bit for bit.  The inverse is cuSOLVER's against NumPy's LAPACK.
+    args = system(n)
+    gpu = CyclicReductionSolver.from_tridiag(*args, dense_cutoff=cutoff, device=cuda,
+                                             dtype=dtype)
+    assert precomputes() == 1
+    cpu = CyclicReductionSolver.from_tridiag(*args, dense_cutoff=cutoff, dtype=dtype)
+    assert precomputes() == 1
+    for name in _CR_STACKS:
+        got, ref = getattr(gpu, name), getattr(cpu, name).to(cuda)
+        assert got.is_cuda and got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.equal(_cr_bits(got), _cr_bits(ref)), name
+    for got, ref in zip(compact_stacks(gpu), compact_stacks(cpu)):
+        assert got.is_cuda and torch.equal(_cr_bits(got), _cr_bits(ref.to(cuda)))
+    assert (gpu.n, gpu.cut_stride) == (cpu.n, cpu.cut_stride)
+    assert (gpu.Tinv is None) == (cpu.Tinv is None) == (cutoff is None)
+    if cutoff is not None:
+        assert gpu.Tinv.is_cuda and gpu.Tinv.dtype == dtype
+        ref = CyclicReductionSolver.from_tridiag(*args, dense_cutoff=cutoff).Tinv.to(cuda)
+        # f64 to 1e-13 of the largest entry; f32 one rounding more.
+        tol = 1e-13 if dtype == torch.float64 else 2.0**-23
+        torch.testing.assert_close(gpu.Tinv.double(), ref, rtol=tol,
+                                   atol=tol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("cutoff", [None, 1023])
+def test_cr_precompute_on_the_card_waits_for_nothing(cuda, precomputes, cutoff):
+    args = tv_system(65536, 1.0)
+    CyclicReductionSolver.from_tridiag(*args, dense_cutoff=cutoff, device=cuda)  # loads cuSOLVER
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sol = CyclicReductionSolver.from_tridiag(*args, dense_cutoff=cutoff, device=cuda,
+                                                 dtype=torch.float32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert precomputes() == 2
+    assert sol.alphas.is_cuda and (sol.Tinv is None) == (cutoff is None)
+
+
+def test_totalvariation_builds_its_solver_on_the_card_every_call(cuda, precomputes,
+                                                                  monkeypatch):
+    # The TV cell's shape: two calls precompute twice (nothing is kept
+    # across calls) and give the steps and iterates of a solver built on
+    # the CPU and moved to the card.
+    n = 65536
+    rng = np.random.default_rng(5)
+    sig = np.ones(n)
+    for lo, hi, step in ((n // 8, 7 * n // 8, 3.0), (n // 4, 3 * n // 4, 4.0),
+                         (3 * n // 8, 5 * n // 8, 2.0)):
+        sig[lo:hi] += step
+    sig = torch.from_numpy(sig + rng.standard_normal(n)).float().to(cuda)
+    cfg = ADMMConfig(maxiters=300)
+    runs = [totalvariation(sig, 5.0, cfg) for _ in range(2)]
+    assert precomputes() == 2
+    tv_mod = importlib.import_module("admm_tpu_torch.models.totalvariation")
+    build = CyclicReductionSolver.from_tridiag
+
+    class CPUBuilt:
+        @staticmethod
+        def from_tridiag(*args, device, dtype, **kw):
+            return _moved_to(build(*args, dtype=dtype, **kw), device)
+
+    monkeypatch.setattr(tv_mod, "CyclicReductionSolver", CPUBuilt)
+    ref = totalvariation(sig, 5.0, cfg)
+    assert precomputes() == 2
+    for res in runs:
+        assert res.steps == ref.steps
+        assert torch.equal(res.xopt, ref.xopt)
 
 
 @pytest.fixture

@@ -55,6 +55,26 @@ def test_from_tridiag_stacks_equal_jax(n, cutoff):
         np.testing.assert_array_equal(t.Tinv.numpy(), np.asarray(j.Tinv))
 
 
+@pytest.mark.parametrize("system", [_tv_system, lambda n: _random_system(n, n)])
+def test_from_tridiag_stacks_equal_jax_at_the_tv_cells_shape(system):
+    # 7 masked levels over 131,071 rows and a 1023-row inverse, as in
+    # tests above: torch's recurrence gives NumPy's bits at full length.
+    args = system(65536)
+    j = JaxCR.from_tridiag(*args, dense_cutoff=1023)
+    t = CyclicReductionSolver.from_tridiag(*args, dense_cutoff=1023)
+    for name in STACKS:
+        np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)))
+    np.testing.assert_array_equal(t.Tinv.numpy(), np.asarray(j.Tinv))
+
+
+def test_a_cpu_build_counts_no_device_precompute(monkeypatch):
+    monkeypatch.setattr(CyclicReductionSolver, "device_precomputes", 0)
+    for cutoff in (None, 63):
+        sol = CyclicReductionSolver.from_tridiag(*_tv_system(300), dense_cutoff=cutoff)
+        assert sol.alphas.device.type == "cpu" and sol._compact is None
+    assert CyclicReductionSolver.device_precomputes == 0
+
+
 def test_from_tridiag_stores_in_the_solve_dtype():
     args = _tv_system(300)
     t64 = CyclicReductionSolver.from_tridiag(*args, dense_cutoff=63)
