@@ -2,8 +2,10 @@
 
 ``admm_tpu`` compiles the whole solve into one ``lax.while_loop`` whose
 body runs K = ``config.unroll`` exact sub-steps.  Here the loop is a
-Python loop over chunks of K sub-steps that run eagerly on the solve's
-device:
+Python loop over chunks of K sub-steps that run on the solve's device,
+driven by ``run_steps`` for the generic step and for the consensus,
+transpose-reduction and exchange runners of ``parallel/`` alike: a runner
+hands it its x-update and its tail, and it owns the rest:
 
   * every sub-step computes ``frozen = done | (k >= N)`` on the device and
     selects the new state against it with ``torch.where``, and its
@@ -16,40 +18,42 @@ device:
   * rho is a 0-d device tensor, changed on the device by the adaptive
     modes, so nothing in a chunk waits on the host.
 
-The step runs every variant of ``admm_tpu``'s engine (engine.py:575-880):
-fast (alg 1) and accelerated (alg 2) ADMM with restart and d-values, the
-H-norm stop and ``convtest`` monitor, adaptive and residual-balancing rho,
-the stall detector, Anderson acceleration (``anderson.py``), the iterate
-records, relaxation, and the ``altu``, ``specialnorms``, ``preprocess``,
-``obj`` and ``fused_zu`` hooks, and ``parallel=`` sliced proxes
-(``parallel/sliced.py``).
+The generic step runs every variant of ``admm_tpu``'s engine
+(engine.py:575-880): fast (alg 1) and accelerated (alg 2) ADMM with
+restart and d-values, the H-norm stop and ``convtest`` monitor, adaptive
+and residual-balancing rho, the stall detector, Anderson acceleration
+(``anderson.py``), the iterate records, relaxation, and the ``altu``,
+``specialnorms``, ``preprocess``, ``obj`` and ``fused_zu`` hooks, and
+``parallel=`` sliced proxes (``parallel/sliced.py``).
 
 ``make_admm_runner`` is the functional core; with ``lanes=True`` it
 solves B independent instances as one program, the port's counterpart of
-``jax.vmap`` over ``admm_tpu``'s runner: the generic step runs under
-``torch.func.vmap`` with every buffer (history, iterate records,
-Anderson rings) a step input written out of place, every sub-step freezes
-the lanes that are done or at N steps, and the host reads one flag a
-chunk, whether every lane is frozen.
+``jax.vmap`` over ``admm_tpu``'s runner: ``run_steps`` runs the generic
+sub-step under ``torch.func.vmap`` with every buffer (history, iterate
+records, Anderson rings) a step input written out of place, every
+sub-step freezes the lanes that are done or at N steps, and the host
+reads one flag a chunk, whether every lane is frozen.
 
 When the ``fused_zu`` hook is the soft-threshold pass
 (``ops/kernels.soft_threshold_pass``, lasso's ``use_fused_kernel``) and
 the options ask for nothing beyond the standard stop, a step is ``prox_f``
 plus one ``ops/kernels.fused_zu_tail``: the z/u pass, norms, Boyd errors,
 flags, history write and freeze select in one launch of K1b on the card.
-That path keeps k, done and diverged in one int64 device tensor and
-updates its x, z and u in place: the engine copies x0, z0 and u0 once at
-the start, so a caller's tensors are never written.  Any option the tail
-does not compute (``_tail_computes``) takes the generic step, with the
-hook's z/u pass (K1's z/u mode) in place of ``prox_g``.
+That path keeps k, done and diverged in one int64 device tensor,
+freezes inside the kernel and updates its x, z and u in place: the engine
+copies x0, z0 and u0 once at the start, so a caller's tensors are never
+written.  It calls ``_run_chunks`` itself, without ``run_steps``.  Any
+option the tail does not compute (``_tail_computes``) takes the generic
+step, with the hook's z/u pass (K1's z/u mode) in place of ``prox_g``.
 
 On a CUDA device a solve whose step runs only callables and operators
 marked ``graphs.capture_safe`` (the package's LASSO and TV proxes), with
 ``quiet=True``, no Anderson window and nothing that autograd or
 ``torch.func`` follows, captures one sub-step as a CUDA graph and runs
 each chunk as K replays of it (``graphs.py``): the step then works on
-buffers the solve owns, and steps, histories and results are the eager
-chunk's.  Every other solve runs its chunks eagerly.
+buffers the solve owns (``run_steps`` clones them; K1b's are its own),
+and steps, histories and results are the eager chunk's.  Every other
+solve runs its chunks eagerly.
 """
 
 from __future__ import annotations
@@ -73,13 +77,13 @@ from .results import ADMMResults
 from .utils.profiling import span
 
 
-def _fro2(v):
+def fro2(v):
     """Squared Frobenius norm."""
     return torch.sum(v * v)
 
 
-def _fro(v):
-    return torch.sqrt(_fro2(v))
+def fro(v):
+    return torch.sqrt(fro2(v))
 
 
 class Constraint(NamedTuple):
@@ -104,31 +108,6 @@ class Hooks(NamedTuple):
     specialnorms: Optional[Callable] = None  # f(x,z,u,rho) -> (pnorm, dnorm)
     preprocess: Optional[Callable] = None   # run once host-side before solve
     fused_zu: Optional[Callable] = None     # (x, u, rho[, data]) -> (z, u)
-
-
-class _State(NamedTuple):
-    """The carry of the generic step (``admm_tpu``'s ``_Carry``); a field
-    an option does not use is None."""
-
-    k: torch.Tensor         # int64: completed iterations
-    x: torch.Tensor
-    z: torch.Tensor
-    u: torch.Tensor
-    rho: torch.Tensor       # 0-d
-    v: Optional[torch.Tensor]      # fast/accelerated z-predictor
-    uhat: Optional[torch.Tensor]   # and u-predictor
-    a: Optional[torch.Tensor]      # momentum
-    d: Optional[torch.Tensor]      # accelerated d-value
-    wz: Optional[torch.Tensor]     # previous w's z-part
-    wu: Optional[torch.Tensor]     # and (rho*u)-part
-    Hprev: Optional[torch.Tensor]  # previous H-norm^2
-    best_p: Optional[torch.Tensor]  # stall detector: best pnorm
-    since: Optional[torch.Tensor]   # and steps without progress
-    acnt: Optional[torch.Tensor]    # Anderson: window count
-    abest: Optional[torch.Tensor]   # and best residual norm^2
-    done: torch.Tensor      # bool
-    diverged: torch.Tensor  # bool
-    stalled: torch.Tensor   # bool
 
 
 def fast_update(alg: int, cfg: ADMMConfig, *, aprev, dprev, z, zprev, u,
@@ -192,7 +171,7 @@ def residual_balance_factor(cfg: ADMMConfig, *, pnorm, dnorm, done, dtype):
     return torch.where(done, one, factor)
 
 
-def _sync(device):
+def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -317,11 +296,11 @@ def admm(
             # Hooks follow the data convention (trailing data arg when given).
             hooks.preprocess(data) if data is not None else hooks.preprocess()
 
-        _sync(device)
+        sync(device)
     t0 = time.perf_counter()
     with matmul_precision(config.matmul_precision):
         raw = _run(prox_f, prox_g, config, hooks, data, x0, z0, u0, c_arr, A, B)
-    _sync(device)
+    sync(device)
     runtime = time.perf_counter() - t0
     with span("admm_tpu_torch.result"):
         res = ADMMResults.from_raw(raw, config, x0=x0, z0=z0, u0=u0)
@@ -348,8 +327,8 @@ def make_admm_runner(prox_f, prox_g, config: ADMMConfig, A, B, hooks: Hooks = Ho
     runner: x0, z0, u0 and c carry a leading axis of B independent lanes,
     as do the keys of ``data`` named in ``mapped`` (the others are shared
     by every lane), and every output carries the lane axis.  The lanes run
-    in one program (``torch.func.vmap`` over the sub-step), each with its
-    own steps, stop flags, rho and histories; a lane that is done keeps
+    in one program (``run_steps``: ``torch.func.vmap`` over the sub-step),
+    each with its own steps, stop flags, rho and histories; a lane that is done keeps
     its values while the others run on.  ``quiet=False`` prints the rows
     ``admm_tpu``'s vmapped table prints (``_run_chunks``).
     ``hooks.fused_zu`` does not run on lanes and raises
@@ -424,14 +403,106 @@ def _bound(fn, d):
     return lambda *a: fn(*a, d)
 
 
-def _put_in_place(buf, dim, slot, val):
-    return buf.index_copy_(dim, slot, val)
+def history(names, N, lead, dtype, device):
+    """The scalar-trace buffer behind the ``lead`` (lane) axes: one row
+    per name, N columns and the spare column N that frozen sub-steps write
+    to."""
+    return torch.full(tuple(lead) + (len(names), N + 1), float("nan"), dtype=dtype,
+                      device=device)
 
 
-def _put_new(buf, dim, slot, val):
-    # Under vmap: in-place index_copy_ has no batching rule there and would
-    # run lane by lane; the out-of-place form batches.
-    return buf.index_copy(dim, slot, val)
+def traces(names, bufs, N, lanes=False):
+    """The ``hist`` dict of a result: each scalar trace and each other
+    buffer but the Anderson rings, cut to N."""
+    hist = bufs["hist"]
+    out = {name: hist[..., i, :N] for i, name in enumerate(names)}
+    out.update({name: buf[:, :N] if lanes else buf[:N] for name, buf in bufs.items()
+                if name not in ("hist", "aF", "aT")})
+    return out
+
+
+def run_steps(xupdate, tail, state, bufs, data, N, K, *, data_dims=None, agree=None,
+              table=False, kind=None):
+    """Run a solve in chunks of K freeze-masked sub-steps until done or N
+    steps (``_run_chunks``); returns the final ``(state, bufs)``.  The
+    engine's generic step and the consensus, transpose-reduction and
+    exchange runners all run here.
+
+    ``state`` is a dict of tensors holding at least ``k`` (int64, the steps
+    taken) and ``done``; ``bufs`` a dict of buffers (history and the like).
+    A sub-step is ``x = xupdate(s, data)`` in the ``step.xupdate`` span,
+    then in the ``step.tail`` span the freeze mask, ``tail(s, bufs, data,
+    x, frozen, slot, put) -> (new, bufs)`` and the select.  ``new`` holds
+    every key of ``s``.  ``tail`` writes a buffer with ``put(buf, dim,
+    slot, rows)``: in place on one instance, out of place under vmap.
+    With K > 1 or lanes, ``frozen = done | k >= N``: a frozen sub-step's
+    ``slot`` (a 1-element int64 index) is the spare slot N past the end and
+    ``torch.where(frozen, old, new)`` keeps its state, so results, steps
+    and histories equal K = 1's (``admm_tpu``'s ``unrolled_body``).
+    Otherwise ``frozen`` is None and ``slot`` is k: one instance at K = 1
+    has the host check k and done before every sub-step.
+
+    With ``data_dims`` (``data``'s in-dims: 0 for a leaf stacked over
+    lanes, None for a shared one) the state and buffers carry a leading
+    lane axis, the sub-step runs under ``torch.func.vmap`` and the lanes
+    run until every one is frozen.  ``agree`` (lanes whose shards span
+    ranks: ``Mesh.all_min``) takes the chunk's flags to their minimum over
+    every rank, so that all ranks leave the loop after the same chunk.
+    ``table`` prints ``quiet=False``'s table from the history's first four
+    rows.  With ``kind`` (``graphs.ChunkGraph.kind``; never with
+    ``table``) each chunk is K replays of a CUDA graph of one sub-step,
+    which starts from clones of the state and buffers that the solve owns
+    and ends by copying its result back into them."""
+    lanes = data_dims is not None
+    freeze = K > 1 or lanes
+    # Under vmap the in-place index_copy_ has no batching rule and would run
+    # lane by lane; the out-of-place form batches.
+    put = torch.Tensor.index_copy if lanes else torch.Tensor.index_copy_
+    device = state["k"].device
+    spare = torch.tensor(N, dtype=torch.int64, device=device)
+
+    def sub(s, b, d):
+        with span("admm_tpu_torch.step.xupdate"):
+            x = xupdate(s, d)
+        with span("admm_tpu_torch.step.tail"):
+            frozen = (s["done"] | (s["k"] >= N)) if freeze else None
+            slot = (s["k"] if frozen is None else torch.where(frozen, spare, s["k"])).reshape(1)
+            new, b = tail(s, dict(b), d, x, frozen, slot, put)
+            if frozen is not None:
+                new = {key: torch.where(frozen, old, new[key]) for key, old in s.items()}
+        return new, b
+
+    if lanes:
+        run = torch.func.vmap(sub, in_dims=(0, 0, data_dims))
+
+        def flags():
+            s = cur[0]
+            f = torch.stack((s["k"].min(), (s["done"] | (s["k"] >= N)).all().long()))
+            return f if agree is None else agree(f)
+    else:
+        run = sub
+        flags = lambda: torch.stack((cur[0]["k"], cur[0]["done"].long()))  # noqa: E731
+    cur = [state, bufs]
+
+    def one():
+        cur[0], cur[1] = run(cur[0], cur[1], data)
+
+    graph = None
+    if kind is not None:
+        cur[:] = owned = [{key: t.clone() for key, t in part.items()} for part in cur]
+
+        def commit():
+            # Each output is a new tensor or its own buffer (the in-place
+            # writes of one instance).
+            pairs = [(mine[key], t) for mine, part in zip(owned, cur)
+                     for key, t in part.items() if t is not mine[key]]
+            torch._foreach_copy_([b for b, _ in pairs], [t for _, t in pairs])
+            cur[:] = owned
+
+        graph = graphs.ChunkGraph(device, kind, commit)
+    _run_chunks(one, flags, N, K, (lambda: cur[1]["hist"]) if table else None,
+                lane_k=(lambda: cur[0]["k"]) if lanes and table else None, graph=graph)
+    return cur
 
 
 def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
@@ -465,9 +536,6 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
     use_aa = cfg.anderson > 0
     record = cfg.record_iterates
     device, rdtype = x0.device, x0.dtype
-    # Lanes freeze at every sub-step: they finish at different steps.
-    freeze = K > 1 or lanes
-    put = _put_new if lanes else _put_in_place
 
     # Fused z+dual path applies only to the plain splitting (admm_tpu
     # engine.py:519-522).
@@ -476,25 +544,22 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
 
     rho0 = torch.tensor(cfg.rho, dtype=rdtype, device=device)
     eps = torch.finfo(rdtype).eps
-    lane_fro = torch.func.vmap(_fro) if lanes else _fro
+    lane_fro = torch.func.vmap(fro) if lanes else fro
     cnorm = lane_fro(c)
     # Static element counts M1/M2 for Boyd errors (admm.m:644-645).
     perr_abs = math.sqrt(float(c[0].numel() if lanes else c.numel())) * cfg.abstol
     nan = torch.tensor(float("nan"), dtype=rdtype, device=device)
-    n_spare = torch.tensor(N, dtype=torch.int64, device=device)
     no = torch.zeros((), dtype=torch.bool, device=device)
     scalar = lambda v: torch.as_tensor(v, dtype=rdtype, device=device)
     sizes = [sum(v[0].numel() if lanes else v.numel() for v in (x0, z0, u0))]
 
-    # Scalar traces, one row each; column N is the spare slot that frozen
-    # sub-steps write to (sliced off at the end).  Traces of other shapes:
+    # Scalar traces, one row each (``history``).  Traces of other shapes:
     # the int restart flags and the iterate records, leading axis N + 1
     # with the same spare slot.  Every buffer carries the lane axis first.
     names = (["pnorm", "dnorm", "perr", "derr"] + (["objvals"] if record_obj else [])
              + (["Hnormsq"] if needs_h else []) + (["dvals"] if alg == 2 else [])
              + (["avals"] if alg else []))
-    bufs = {"hist": torch.full(lead + (len(names), N + 1), float("nan"), dtype=rdtype,
-                               device=device)}
+    bufs = {"hist": history(names, N, lead, rdtype, device)}
     if alg == 2:
         bufs["restarted"] = torch.zeros(lead + (N + 1,), dtype=torch.int32, device=device)
     if record:
@@ -507,189 +572,184 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
     if use_aa:
         bufs["aF"], bufs["aT"] = window.rings(lead)
 
-    def step(s: _State, bufs: dict, c, cnorm, d) -> tuple:
-        """One sub-step: the state and the buffers after it.  Pure but for
-        the buffers' writes, which are in place on one instance and new
-        tensors under vmap (``put``)."""
-        pf, pg, obj_fn, altu_fn, norms_fn, fused_fn = (
-            _bound(h, d) for h in (prox_f, prox_g, hooks.obj, hooks.altu,
-                                   hooks.specialnorms, hooks.fused_zu))
-        k, rho = s.k, s.rho
-        i = k + 1  # the reference's 1-based iteration counter
-        x, z, u = s.x, s.z, s.u
+    # The generic step, in ``run_steps``'s form: ``data`` there is
+    # (c, cnorm, the solve's data), which the lanes carry too.
+    def xupdate(s, d):
+        """The x-update (admm.m:501-511)."""
+        pf = _bound(prox_f, d[2])
+        if alg == 0:
+            return pf(s["x"], s["z"], s["u"], s["rho"])
+        return pf(s["x"], s["v"], s["uhat"], s["rho"])
+
+    def tail(s, bufs, d, x, frozen, slot, put):
+        """The rest of a sub-step: the state and the buffers after it.
+        Pure but for the buffers' writes (``put``)."""
+        c, cnorm, d = d
+        pg, obj_fn, altu_fn, norms_fn, fused_fn = (
+            _bound(h, d) for h in (prox_g, hooks.obj, hooks.altu, hooks.specialnorms,
+                                   hooks.fused_zu))
+        k, rho = s["k"], s["rho"]
+        # The reference's 1-based iteration counter, which only the H-norm
+        # machinery (its stop, convtest, adaptive rho) and the d-value stop
+        # read.
+        i = k + 1 if needs_h or alg == 2 else None
+        z, u = s["z"], s["u"]
         zprev = z
-        bufs = dict(bufs)
+        if alg == 0:
+            uhat = u
+        else:
+            uprev, uhat = u, s["uhat"]
 
-        # ---- x-update (admm.m:501-511) --------------------------------
-        with span("admm_tpu_torch.step.xupdate"):
-            if alg == 0:
-                x = pf(x, z, u, rho)
-                uhat = u
-            else:
-                uprev, uhat = u, s.uhat
-                x = pf(x, s.v, uhat, rho)
+        # ---- relaxation + z-update (admm.m:515-532) -------------------
+        Ax_for_g = x
+        Axhat = None
+        if use_relax:
+            Axhat = relax * A.mv(x) - (1.0 - relax) * (B.mv(zprev) - c)
+            Ax_for_g = Axhat
+        if use_fused:
+            z, u_fused = fused_fn(x, u, rho)
+        else:
+            z = pg(Ax_for_g, z, u if alg == 0 else uhat, rho)
 
-        with span("admm_tpu_torch.step.tail"):
-            # frozen gates this sub-step; one instance at K = 1 has the host
-            # check k and done before every step, so nothing is ever frozen
-            # and no select runs.
-            frozen = (s.done | (s.k >= N)) if freeze else None
-            # ---- relaxation + z-update (admm.m:515-532) -------------------
-            Ax_for_g = x
-            Axhat = None
-            if use_relax:
-                Axhat = relax * A.mv(x) - (1.0 - relax) * (B.mv(zprev) - c)
-                Ax_for_g = Axhat
-            if use_fused:
-                z, u_fused = fused_fn(x, u, rho)
-            else:
-                z = pg(Ax_for_g, z, u if alg == 0 else uhat, rho)
+        Ax = A.mv(x)
+        Bz = B.mv(z)
+        Axr = Axhat if use_relax else Ax
 
-            Ax = A.mv(x)
-            Bz = B.mv(z)
-            Axr = Axhat if use_relax else Ax
+        # ---- dual update (admm.m:538-560) -----------------------------
+        if use_fused:
+            u = u_fused
+        elif altu_fn is not None:
+            u = altu_fn(u, Axr, Bz, c)
+        else:
+            u = (u if alg == 0 else uhat) + (Axr + Bz - c)
 
-            # ---- dual update (admm.m:538-560) -----------------------------
-            if use_fused:
-                u = u_fused
-            elif altu_fn is not None:
-                u = altu_fn(u, Axr, Bz, c)
-            else:
-                u = (u if alg == 0 else uhat) + (Axr + Bz - c)
+        # ---- fast / accelerated updates (admm.m:563-600) --------------
+        v_new, uhat_new, a_new, d_new = (s.get(key) for key in ("v", "uhat", "a", "d"))
+        restarted_i = None
+        if alg:
+            dval = ((1.0 / rho) * fro2(u - uhat) + rho * fro2(B.mv(z - s["v"]))
+                    if alg == 2 else None)
+            v_new, uhat_new, a_new, d2, r2 = fast_update(
+                alg, cfg, aprev=s["a"], dprev=s.get("d"), z=z, zprev=zprev, u=u, uprev=uprev,
+                v=s["v"], dval=dval)
+            if alg == 2:
+                d_new, restarted_i = d2, r2
 
-            # ---- fast / accelerated updates (admm.m:563-600) --------------
-            v_new, uhat_new, a_new, d_new, restarted_i = s.v, s.uhat, s.a, s.d, None
-            if alg:
-                dval = ((1.0 / rho) * _fro2(u - uhat) + rho * _fro2(B.mv(z - s.v))
-                        if alg == 2 else None)
-                v_new, uhat_new, a_new, d2, r2 = fast_update(
-                    alg, cfg, aprev=s.a, dprev=s.d, z=z, zprev=zprev, u=u, uprev=uprev,
-                    v=s.v, dval=dval)
-                if alg == 2:
-                    d_new, restarted_i = d2, r2
-
-            # ---- norms (admm.m:612-637) -----------------------------------
-            if norms_fn is not None:
-                pnorm, dnorm = (scalar(v) for v in norms_fn(x, z, u, rho))
-            else:
-                pnorm = _fro(Ax + Bz - c)
-                if cfg.nodualerror:
-                    dnorm = nan
-                elif alg == 1:
-                    dnorm = rho * _fro(A.rmv(B.mv(z - v_new)))
-                else:  # alg 0 (and alg 2, recorded for observability)
-                    dnorm = _fro(rho * A.rmv(B.mv(z - zprev)))
-
-            # ---- Boyd errors (admm.m:639-658) -----------------------------
-            M2 = float(Bz.numel())
-            perr = perr_abs + cfg.reltol * torch.maximum(
-                torch.maximum(_fro(Ax), _fro(Bz)), cnorm)
+        # ---- norms (admm.m:612-637) -----------------------------------
+        if norms_fn is not None:
+            pnorm, dnorm = (scalar(v) for v in norms_fn(x, z, u, rho))
+        else:
+            pnorm = fro(Ax + Bz - c)
             if cfg.nodualerror:
-                derr = nan
-            else:
-                derr = math.sqrt(M2) * cfg.abstol + cfg.reltol * _fro(rho * A.rmv(u))
+                dnorm = nan
+            elif alg == 1:
+                dnorm = rho * fro(A.rmv(B.mv(z - v_new)))
+            else:  # alg 0 (and alg 2, recorded for observability)
+                dnorm = fro(rho * A.rmv(B.mv(z - zprev)))
 
-            # ---- H-norm / divergence monitor (admm.m:676-703) -------------
-            diverged_i = ~torch.isfinite(pnorm) if cfg.nanguard else no
-            Hsq = wz_new = wu_new = None
-            if needs_h:
-                wz_new, wu_new = z, rho * u
-                # H uses the setup-time rho (MATLAB closure capture,
-                # admm.m:305-306), while w itself carries the current rho.
-                Hsq = rho0 * _fro2(B.mv(s.wz - wz_new)) + rho0 * _fro2(s.wu - wu_new)
-                if cfg.convtest and alg == 0:
-                    H1, H2 = s.Hprev, Hsq
-                    diverged_i = diverged_i | (
-                        (i >= 2) & (H1 > eps) & (H2 > H1) & ((H2 - H1) > H1 * cfg.convtol))
+        # ---- Boyd errors (admm.m:639-658) -----------------------------
+        M2 = float(Bz.numel())
+        perr = perr_abs + cfg.reltol * torch.maximum(
+            torch.maximum(fro(Ax), fro(Bz)), cnorm)
+        if cfg.nodualerror:
+            derr = nan
+        else:
+            derr = math.sqrt(M2) * cfg.abstol + cfg.reltol * fro(rho * A.rmv(u))
 
-            # ---- plateau detector (ADMMConfig.stallwindow) ----------------
-            stall_i = no
-            best_new = since_new = None
-            if use_stall:
-                # A NaN pnorm never counts as progress (the comparison is
-                # False), so a NaN plateau also trips the window.
-                improved = pnorm < s.best_p * (1.0 - cfg.stalltol)
-                best_new = torch.minimum(s.best_p, pnorm)
-                since_new = torch.where(improved, 0, s.since + 1)
-                stall_i = since_new >= cfg.stallwindow
+        # ---- H-norm / divergence monitor (admm.m:676-703) -------------
+        diverged_i = ~torch.isfinite(pnorm) if cfg.nanguard else no
+        Hsq = wz_new = wu_new = None
+        if needs_h:
+            wz_new, wu_new = z, rho * u
+            # H uses the setup-time rho (MATLAB closure capture,
+            # admm.m:305-306), while w itself carries the current rho.
+            Hsq = rho0 * fro2(B.mv(s["wz"] - wz_new)) + rho0 * fro2(s["wu"] - wu_new)
+            if cfg.convtest and alg == 0:
+                H1, H2 = s["Hprev"], Hsq
+                diverged_i = diverged_i | (
+                    (i >= 2) & (H1 > eps) & (H2 > H1) & ((H2 - H1) > H1 * cfg.convtol))
 
-            # ---- stopping (admm.m:705-722) --------------------------------
-            stop = no
-            if alg == 2:
-                # Not gated on domaxiters: the reference's accelerated d-value
-                # stop ignores it (admm.m:706-707).
-                stop = (i >= 2) & (torch.abs(d_new - s.d) <= cfg.dvaltol * s.d)
-            elif std_stop and not cfg.domaxiters:
-                stop = pnorm < perr
-                if not cfg.nodualerror:
-                    stop = stop & (dnorm < derr)
-            if h_stop and not cfg.domaxiters:
-                stop = stop | ((i > 2) & (Hsq <= cfg.hnormtol))
-            done = stop | diverged_i | stall_i
+        # ---- plateau detector (ADMMConfig.stallwindow) ----------------
+        stall_i = no
+        best_new = since_new = None
+        if use_stall:
+            # A NaN pnorm never counts as progress (the comparison is
+            # False), so a NaN plateau also trips the window.
+            improved = pnorm < s["best_p"] * (1.0 - cfg.stalltol)
+            best_new = torch.minimum(s["best_p"], pnorm)
+            since_new = torch.where(improved, 0, s["since"] + 1)
+            stall_i = since_new >= cfg.stallwindow
 
-            # ---- adaptive rho (admm.m:724-741) ----------------------------
-            rho_new = rho
-            if cfg.adaptive and cfg.convtest:
-                rho_new = adaptive_rho_update(cfg, Hprev=s.Hprev, Hsq=Hsq, rho=rho, i=i,
-                                              done=done, eps=eps)
-            elif cfg.rbadaptive and alg == 0:
-                # Residual balancing with the scaled-dual rescale u * rho/rho_new.
-                factor = residual_balance_factor(cfg, pnorm=pnorm, dnorm=dnorm, done=done,
-                                                 dtype=rdtype)
-                rho_new = rho * factor
-                u = u / factor
+        # ---- stopping (admm.m:705-722) --------------------------------
+        stop = no
+        if alg == 2:
+            # Not gated on domaxiters: the reference's accelerated d-value
+            # stop ignores it (admm.m:706-707).
+            stop = (i >= 2) & (torch.abs(d_new - s["d"]) <= cfg.dvaltol * s["d"])
+        elif std_stop and not cfg.domaxiters:
+            stop = pnorm < perr
+            if not cfg.nodualerror:
+                stop = stop & (dnorm < derr)
+        if h_stop and not cfg.domaxiters:
+            stop = stop | ((i > 2) & (Hsq <= cfg.hnormtol))
+        done = stop | diverged_i | stall_i
 
-            # ---- Anderson acceleration (anderson.py) ----------------------
-            # The plain sweep above is the map T(s); the candidate replaces
-            # only the next step's start, after the rbadaptive rescale.
-            # Residuals, stop and history stay those of the plain sweep.
-            x_next, z_next, u_next = x, z, u
-            acnt_new = abest_new = None
-            if use_aa:
-                flat = lambda a, b, c_: torch.cat((a.reshape(-1), b.reshape(-1), c_.reshape(-1)))
-                (s_next,), acnt_new, abest_new, bufs["aF"], bufs["aT"] = window.step(
-                    [flat(s.x, s.z, s.u)], [flat(x, z, u)], s.acnt, s.abest,
-                    bufs["aF"], bufs["aT"], done=done, frozen=frozen, put=put)
-                nx, nz = x.numel(), z.numel()
-                x_next = s_next[:nx].reshape(x.shape)
-                z_next = s_next[nx:nx + nz].reshape(z.shape)
-                u_next = s_next[nx + nz:].reshape(u.shape)
+        # ---- adaptive rho (admm.m:724-741) ----------------------------
+        rho_new = rho
+        if cfg.adaptive and cfg.convtest:
+            rho_new = adaptive_rho_update(cfg, Hprev=s["Hprev"], Hsq=Hsq, rho=rho, i=i,
+                                          done=done, eps=eps)
+        elif cfg.rbadaptive and alg == 0:
+            # Residual balancing with the scaled-dual rescale u * rho/rho_new.
+            factor = residual_balance_factor(cfg, pnorm=pnorm, dnorm=dnorm, done=done,
+                                             dtype=rdtype)
+            rho_new = rho * factor
+            u = u / factor
 
-            # ---- history and iterate records (admm.m:596-610) -------------
-            slot = (k if frozen is None else torch.where(frozen, n_spare, k)).reshape(1)
-            vals = ([pnorm, dnorm, perr, derr] + ([obj_fn(x, z)] if record_obj else [])
-                    + ([Hsq] if needs_h else []) + ([d_new] if alg == 2 else [])
-                    + ([a_new] if alg else []))
-            bufs["hist"] = put(bufs["hist"], 1, slot, torch.stack(vals).reshape(-1, 1))
-            if alg == 2:
-                bufs["restarted"] = put(bufs["restarted"], 0, slot, restarted_i.reshape(1))
-            if record:
-                # Under rbadaptive u was rescaled above and rho_new*u keeps the
-                # scaled-dual product rho*u_pre; elsewhere w carries the
-                # current rho (adaptation comes after recording, admm.m:724).
-                w_rho = rho_new if cfg.rbadaptive else rho
-                rows = {"xvals": x, "zvals": z, "uvals": u,
-                        "wvals": torch.cat((x.reshape(-1), z.reshape(-1), (w_rho * u).reshape(-1)))}
-                if alg:
-                    rows.update(vvals=v_new, uhatvals=uhat_new)
-                for name, val in rows.items():
-                    bufs[name] = put(bufs[name], 0, slot, val.unsqueeze(0))
+        # ---- Anderson acceleration (anderson.py) ----------------------
+        # The plain sweep above is the map T(s); the candidate replaces
+        # only the next step's start, after the rbadaptive rescale.
+        # Residuals, stop and history stay those of the plain sweep.
+        x_next, z_next, u_next = x, z, u
+        acnt_new = abest_new = None
+        if use_aa:
+            flat = lambda a, b, c_: torch.cat((a.reshape(-1), b.reshape(-1), c_.reshape(-1)))
+            (s_next,), acnt_new, abest_new, bufs["aF"], bufs["aT"] = window.step(
+                [flat(s["x"], s["z"], s["u"])], [flat(x, z, u)], s["acnt"], s["abest"],
+                bufs["aF"], bufs["aT"], done=done, frozen=frozen, put=put)
+            nx, nz = x.numel(), z.numel()
+            x_next = s_next[:nx].reshape(x.shape)
+            z_next = s_next[nx:nx + nz].reshape(z.shape)
+            u_next = s_next[nx + nz:].reshape(u.shape)
 
-            new = _State(
-                k=k + 1, x=x_next, z=z_next, u=u_next, rho=rho_new,
-                v=v_new, uhat=uhat_new, a=a_new, d=d_new,
-                wz=wz_new, wu=wu_new, Hprev=Hsq,
-                best_p=best_new, since=since_new, acnt=acnt_new, abest=abest_new,
-                done=done, diverged=s.diverged | diverged_i, stalled=s.stalled | stall_i,
-            )
-            if frozen is None:
-                return new, bufs
-            return _State(*(None if b is None else torch.where(frozen, a, b)
-                            for a, b in zip(s, new))), bufs
+        # ---- history and iterate records (admm.m:596-610) -------------
+        vals = ([pnorm, dnorm, perr, derr] + ([obj_fn(x, z)] if record_obj else [])
+                + ([Hsq] if needs_h else []) + ([d_new] if alg == 2 else [])
+                + ([a_new] if alg else []))
+        bufs["hist"] = put(bufs["hist"], 1, slot, torch.stack(vals).reshape(-1, 1))
+        if alg == 2:
+            bufs["restarted"] = put(bufs["restarted"], 0, slot, restarted_i.reshape(1))
+        if record:
+            # Under rbadaptive u was rescaled above and rho_new*u keeps the
+            # scaled-dual product rho*u_pre; elsewhere w carries the
+            # current rho (adaptation comes after recording, admm.m:724).
+            w_rho = rho_new if cfg.rbadaptive else rho
+            rows = {"xvals": x, "zvals": z, "uvals": u,
+                    "wvals": torch.cat((x.reshape(-1), z.reshape(-1), (w_rho * u).reshape(-1)))}
+            if alg:
+                rows.update(vvals=v_new, uhatvals=uhat_new)
+            for name, val in rows.items():
+                bufs[name] = put(bufs[name], 0, slot, val.unsqueeze(0))
 
-    hist = bufs["hist"]
+        return _present(
+            k=k + 1, x=x_next, z=z_next, u=u_next, rho=rho_new,
+            v=v_new, uhat=uhat_new, a=a_new, d=d_new,
+            wz=wz_new, wu=wu_new, Hprev=Hsq,
+            best_p=best_new, since=since_new, acnt=acnt_new, abest=abest_new,
+            done=done, diverged=s["diverged"] | diverged_i, stalled=s["stalled"] | stall_i,
+        ), bufs
+
     lam_of = getattr(hooks.fused_zu, "soft_threshold_lam", None) if use_fused else None
-    table = None if cfg.quiet else (lambda: hist)
     # The callables a sub-step runs.  The chunks run as replays of a CUDA
     # graph of one sub-step (graphs.py) when the device takes one, nothing
     # but the flags is read between chunks, each callable and operator is
@@ -698,17 +758,20 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
     fns = tuple(f for f in (prox_f, hooks.fused_zu if use_fused else prox_g, hooks.altu,
                             hooks.specialnorms, hooks.obj if record_obj else None)
                 if f is not None)
-    capture = (graphs.available(device) and table is None and not use_aa
+    capture = (graphs.available(device) and cfg.quiet and not use_aa
                and all(graphs.is_capture_safe(f) for f in fns + (type(A), type(B)))
                and not _followed(data, x0, z0, u0, c, A, B))
     kind = (lanes,) + fns
     if lam_of is not None and _tail_computes(cfg, hooks):
-        # The soft-threshold pass: the whole tail in one fused_zu_tail.
+        # The soft-threshold pass: the whole tail in one fused_zu_tail,
+        # its freeze select included.
         obj_fn = _bound(hooks.obj, data)
         lam = lam_of(data)
         pf = _bound(prox_f, data)
+        hist = bufs["hist"]
         x, z, u = x0.clone(), z0.clone(), u0.clone()  # updated in place
         st = torch.zeros(3, dtype=torch.int64, device=device)  # k, done, diverged
+        n_spare = torch.tensor(N, dtype=torch.int64, device=device)
         tail_kw = dict(perr_abs=perr_abs, derr_abs=math.sqrt(float(z.numel())) * cfg.abstol,
                        reltol=cfg.reltol, domaxiters=cfg.domaxiters,
                        nodualerror=cfg.nodualerror, nanguard=cfg.nanguard,
@@ -726,13 +789,13 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
                     # and then the write goes to the spare slot.
                     hist[4].index_copy_(0, slot.reshape(1), obj_fn(x, z).reshape(1))
 
-        _run_chunks(tail_step, lambda: st[:2], N, K, table,
+        _run_chunks(tail_step, lambda: st[:2], N, K, None if cfg.quiet else (lambda: hist),
                     graph=graphs.ChunkGraph(device, kind) if capture else None)
         steps, rho, diverged, stalled = st[0], rho0, st[2] != 0, no
     else:
         full = lambda v: torch.full(lead, v, dtype=rdtype, device=device)
         acnt, abest = window.initial(lead) if use_aa else (None, None)
-        s = _State(
+        state = _present(
             k=torch.zeros(lead, dtype=torch.int64, device=device),
             x=x0, z=z0, u=u0, rho=full(cfg.rho),
             v=z0 if alg else None, uhat=u0 if alg else None,
@@ -747,51 +810,13 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
             diverged=torch.zeros(lead, dtype=torch.bool, device=device),
             stalled=torch.zeros(lead, dtype=torch.bool, device=device),
         )
-        if lanes:
-            sdims = _State(*(None if v is None else 0 for v in s))
-            run_step = torch.func.vmap(step, in_dims=(sdims, 0, 0, 0,
-                                                      None if data is None else data_dims),
-                                       out_dims=(sdims, 0))
-            flags = lambda: torch.stack((cur[0].k.min(),
-                                         (cur[0].done | (cur[0].k >= N)).all().long()))
-        else:
-            run_step = step
-            flags = lambda: torch.stack((cur[0].k, cur[0].done.long()))
-        cur = [s, bufs]
+        dims = (0, 0, None if data is None else data_dims) if lanes else None
+        s, bufs = run_steps(xupdate, tail, state, bufs, (c, cnorm, data), N, K,
+                            data_dims=dims, table=not cfg.quiet,
+                            kind=kind if capture else None)
+        steps, x, z, u, rho, diverged, stalled = (
+            s[key] for key in ("k", "x", "z", "u", "rho", "diverged", "stalled"))
 
-        def generic_step():
-            cur[0], cur[1] = run_step(cur[0], cur[1], c, cnorm, data)
-
-        graph = None
-        if capture:
-            # The captured sub-step starts from buffers of the solve's own
-            # and ends by copying its state and buffers back into them.
-            leaves, spec = pytree.tree_flatten(cur)
-            fixed = [None if t is None else t.clone() for t in leaves]
-            cur[:] = owned = pytree.tree_unflatten(fixed, spec)
-
-            def commit():
-                # Each output is a new tensor or its own buffer (the in-place
-                # writes of one instance).
-                pairs = [(b, t) for b, t in zip(fixed, pytree.tree_leaves(cur))
-                         if t is not None and t is not b]
-                torch._foreach_copy_([b for b, _ in pairs], [t for _, t in pairs])
-                cur[:] = owned
-
-            graph = graphs.ChunkGraph(device, kind, commit)
-        if lanes and table is not None:
-            # The lanes write their history out of place: read the current one.
-            _run_chunks(generic_step, flags, N, K, lambda: cur[1]["hist"],
-                        lane_k=lambda: cur[0].k)
-        else:
-            _run_chunks(generic_step, flags, N, K, table, graph=graph)
-        s, bufs = cur
-        steps, x, z, u, rho, diverged, stalled = s.k, s.x, s.z, s.u, s.rho, s.diverged, s.stalled
-
-    hist = bufs["hist"]
-    traces = {name: hist[..., i, :N] for i, name in enumerate(names)}
-    traces.update({name: buf[:, :N] if lanes else buf[:N]
-                   for name, buf in bufs.items() if name not in ("hist", "aF", "aT")})
     if hooks.obj is None:
         objopt = None
     elif lanes:
@@ -807,9 +832,14 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         "rho_final": rho,
         "diverged": diverged,
         "stalled": stalled,
-        "hist": traces,
+        "hist": traces(names, bufs, N, lanes),
         "objopt": objopt,
     }
+
+
+def _present(**state):
+    """The generic step's state: the fields that the options use."""
+    return {key: val for key, val in state.items() if val is not None}
 
 
 def _followed(data, *objs) -> bool:

@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from ..engine import _sync
+from ..engine import sync
 from ..ops.gemv_pair import aligned_rows, gemv_pair
 
 SHAPE = (1500, 5000)  # (m, n) of the fat-LASSO headline
@@ -55,11 +55,11 @@ def probe(device="cuda", smoke=False, K=K, calls=CALLS):
     for name, dtype in (("gemv pair f32", torch.float32), ("gemv pair bf16", torch.bfloat16)):
         b, E, Dt = make_operands(m, n, device, dtype)
         x = gemv_pair(b, E, Dt, K)
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         for _ in range(calls):
             x = gemv_pair(b, E, Dt, K)
-        _sync(device)
+        sync(device)
         dt = time.perf_counter() - t0
         iters = K * calls
         rows.append({"name": name, "us_per_iter": dt / iters * 1e6,

@@ -26,7 +26,7 @@ import torch
 
 from ..benchmarks.headline import make_problem
 from ..config import ADMMConfig, matmul_precision
-from ..engine import _sync
+from ..engine import sync
 from ..models.lasso import make_prox_ops
 from ..ops.gemv_pair import aligned_rows, resident_lasso
 
@@ -84,7 +84,7 @@ def run(device="cuda", smoke=False, K=K, calls=CALLS):
     z = torch.zeros(n, dtype=torch.float32, device=device)
     u = torch.zeros_like(z)
     hist = resident_lasso(z, u, *args)
-    _sync(device)
+    sync(device)
     z_np, u_np, hist_np = numpy_reference(op, K)
 
     def err(a, ref):
@@ -94,11 +94,11 @@ def run(device="cuda", smoke=False, K=K, calls=CALLS):
            "pn2_err": abs(float(hist[K - 1, 0]) - hist_np[-1, 0]) / (hist_np[-1, 0] + 1e-30)}
     zc, uc = torch.zeros_like(z), torch.zeros_like(u)
     resident_lasso(zc, uc, *args)  # warm-up of the chain
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     for _ in range(calls):
         resident_lasso(zc, uc, *args)
-    _sync(device)
+    sync(device)
     dt = time.perf_counter() - t0
     out.update(us_per_iter=dt / (K * calls) * 1e6, iters_per_sec=K * calls / dt)
     return out

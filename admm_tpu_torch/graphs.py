@@ -12,9 +12,10 @@ mask and the history slot live on the device), so one captured sub-step
 stands for each of them; capturing one and not K keeps the capture's cost,
 paid once a solve while the device waits, to one sub-step's host work.
 
-  * The graph advances buffers the solve owns: the engine clones the
-    step's state into them before the first chunk, and the captured
-    sub-step ends by copying its new state back into them (``commit``).
+  * The graph advances buffers the solve owns: the chunk loop
+    (``engine.run_steps``) clones the step's state into them before the
+    first chunk, and the captured sub-step ends by copying its new state
+    back into them (``commit``).
     The host computes the chunk's flags from them after the last replay;
     a chunk of one sub-step has them computed in its graph instead, into a
     buffer of their own, so that it too is one launch.

@@ -21,7 +21,7 @@ import torch
 
 from ..config import ADMMConfig, matmul_precision
 from ..device import resolve_device
-from ..engine import Hooks, _sync, make_admm_runner
+from ..engine import Hooks, sync, make_admm_runner
 from ..utils.profiling import span
 from ._common import as_tensor, merge_config
 
@@ -66,10 +66,10 @@ def solve_lanes(prox_f, prox_g, obj, config, mapped, data, x0, z0, u0, c, A, B):
         run = make_admm_runner(prox_f, prox_g, config, A, B, Hooks(obj=obj), has_data=True,
                                lanes=True, mapped=mapped)
         device = x0.device
-        _sync(device)
+        sync(device)
     t0 = time.perf_counter()
     out = run(x0, z0, u0, c, data)
-    _sync(device)
+    sync(device)
     return out, time.perf_counter() - t0
 
 

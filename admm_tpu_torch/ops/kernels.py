@@ -127,14 +127,14 @@ def soft_threshold_pass(lam_of):
 
 
 def _fro(v):
-    """``engine._fro``: the squared sum's square root."""
+    """``engine.fro``: the squared sum's square root."""
     return torch.sqrt(torch.sum(v * v))
 
 
 def _fused_zu_tail_torch(x_new, x, z, u, lam, rho, state, hist, *, perr_abs, derr_abs,
                          reltol, domaxiters, nodualerror, nanguard):
-    """Plain version: the engine's generic tail (``engine._run``'s ``step``
-    after ``prox_f``) for A = I, B = -I, c = 0 with ``_fused_torch``, op for
+    """Plain version: the engine's generic tail (``engine._run``'s ``tail``
+    and ``engine.run_steps``'s freeze select) for A = I, B = -I, c = 0 with ``_fused_torch``, op for
     op, so it equals that tail bit for bit.  There ``Ax + Bz - c`` is
     ``x_new + (-z') - 0``, which is ``x_new - z'``; ``rho A^T B (z' - z)``
     is ``-(rho (z' - z))``; ``max(., ||c||)`` with ``||c|| = 0`` leaves a

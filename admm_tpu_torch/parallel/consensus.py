@@ -50,7 +50,7 @@ lanes each rank stacks every shard of its lanes and its steps issue no
 collective; with a lane row over several ranks each holds its block of
 the row's shards, the means and sums run over the row's subgroup (one
 collective for all the row's lanes under vmap), and each chunk's flags
-over the whole group.  The loop is ``_loop.run_loop``: chunks
+over the whole group.  The loop is ``engine.run_steps``: chunks
 of K sub-steps, one host read a chunk; over ranks every rank reads the
 same ``(k, done)``, which comes only from reduced values.  A per-shard
 local solve is a batched GEMV (``torch.einsum`` over the (W, n, n)
@@ -68,7 +68,8 @@ import torch
 
 from ..anderson import AndersonWindow
 from ..config import ADMMConfig, matmul_precision, resolve_unroll
-from ..engine import _fro2, _sync, adaptive_rho_update, fast_update, residual_balance_factor
+from ..engine import (adaptive_rho_update, fast_update, fro2, history, residual_balance_factor,
+                      run_steps, sync, traces)
 from ..models._common import as_tensor
 from ..models.logreg import _softplus_neg
 from ..ops.matfun import covsel_ns_prox
@@ -76,7 +77,7 @@ from ..ops.prox import covsel_eig_prox, soft_threshold
 from ..ops.solve import cho_factor, cho_solve
 from ..results import ADMMResults
 from ..utils.profiling import span
-from ._loop import gather_lanes, history, run_loop, traces
+from ._loop import gather_lanes
 from .mesh import Mesh, lane_shard_count, pad_rows, resolve_mesh, shard_count, shard_rows
 
 
@@ -88,8 +89,8 @@ def _consensus_names(cfg):
 def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, window,
                          mesh: Mesh):
     """One consensus iteration (``admm_tpu``'s ``_make_consensus_run``
-    step) in ``_loop.run_loop``'s step form; ``W`` is the global shard
-    count and ``mesh`` reduces over the shard axis."""
+    step) as the ``(xupdate, tail)`` pair of ``engine.run_steps``; ``W``
+    is the global shard count and ``mesh`` reduces over the shard axis."""
     alg = cfg.alg
     relax = float(cfg.relax)
     use_relax = relax != 1.0
@@ -100,18 +101,14 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
     use_stall = cfg.use_stall
     sqn = math.sqrt(float(n))
 
-    def step(c, bufs, data, frozen, slot, put):
+    def xupdate(c, data):
         # Local x-solves on the stacked (W, n) state; fast modes pull back
         # the predictors v/uhat (engine x = pf(x, v, uhat, rho)).
-        with span("admm_tpu_torch.step.xupdate"):
-            if alg == 0:
-                xi = local_prox(c["z"], c["ui"], c["rho"], data)
-            else:
-                xi = local_prox(c["v"], c["uhat"], c["rho"], data)
-        with span("admm_tpu_torch.step.tail"):
-            return tail(c, bufs, data, frozen, slot, put, xi)
+        if alg == 0:
+            return local_prox(c["z"], c["ui"], c["rho"], data)
+        return local_prox(c["v"], c["uhat"], c["rho"], data)
 
-    def tail(c, bufs, data, frozen, slot, put, xi):
+    def tail(c, bufs, data, xi, frozen, slot, put):
         """The rest of the step after the local solves ``xi``."""
         rho = c["rho"]
         rdtype = rho.dtype
@@ -138,16 +135,16 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
 
         # The shard-axis sums of the residual (and the alg-2 d-value's
         # dual part) in one collective.
-        pnorm = _fro2(xi - xbar[None, :])
+        pnorm = fro2(xi - xbar[None, :])
         if alg == 2:
-            pnorm, du = mesh.psum(pnorm, _fro2(ui - uhat))
+            pnorm, du = mesh.psum(pnorm, fro2(ui - uhat))
         else:
             pnorm = mesh.psum(pnorm)
 
         new = {}
         if alg:
             # d on the stacked problem: B tiles z over W slices.
-            dval = ((1.0 / rho) * du + rho * W * _fro2(z - c["v"])
+            dval = ((1.0 / rho) * du + rho * W * fro2(z - c["v"])
                     if alg == 2 else None)
             v_new, uhat_new, a_new, d_new, restarted_i = fast_update(
                 alg, cfg, aprev=c["a"], dprev=c.get("d"), z=z, zprev=zprev, u=ui,
@@ -156,15 +153,15 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
             if alg == 2:
                 new["d"] = d_new
 
-        dnorm = W * rho**2 * _fro2(xbar - c["xbar_prev"])
-        perr = sqn * cfg.abstol + cfg.reltol * torch.maximum(torch.sqrt(_fro2(xbar)),
-                                                              torch.sqrt(_fro2(z)))
-        derr = sqn * cfg.abstol + cfg.reltol * rho * torch.sqrt(_fro2(ubar))
+        dnorm = W * rho**2 * fro2(xbar - c["xbar_prev"])
+        perr = sqn * cfg.abstol + cfg.reltol * torch.maximum(torch.sqrt(fro2(xbar)),
+                                                              torch.sqrt(fro2(z)))
+        derr = sqn * cfg.abstol + cfg.reltol * rho * torch.sqrt(fro2(ubar))
 
         diverged_i = ~torch.isfinite(pnorm) if cfg.nanguard else no
         if needs_h:
             wu_new = rho * ubar
-            Hsq = rho0 * _fro2(zprev - z) + rho0 * _fro2(c["wu_prev"] - wu_new)
+            Hsq = rho0 * fro2(zprev - z) + rho0 * fro2(c["wu_prev"] - wu_new)
             if cfg.convtest and alg == 0:
                 H1 = c["Hprev"]
                 diverged_i = diverged_i | ((i >= 2) & (H1 > eps) & (Hsq > H1)
@@ -229,7 +226,7 @@ def _make_consensus_step(local_prox, global_prox, cfg: ADMMConfig, W: int, n: in
                    stalled=c["stalled"] | stall_i)
         return new, bufs
 
-    return step
+    return xupdate, tail
 
 
 def _consensus_solve(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, data,
@@ -241,8 +238,8 @@ def _consensus_solve(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, d
     are that block) and ``xi``/``ui`` come back whole; with
     ``local_state`` xi0/ui0 are this rank's block already and the results
     stay so.  With ``data_dims`` the state carries a leading lane axis
-    (``_loop.run_loop``) and ``mesh`` takes its block of shards on dim 1
-    (lanes whose shards span ranks: ``agree``, as in ``run_loop``)."""
+    (``engine.run_steps``) and ``mesh`` takes its block of shards on dim 1
+    (lanes whose shards span ranks: ``agree``, as in ``run_steps``)."""
     mesh = Mesh((W,), ("shards",), z0.device) if mesh is None else mesh
     lead = tuple(z0.shape[:-1])
     rdtype, device = z0.dtype, z0.device
@@ -285,9 +282,10 @@ def _consensus_solve(local_prox, global_prox, cfg: ADMMConfig, W: int, n: int, d
         bufs["aF"], bufs["aT"] = window.rings(lead)
         s["acnt"], s["abest"] = window.initial(lead)
 
-    step = _make_consensus_step(local_prox, global_prox, cfg, W, n, window, mesh)
+    xupdate, tail = _make_consensus_step(local_prox, global_prox, cfg, W, n, window, mesh)
     with matmul_precision(cfg.matmul_precision):
-        s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll), data_dims, agree)
+        s, bufs = run_steps(xupdate, tail, s, bufs, data, N, int(cfg.unroll),
+                            data_dims=data_dims, agree=agree)
     xi, ui = s["xi"], s["ui"]
     if data_dims is None and not local_state:
         xi, ui = mesh.gather(xi, ui)
@@ -350,8 +348,8 @@ def consensus_admm(
 
     Spans (``utils.profiling.span``): ``admm_tpu_torch.prepare`` up to the
     device sync that opens the loop, the loop's own
-    (``engine._run_chunks``; each sub-step's local solves in
-    ``step.xupdate``, the rest in ``step.tail``) and
+    (``engine.run_steps``; each sub-step's local solves in
+    ``step.xupdate``, the rest and its freeze select in ``step.tail``) and
     ``admm_tpu_torch.result`` around the result's assembly.
     """
     with span("admm_tpu_torch.prepare"):
@@ -372,12 +370,12 @@ def consensus_admm(
         if tuple(z0.shape) != (n,):
             raise ValueError(f"z0 must have shape {(n,)}; got {tuple(z0.shape)}")
         config = resolve_unroll(config, body)
-        _sync(device)
+        sync(device)
 
     t0 = time.perf_counter()
     out = _consensus_solve(local_prox, global_prox, config, W, n, data, xi0, ui0, z0,
                            mesh=mesh)
-    _sync(device)
+    sync(device)
     runtime = time.perf_counter() - t0  # before from_raw's host reads
     with span("admm_tpu_torch.result"):
         res = ADMMResults.from_raw({k: v for k, v in out.items() if k not in ("xi", "ui")},
@@ -827,11 +825,11 @@ def _consensus_batch(local, global_prox, data, mapped, sharded, cfg, W, n, xi0, 
 
     data = {k: part(k, v) for k, v in data.items()}
     rows = lay.lanes
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     out = _consensus_solve(local, global_prox, cfg, W, n, data, xi0[rows], ui0[rows], z0[rows],
                            data_dims=dims, mesh=lay.inner, agree=lay.agree)
-    _sync(device)
+    sync(device)
     runtime = time.perf_counter() - t0
     out = gather_lanes(mesh, lay, out, sharded=("xi", "ui"))
     if lay.span > 1:

@@ -27,7 +27,7 @@ in ``admm_tpu``.  The lean alg-0/relax-1 path keeps z implicit.
 
 The W agents are dim 0 of (W, n) tensors on one device (``mesh.Mesh``),
 or each rank's block of them over a process group; the loop is
-``_loop.run_loop``.  A step issues two collectives through the mesh: the
+``engine.run_steps``.  A step issues two collectives through the mesh: the
 mean over the agents (n floats; with relaxation the relaxed mean rides in
 the same call), and the agents' sums of the residual norms (three
 scalars, one more under relaxation and one for the alg-2 d-value).  The
@@ -44,10 +44,10 @@ import torch
 
 from ..anderson import AndersonWindow
 from ..config import ADMMConfig, matmul_precision, resolve_unroll
-from ..engine import _fro, _fro2, _sync, fast_update, residual_balance_factor
+from ..engine import (fast_update, fro, fro2, history, residual_balance_factor, run_steps, sync,
+                      traces)
 from ..models._common import as_tensor
 from ..results import ADMMResults
-from ._loop import history, run_loop, traces
 from .consensus import _data_dtype, _on_device
 from .mesh import Mesh, resolve_mesh, shard_count
 
@@ -64,8 +64,9 @@ def _needs_z(cfg):
 
 
 def _make_exchange_step(local_prox, cfg: ADMMConfig, W: int, n: int, window, mesh: Mesh):
-    """One exchange iteration (``admm_tpu``'s ``_make_exchange_run`` step);
-    ``W`` is the global agent count and ``mesh`` reduces over the agents."""
+    """One exchange iteration (``admm_tpu``'s ``_make_exchange_run`` step)
+    as the ``(xupdate, tail)`` pair of ``engine.run_steps``; ``W`` is the
+    global agent count and ``mesh`` reduces over the agents."""
     alg = cfg.alg
     relax = float(cfg.relax)
     use_relax = relax != 1.0
@@ -74,20 +75,25 @@ def _make_exchange_step(local_prox, cfg: ADMMConfig, W: int, n: int, window, mes
     use_stall = cfg.use_stall
     sqW, sqWn = math.sqrt(float(W)), math.sqrt(float(W * n))
 
-    def step(c, bufs, data, frozen, slot, put):
+    def xupdate(c, data):
+        # The agents' proxes, and the z stack they start from (the lean
+        # path derives it).
+        zprev = c["z"] if needs_z else c["xi"] - c["xbar"][None, :]
+        if alg == 0:
+            return local_prox(zprev - c["u"][None, :], c["rho"], data), zprev
+        return local_prox(c["v"] - c["uhat"][None, :], c["rho"], data), zprev
+
+    def tail(c, bufs, data, x, frozen, slot, put):
+        xi_new, zprev = x
         rho = c["rho"]
         no = torch.zeros_like(c["done"])
         k = c["k"]
         i = k + 1
-        xi, u, xbar = c["xi"], c["u"], c["xbar"]
-        zprev = c["z"] if needs_z else xi - xbar[None, :]
-
+        u = c["u"]
         if alg == 0:
-            xi_new = local_prox(zprev - u[None, :], rho, data)
             u_base = u
         else:
             u_prev, uhat = u, c["uhat"]
-            xi_new = local_prox(c["v"] - uhat[None, :], rho, data)
             u_base = uhat
         if use_relax:
             xhat = relax * xi_new + (1.0 - relax) * zprev
@@ -107,13 +113,13 @@ def _make_exchange_step(local_prox, cfg: ADMMConfig, W: int, n: int, window, mes
             new.update(v=v_new, uhat=uhat_new, a=a_new)
 
         # The agents' sums of the norms in one collective.
-        parts = [_fro2(z_new - (v_new if alg == 1 else zprev)), _fro2(xi_new), _fro2(z_new)]
+        parts = [fro2(z_new - (v_new if alg == 1 else zprev)), fro2(xi_new), fro2(z_new)]
         if use_relax:
-            parts.append(_fro2(xi_new - z_new))  # the UNRELAXED x, as the engine
+            parts.append(fro2(xi_new - z_new))  # the UNRELAXED x, as the engine
         if alg == 2:
             parts.append(torch.sum((z_new - c["v"]) ** 2))
         sums = mesh.psum(*parts)
-        pnorm = torch.sqrt(sums[3]) if use_relax else sqW * _fro(xbar_new)
+        pnorm = torch.sqrt(sums[3]) if use_relax else sqW * fro(xbar_new)
 
         if alg == 2:
             dval = (float(W) / rho) * torch.sum((u_new - uhat) ** 2) + rho * sums[-1]
@@ -125,7 +131,7 @@ def _make_exchange_step(local_prox, cfg: ADMMConfig, W: int, n: int, window, mes
         dnorm = rho * torch.sqrt(sums[0])
         perr = sqWn * cfg.abstol + cfg.reltol * torch.maximum(torch.sqrt(sums[1]),
                                                               torch.sqrt(sums[2]))
-        derr = sqWn * cfg.abstol + cfg.reltol * rho * sqW * _fro(u_new)
+        derr = sqWn * cfg.abstol + cfg.reltol * rho * sqW * fro(u_new)
 
         diverged_i = ~torch.isfinite(pnorm) if cfg.nanguard else no
         stall_i = no
@@ -173,7 +179,7 @@ def _make_exchange_step(local_prox, cfg: ADMMConfig, W: int, n: int, window, mes
             new["z"] = z_next
         return new, bufs
 
-    return step
+    return xupdate, tail
 
 
 def _exchange_solve(local_prox, cfg: ADMMConfig, W: int, n: int, data, xi0, u0,
@@ -214,9 +220,9 @@ def _exchange_solve(local_prox, cfg: ADMMConfig, W: int, n: int, data, xi0, u0,
         bufs["aF"], bufs["aT"] = window.rings()
         s["acnt"], s["abest"] = window.initial()
 
-    step = _make_exchange_step(local_prox, cfg, W, n, window, mesh)
+    xupdate, tail = _make_exchange_step(local_prox, cfg, W, n, window, mesh)
     with matmul_precision(cfg.matmul_precision):
-        s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll))
+        s, bufs = run_steps(xupdate, tail, s, bufs, data, N, int(cfg.unroll))
     if _needs_z(cfg):
         xi, z = mesh.gather(s["xi"], s["z"])
     else:
@@ -268,10 +274,10 @@ def exchange_admm(
         raise ValueError(f"u0 must have shape {(n,)}; got {tuple(u0.shape)}")
     config = resolve_unroll(config, "gemv")
 
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     out = _exchange_solve(local_prox, config, W, n, data, xi0, u0, mesh)
-    _sync(device)
+    sync(device)
     runtime = time.perf_counter() - t0
     res = ADMMResults.from_raw({k: v for k, v in out.items() if k != "xbar"}, config)
     res.runtime = runtime

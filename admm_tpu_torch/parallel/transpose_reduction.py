@@ -49,12 +49,13 @@ import torch
 
 from ..anderson import AndersonWindow
 from ..config import ADMMConfig, matmul_precision, resolve_unroll
-from ..engine import _fro2, _sync, adaptive_rho_update, fast_update, residual_balance_factor
+from ..engine import (adaptive_rho_update, fast_update, fro2, history, residual_balance_factor,
+                      run_steps, sync, traces)
 from ..models._common import as_tensor
 from ..models.unwrapped import random_start
 from ..ops.prox import hinge_prox, zero_one_prox
 from ..results import ADMMResults
-from ._loop import gather_lanes, history, run_loop, traces
+from ._loop import gather_lanes
 from .mesh import Mesh, lane_shard_count, pad_rows, resolve_mesh, shard_count, shard_rows
 
 
@@ -76,8 +77,9 @@ def _names(cfg):
 
 def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window, mesh: Mesh):
     """One unwrapped-ADMM iteration over the sharded state (``admm_tpu``'s
-    ``_make_unwrapped_run`` step): the engine's update order with A = D,
-    B = -I, c = 0 specialized per shard.  ``data`` holds ``Di``, ``Winv``,
+    ``_make_unwrapped_run`` step) as the ``(xupdate, tail)`` pair of
+    ``engine.run_steps``: the engine's update order with A = D, B = -I,
+    c = 0 specialized per shard.  ``data`` holds ``Di``, ``Winv``,
     ``mask`` and ``aux``; ``mesh`` sums over the shard axis."""
     alg = cfg.alg
     relax = float(cfg.relax)
@@ -90,8 +92,13 @@ def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window, mesh: Me
     sqm = math.sqrt(float(m))  # true row count: padding excluded from the error bar
     rho0 = float(cfg.rho)
 
-    def step(c, bufs, d, frozen, slot, put):
-        Di, Winv, mask, aux = d["Di"], d["Winv"], d["mask"], d["aux"]
+    def xupdate(c, d):
+        # Local matvec, sum over shards, replicated GEMV.
+        src = c["z"] - c["u"] if alg == 0 else c["v"] - c["uhat"]
+        return d["Winv"] @ mesh.psum(torch.einsum("wij,wi->j", d["Di"], src))
+
+    def tail(c, bufs, d, x, frozen, slot, put):
+        Di, mask, aux = d["Di"], d["mask"], d["aux"]
         rho = c["rho"]
         eps = torch.finfo(rho.dtype).eps
         no = torch.zeros_like(c["done"])
@@ -100,14 +107,11 @@ def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window, mesh: Me
         i = k + 1
         zi, ui = c["z"], c["u"]
         zprev = zi
-
-        # x-update: local matvec, sum over shards, replicated GEMV.
         if alg == 0:
-            src, u_base = zi - ui, ui
+            u_base = ui
         else:
             uprev, uhat = ui, c["uhat"]
-            src, u_base = c["v"] - uhat, uhat
-        x = Winv @ mesh.psum(torch.einsum("wij,wi->j", Di, src))
+            u_base = uhat
         Dx = torch.einsum("wij,j->wi", Di, x)
 
         # B = -I, c = 0: Axhat = relax*Dx - (1-relax)*(-zprev).
@@ -125,15 +129,15 @@ def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window, mesh: Me
         # Every shard-axis sum of the norms in one collective; the norms
         # are on the true residual D x - z (unrelaxed), as the engine's.
         r = (Dx - zi) * mask
-        parts = [_fro2(r), _fro2(Dx * mask), _fro2(zi)]
+        parts = [fro2(r), fro2(Dx * mask), fro2(zi)]
         if need_dual:
             dz = zi - (v_new if alg == 1 else zprev)
             parts += [torch.einsum("wij,wi->j", Di, dz), torch.einsum("wij,wi->j", Di, ui)]
         if alg == 2:
-            parts += [_fro2(ui - uhat), _fro2(zi - c["v"])]
+            parts += [fro2(ui - uhat), fro2(zi - c["v"])]
         if needs_h:
             wz_new, wu_new = zi, rho * ui
-            parts += [_fro2(c["wz"] - wz_new), _fro2(c["wu"] - wu_new)]
+            parts += [fro2(c["wz"] - wz_new), fro2(c["wu"] - wu_new)]
         sums = list(mesh.psum(*parts))
         r2, dx2, z2 = sums[:3]
         del sums[:3]
@@ -149,8 +153,8 @@ def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window, mesh: Me
         pnorm = torch.sqrt(r2)
         perr = sqm * cfg.abstol + cfg.reltol * torch.maximum(torch.sqrt(dx2), torch.sqrt(z2))
         if need_dual:
-            dnorm = rho * torch.sqrt(_fro2(sums[0]))
-            derr = sqm * cfg.abstol + cfg.reltol * rho * torch.sqrt(_fro2(sums[1]))
+            dnorm = rho * torch.sqrt(fro2(sums[0]))
+            derr = sqm * cfg.abstol + cfg.reltol * rho * torch.sqrt(fro2(sums[1]))
         else:
             dnorm = derr = nan
 
@@ -210,7 +214,7 @@ def _make_unwrapped_step(prox_g_shard, cfg: ADMMConfig, m: int, window, mesh: Me
                    diverged=c["diverged"] | diverged_i, stalled=c["stalled"] | stall_i)
         return new, bufs
 
-    return step
+    return xupdate, tail
 
 
 def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: int, data,
@@ -224,7 +228,7 @@ def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: in
     block).  Returns the raw result dict; with ``data_dims`` the state
     carries a leading lane axis, the shards are ``mesh``'s (the whole of
     them, or this rank's block over a lane row's subgroup) and ``agree``
-    is ``run_loop``'s."""
+    is ``engine.run_steps``'s."""
     mesh = Mesh((1,), ("shards",), x0.device) if mesh is None else mesh
     lead = tuple(x0.shape[:-1])
     rdtype, device = x0.dtype, x0.device
@@ -258,9 +262,10 @@ def _unwrapped_solve(prox_g_shard, obj_shard, obj_global, cfg: ADMMConfig, m: in
         bufs["aF"], bufs["aT"] = window.rings(lead)
         s["acnt"], s["abest"] = window.initial(lead)
 
-    step = _make_unwrapped_step(prox_g_shard, cfg, m, window, mesh)
+    xupdate, tail = _make_unwrapped_step(prox_g_shard, cfg, m, window, mesh)
     with matmul_precision(cfg.matmul_precision):
-        s, bufs = run_loop(step, s, bufs, data, N, int(cfg.unroll), data_dims, agree)
+        s, bufs = run_steps(xupdate, tail, s, bufs, data, N, int(cfg.unroll),
+                            data_dims=data_dims, agree=agree)
         objopt = None
         if obj_shard is not None or obj_global is not None:
             def objective(x, zi, d):
@@ -349,11 +354,11 @@ def unwrapped_admm_sharded(
     z0, u0 = take(row_state(z0, z_r, "z0")), take(row_state(u0, u_r, "u0"))
     config = resolve_unroll(config, "gemv")
 
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     out = _unwrapped_solve(prox_g_shard, obj_shard, obj_global, config, m, data, x0, z0, u0,
                            mesh=mesh)
-    _sync(device)
+    sync(device)
     runtime = time.perf_counter() - t0
     res = ADMMResults.from_raw(out, config)
     res.runtime = runtime
@@ -486,12 +491,12 @@ def svm_batch_sharded(
     aux = data["aux"]
     data = {"Di": Di[cols], "Winv": data["Winv"], "mask": data["mask"][cols],
             "aux": (aux[0][rows][:, cols], aux[1][cols], aux[2][cols])}
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     out = _unwrapped_solve(prox, obj, _svm_obj_global, cfg, m, data, x0[rows],
                            z0[rows][:, cols], u0[rows][:, cols], data_dims=dims,
                            mesh=lay.inner, agree=lay.agree)
-    _sync(device)
+    sync(device)
     runtime = time.perf_counter() - t0
     out = gather_lanes(mesh, lay, out, sharded=("zopt", "uopt"))
     return BatchResults(xopt=out["xopt"], zopt=out["zopt"], uopt=out["uopt"],

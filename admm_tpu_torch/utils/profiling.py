@@ -23,10 +23,13 @@ thread.  The names, all under ``admm_tpu_torch.``:
   ``admm_tpu_torch.loop``          the chunk loop (``engine._run_chunks``),
                                    first sub-step to last host read
   ``admm_tpu_torch.step``          one sub-step (once for all lanes)
-  ``admm_tpu_torch.step.xupdate``  the sub-step's x-update (``prox_f``)
-  ``admm_tpu_torch.step.tail``     the rest of the sub-step: z-update, dual,
-                                   norms, stop, history, freeze select (on
-                                   the fused LASSO, K1b's one launch)
+  ``admm_tpu_torch.step.xupdate``  the sub-step's x-update (``prox_f``; a
+                                   sharded runner's local solves)
+  ``admm_tpu_torch.step.tail``     the rest of the sub-step: freeze mask,
+                                   z-update, dual, norms, stop, history and
+                                   freeze select, in every runner of
+                                   ``engine.run_steps`` (on the fused LASSO,
+                                   K1b's one launch)
   ``admm_tpu_torch.result``        the result's assembly and host reads
                                    (``engine.admm``, the path's,
                                    ``parallel.consensus_admm``)

@@ -6,8 +6,9 @@ each sub-step, commit and flags eagerly (as each replay of the captured
 sub-step would), a solve that captures records one graph and
 gives the eager solve's steps, histories and iterates bit for bit; a CPU
 solve, a user's prox, the quiet=False table, Anderson's window, a solve
-that autograd or a ``torch.func`` transform follows, the sharded loop
-(``parallel/_loop``) and an eigh-prox family record none.
+that autograd or a ``torch.func`` transform follows, a sharded runner
+(consensus, eager on ``engine.run_steps``) and an eigh-prox family
+record none.
 
 On a CUDA device (``gpu``, skipped without one): the captured chunk
 against the eager one on the benchmark's solves (the fused LASSO at

@@ -2,9 +2,10 @@
 ``torch.profiler`` trace of whole solves on the CPU: one loop span a
 solve, after its set-up and its one preparation span and before its one
 result span; one step span a sub-step issued (chunks x K, once for all
-lanes), each holding one x-update and one tail span; results bit for bit
-those of a solve with no profiler running; and nothing recorded without
-one."""
+lanes), each holding one x-update and one tail span, in the engine's
+solves and in the consensus, transpose-reduction and exchange runners on
+a stacked mesh alike; results bit for bit those of a solve with no
+profiler running; and nothing recorded without one."""
 
 import json
 import math
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from admm_tpu_torch import ADMMConfig, engine, lasso, lasso_path, totalvariation
+from admm_tpu_torch.parallel import consensus_lasso, exchange_quadratic, linearsvm_sharded
 from admm_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -46,6 +48,18 @@ def _solve(case):
     if case == "tv":
         return totalvariation(_signal(), 5.0, ADMMConfig(maxiters=40, unroll=4),
                               device="cpu"), 4
+    sharded = ADMMConfig(maxiters=60, unroll=4)
+    if case == "consensus":
+        D, s, lam = _fat_lasso()
+        return consensus_lasso(D[:28], s[:28], lam, sharded, nshards=4, device="cpu"), 4
+    rng = np.random.default_rng(5)
+    if case == "exchange":
+        return exchange_quadratic(rng.standard_normal((4, 10, 6)), rng.standard_normal((4, 10)),
+                                  sharded, device="cpu"), 4
+    if case == "transpose_reduction":
+        D = rng.standard_normal((40, 5))
+        ell = np.sign(D @ rng.standard_normal(5) + 0.3 * rng.standard_normal(40))
+        return linearsvm_sharded(D, ell, 1.0, sharded, nshards=4, device="cpu"), 4
     D, s, lam = _fat_lasso()
     lams = lam * np.array([4.0, 1.0, 0.25])
     return lasso_path(D, s, lams, ADMMConfig(maxiters=300, unroll=2), device="cpu"), 2
@@ -83,6 +97,7 @@ def _traced(case, tmp_path, monkeypatch):
 
 
 CASES = ["lasso_fused", "lasso_generic", "tv", "path"]
+SHARDED = ["consensus", "transpose_reduction", "exchange"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -110,7 +125,22 @@ def test_spans_count_and_order(case, tmp_path, monkeypatch):
         assert x1 <= t0
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", SHARDED)
+def test_sharded_runners_record_a_step_span_a_substep(case, tmp_path, monkeypatch):
+    # The sharded runners run on the engine's loop: one step span a
+    # sub-step issued, holding one x-update span and, after it, one tail.
+    res, K, chunks, spans = _traced(case, tmp_path, monkeypatch)
+    assert {"loop", "chunk", "step", "step.xupdate", "step.tail"} <= set(spans)
+    assert chunks == math.ceil(res.steps / K) == len(spans["chunk"])
+    assert len(spans["step"]) == chunks * K
+    assert len(spans["step.xupdate"]) == len(spans["step.tail"]) == len(spans["step"])
+    for s0, s1 in spans["step"]:
+        (xu,), (tail,) = ([t for t in spans[p] if s0 <= t[0] and t[1] <= s1]
+                          for p in ("step.xupdate", "step.tail"))
+        assert xu[1] <= tail[0]
+
+
+@pytest.mark.parametrize("case", CASES + SHARDED)
 def test_results_bit_identical_with_and_without_a_profiler(case, tmp_path, monkeypatch):
     traced, _, _, _ = _traced(case, tmp_path, monkeypatch)
     plain, _ = _solve(case)
