@@ -1,6 +1,7 @@
 // K1 and K1b for Hopper: the fused z-prox + dual update of the ADMM step,
 // alone (z/u mode) or with the whole engine tail of the step (tail mode).
-// One kernel, zu_tail_kernel<T, kTail>, in f32 and f64.
+// One kernel, zu_tail_kernel<T, kTail, kDiff>, in f32 and f64; kDiff
+// makes the tail mode's A the 1-D difference operator (below).
 //
 // The z/u mode replaces admm_tpu/ops/kernels.py::_fused_pallas (the Pallas
 // TPU kernel `_kernel` over (rows, 128) tiles):
@@ -58,10 +59,36 @@
 //     block 0's or the last block's update of the state never reaches a
 //     block of the same launch.
 //
+// The difference-operator mode (kDiff) is the tail mode for 1-D TV's
+// splitting A = D, B = -I, c = 0 with D the bidiagonal difference operator
+// (linop.DiffOp: (D v)_i = v_i - v_{i+1}, (D v)_{n-1} = v_{n-1};
+// (D^T w)_i = w_i - w_{i-1}, (D^T w)_0 = w_0), under the same options:
+//     Dx = D x_new;  z' = soft(u + Dx, t);  r = Dx - z';  u'' = u + r
+//     pnorm = ||r||                   dnorm = ||rho D^T (z' - z)||
+//     perr = sqrt(n) abstol + reltol max(||Dx||, ||z'||)
+//     derr = sqrt(n) abstol + reltol ||rho D^T u''||
+// with the flags, history, freeze and state as above.  The stencils read
+// neighbours.  x_new is read-only, so x_new[i + 1] is read from memory;
+// z and u are updated in place, so no thread reads z[i - 1] or u[i - 1]:
+//   * each block owns a contiguous range of whole tiles of kThreads 16-byte
+//     chunks, one chunk a thread a tile, the tiles in order;
+//   * e = z' - z and u'' of element i - 1 come from registers: the thread's
+//     own, the previous lane's by a shuffle, the previous warp's last
+//     through shared memory, the previous tile's last likewise;
+//   * a block's first element (but element 0, whose neighbour is the
+//     stencil's 0) has its left neighbour in the previous block, which may
+//     have written it already: each block leaves its first and last e and
+//     u'' beside its partials, and the last block adds the D^T terms across
+//     the block edges, each thread those of its strided share of the blocks,
+//     before block_sum; so it always reduces through the ticket.
+//
 // Rounding: the element-wise steps use the __*_rn intrinsics, which nvcc
 // does not contract into FMA, in the plain versions' order
 // (ops/kernels.py: _fused_torch, _fused_zu_tail_torch), so z, u (and x)
-// equal theirs bit for bit.  The soft threshold is v - t for v > t, v + t
+// equal theirs bit for bit.  In the difference-operator mode the D^T terms
+// are taken as rho (w_i - w_{i-1}); the engine's generic tail takes
+// rho D^T (-(z' - z)), whose terms are their negations exactly, so the
+// squares agree bit for bit.  The soft threshold is v - t for v > t, v + t
 // for v < -t (which equals -(-v - t) bit for bit) and v * 0 otherwise (a
 // zero, with NaN kept); no multiply feeds an add.  The sums of squares are
 // taken in the working type in the kernel's own order, so the norms agree
@@ -78,10 +105,12 @@ namespace {
 constexpr int kThreads = 256;  // ops/kernels.py ZU_THREADS
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 5;       // ||x-z'||^2, ||rho(z'-z)||^2, ||x||^2, ||z'||^2, ||rho u''||^2
+constexpr int kEdges = 4;      // difference-operator mode: a block's first and last e and u''
 constexpr int kMaxCluster = 8; // ops/kernels.py ZU_CLUSTER_BLOCKS: the portable cluster size
 
-// Flags of the tail mode (ops/kernels.py).
-constexpr int kDomaxiters = 1, kNodualerror = 2, kNanguard = 4;
+// Flags of the tail mode (ops/kernels.py); kDiffOp picks the
+// difference-operator mode at the C entry.
+constexpr int kDomaxiters = 1, kNodualerror = 2, kNanguard = 4, kDiffOp = 8;
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
@@ -124,7 +153,8 @@ struct Args {
   T perr_abs, derr_abs, reltol;
   int flags;
   int cluster;        // tail mode: the grid is one cluster (else the ticket)
-  T* partial;         // tail mode, ticket: kSums x gridDim.x block partials
+  T* partial;         // tail mode, ticket: kSums x gridDim.x block partials, then
+                      // (difference-operator mode) kEdges x gridDim.x edge values
   unsigned* ticket;   // tail mode, ticket: blocks done; 0 between launches
   int64_t n;
   int vec;            // every vector starts on a 16-byte boundary
@@ -152,8 +182,9 @@ __device__ __forceinline__ void block_sum(T (&v)[kSums], T (&red)[kSums][kWarps]
   }
 }
 
-template <typename T, bool kTail>
+template <typename T, bool kTail, bool kDiff = false>
 __global__ void __launch_bounds__(kThreads) zu_tail_kernel(Args<T> a) {
+  static_assert(kTail || !kDiff, "the difference operator is a tail mode");
   constexpr int W = 16 / sizeof(T);
   __shared__ T red[kSums][kWarps];
   __shared__ bool last;
@@ -189,30 +220,138 @@ __global__ void __launch_bounds__(kThreads) zu_tail_kernel(Args<T> a) {
     }
   };
 
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t nv = a.vec ? a.n / W : 0;  // 16-byte chunks
-  for (int64_t c = g; c < nv; c += stride) {
-    alignas(16) T xv[W], zv[W] = {}, uv[W], zn[W], un[W];
-    *reinterpret_cast<uint4*>(xv) = reinterpret_cast<const uint4*>(a.xn)[c];
-    *reinterpret_cast<uint4*>(uv) = reinterpret_cast<const uint4*>(a.u)[c];
-    if constexpr (kTail) *reinterpret_cast<uint4*>(zv) = reinterpret_cast<const uint4*>(a.z)[c];
+  // Difference-operator mode: e and u'' of the block's first and last
+  // element, which thread 0 leaves beside its partials.
+  T first_e = T(0), first_w = T(0), end_e = T(0), end_w = T(0);
+  if constexpr (kDiff) {
+    constexpr int64_t kTile = static_cast<int64_t>(kThreads) * W;
+    __shared__ T warp_e[kWarps], warp_w[kWarps];  // each warp's last element
+    __shared__ T tile_e, tile_w;                  // the previous tile's last element
+    const int64_t tiles = (a.n + kTile - 1) / kTile;
+    const int64_t per = (tiles + gridDim.x - 1) / gridDim.x * kTile;
+    const int64_t lo = static_cast<int64_t>(blockIdx.x) * per;
+    const int64_t hi = lo + per < a.n ? lo + per : a.n;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int64_t base = lo; base < hi; base += kTile) {  // the same trips in every thread
+      const int64_t i0 = base + static_cast<int64_t>(threadIdx.x) * W;
+      const bool whole = a.vec && i0 + W <= a.n;
+      alignas(16) T xv[W], zv[W], uv[W];
+      if (whole) {
+        *reinterpret_cast<uint4*>(xv) = reinterpret_cast<const uint4*>(a.xn + i0)[0];
+        *reinterpret_cast<uint4*>(zv) = reinterpret_cast<const uint4*>(a.z + i0)[0];
+        *reinterpret_cast<uint4*>(uv) = reinterpret_cast<const uint4*>(a.u + i0)[0];
+      } else {
 #pragma unroll
-    for (int w = 0; w < W; ++w) element(xv[w], zv[w], uv[w], zn[w], un[w]);
-    if (!frozen) {
-      reinterpret_cast<uint4*>(a.z)[c] = *reinterpret_cast<const uint4*>(zn);
-      reinterpret_cast<uint4*>(a.uo)[c] = *reinterpret_cast<const uint4*>(un);
-      if constexpr (kTail) reinterpret_cast<uint4*>(a.x)[c] = *reinterpret_cast<const uint4*>(xv);
+        for (int w = 0; w < W; ++w) {
+          const bool in = i0 + w < a.n;
+          xv[w] = in ? a.xn[i0 + w] : T(0);
+          zv[w] = in ? a.z[i0 + w] : T(0);
+          uv[w] = in ? a.u[i0 + w] : T(0);
+        }
+      }
+      // (D x_new)_{n-1} = x_new[n-1] - 0, as DiffOp.mv pads with a zero.
+      const T right = i0 + W < a.n ? a.xn[i0 + W] : T(0);
+      alignas(16) T zn[W], un[W];
+      T e[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const T dx = sub_rn(xv[w], w + 1 < W ? xv[w + 1] : right);
+        zn[w] = soft(add_rn(uv[w], dx), t);
+        const T r = sub_rn(dx, zn[w]);
+        un[w] = add_rn(uv[w], r);
+        e[w] = sub_rn(zn[w], zv[w]);
+        if (i0 + w < a.n) {
+          acc[0] = add_rn(acc[0], mul_rn(r, r));
+          acc[2] = add_rn(acc[2], mul_rn(dx, dx));
+          acc[3] = add_rn(acc[3], mul_rn(zn[w], zn[w]));
+        }
+      }
+      if (!frozen) {  // each element read and written by this thread alone
+        if (whole) {
+          reinterpret_cast<uint4*>(a.z + i0)[0] = *reinterpret_cast<const uint4*>(zn);
+          reinterpret_cast<uint4*>(a.uo + i0)[0] = *reinterpret_cast<const uint4*>(un);
+          reinterpret_cast<uint4*>(a.x + i0)[0] = *reinterpret_cast<const uint4*>(xv);
+        } else {
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            if (i0 + w < a.n) {
+              a.z[i0 + w] = zn[w];
+              a.uo[i0 + w] = un[w];
+              a.x[i0 + w] = xv[w];
+            }
+          }
+        }
+      }
+      // Element i0 - 1: the previous lane's last, the previous warp's, the
+      // previous tile's; none inside the block for its first element.
+      T pe = __shfl_up_sync(0xffffffffu, e[W - 1], 1);
+      T pw = __shfl_up_sync(0xffffffffu, un[W - 1], 1);
+      if (lane == 31) {
+        warp_e[warp] = e[W - 1];
+        warp_w[warp] = un[W - 1];
+      }
+      if (i0 == lo) {
+        first_e = e[0];
+        first_w = un[0];
+      }
+      __syncthreads();
+      if (lane == 0) {
+        pe = warp > 0 ? warp_e[warp - 1] : tile_e;
+        pw = warp > 0 ? warp_w[warp - 1] : tile_w;
+      }
+      if (i0 == 0) {  // (D^T w)_0 = w_0 - 0, as DiffOp.rmv pads with a zero
+        pe = T(0);
+        pw = T(0);
+      }
+      const bool edge = i0 == lo && lo > 0;  // the last block adds this term
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (i0 + w < a.n && !(w == 0 && edge)) {
+          const T d = mul_rn(rho, sub_rn(e[w], w ? e[w - 1] : pe));
+          const T g = mul_rn(rho, sub_rn(un[w], w ? un[w - 1] : pw));
+          acc[1] = add_rn(acc[1], mul_rn(d, d));
+          acc[4] = add_rn(acc[4], mul_rn(g, g));
+        }
+      }
+      __syncthreads();  // warp_e and tile_e are read before they are rewritten
+      const int64_t tile_last = (base + kTile < hi ? base + kTile : hi) - 1;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (i0 + w == tile_last) {
+          tile_e = e[w];
+          tile_w = un[w];
+        }
+      }
     }
-  }
-  for (int64_t i = nv * W + g; i < a.n; i += stride) {  // the ragged end, or all of it
-    const T xn = a.xn[i];
-    T zn, un;
-    element(xn, kTail ? a.z[i] : T(0), a.u[i], zn, un);
-    if (!frozen) {
-      a.z[i] = zn;
-      a.uo[i] = un;
-      if constexpr (kTail) a.x[i] = xn;
+    __syncthreads();  // tile_e now holds the block's last element
+    end_e = tile_e;
+    end_w = tile_w;
+  } else {
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+    const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+    const int64_t nv = a.vec ? a.n / W : 0;  // 16-byte chunks
+    for (int64_t c = g; c < nv; c += stride) {
+      alignas(16) T xv[W], zv[W] = {}, uv[W], zn[W], un[W];
+      *reinterpret_cast<uint4*>(xv) = reinterpret_cast<const uint4*>(a.xn)[c];
+      *reinterpret_cast<uint4*>(uv) = reinterpret_cast<const uint4*>(a.u)[c];
+      if constexpr (kTail) *reinterpret_cast<uint4*>(zv) = reinterpret_cast<const uint4*>(a.z)[c];
+#pragma unroll
+      for (int w = 0; w < W; ++w) element(xv[w], zv[w], uv[w], zn[w], un[w]);
+      if (!frozen) {
+        reinterpret_cast<uint4*>(a.z)[c] = *reinterpret_cast<const uint4*>(zn);
+        reinterpret_cast<uint4*>(a.uo)[c] = *reinterpret_cast<const uint4*>(un);
+        if constexpr (kTail) reinterpret_cast<uint4*>(a.x)[c] = *reinterpret_cast<const uint4*>(xv);
+      }
+    }
+    for (int64_t i = nv * W + g; i < a.n; i += stride) {  // the ragged end, or all of it
+      const T xn = a.xn[i];
+      T zn, un;
+      element(xn, kTail ? a.z[i] : T(0), a.u[i], zn, un);
+      if (!frozen) {
+        a.z[i] = zn;
+        a.uo[i] = un;
+        if constexpr (kTail) a.x[i] = xn;
+      }
     }
   }
 
@@ -220,7 +359,7 @@ __global__ void __launch_bounds__(kThreads) zu_tail_kernel(Args<T> a) {
     __shared__ T mine[kSums];
     block_sum(acc, red);
     T tot[kSums];
-    if (a.cluster) {
+    if (!kDiff && a.cluster) {
       // One cluster: block 0 adds the blocks' sums in block order.
       cg::cluster_group cl = cg::this_cluster();
       if (threadIdx.x == 0) {
@@ -244,6 +383,12 @@ __global__ void __launch_bounds__(kThreads) zu_tail_kernel(Args<T> a) {
       if (threadIdx.x == 0) {
 #pragma unroll
         for (int q = 0; q < kSums; ++q) a.partial[q * gridDim.x + blockIdx.x] = acc[q];
+        if constexpr (kDiff) {
+          const T edges[kEdges] = {first_e, first_w, end_e, end_w};
+#pragma unroll
+          for (int q = 0; q < kEdges; ++q)
+            a.partial[(kSums + q) * gridDim.x + blockIdx.x] = edges[q];
+        }
         __threadfence();  // the partials are visible before the ticket counts them
         last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
       }
@@ -258,6 +403,19 @@ __global__ void __launch_bounds__(kThreads) zu_tail_kernel(Args<T> a) {
         tot[q] = T(0);
         for (int b = threadIdx.x; b < gridDim.x; b += kThreads)
           tot[q] = add_rn(tot[q], __ldcg(a.partial + q * gridDim.x + b));
+      }
+      if constexpr (kDiff) {
+        // The D^T terms across the block edges: block b's first element
+        // against block b - 1's last.
+        const T* ed = a.partial + kSums * gridDim.x;
+        const unsigned G = gridDim.x;
+        for (unsigned b = threadIdx.x; b < G; b += kThreads) {
+          if (b == 0) continue;
+          const T d = mul_rn(rho, sub_rn(__ldcg(ed + b), __ldcg(ed + 2 * G + b - 1)));
+          const T g = mul_rn(rho, sub_rn(__ldcg(ed + G + b), __ldcg(ed + 3 * G + b - 1)));
+          tot[1] = add_rn(tot[1], mul_rn(d, d));
+          tot[4] = add_rn(tot[4], mul_rn(g, g));
+        }
       }
       block_sum(tot, red);
       if (threadIdx.x != 0) return;
@@ -293,10 +451,10 @@ __global__ void __launch_bounds__(kThreads) zu_tail_kernel(Args<T> a) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <typename T, bool kTail>
+template <typename T, bool kTail, bool kDiff = false>
 int launch(Args<T> a, int blocks, cudaStream_t stream) {
   if (!a.cluster) {
-    zu_tail_kernel<T, kTail><<<blocks, kThreads, 0, stream>>>(a);
+    zu_tail_kernel<T, kTail, kDiff><<<blocks, kThreads, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
@@ -310,7 +468,7 @@ int launch(Args<T> a, int blocks, cudaStream_t stream) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, zu_tail_kernel<T, kTail>, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, zu_tail_kernel<T, kTail, kDiff>, a);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -328,7 +486,7 @@ int zu(const void* x, const void* u, const void* t, void* z, void* unew, int64_t
   return launch<T, false>(a, blocks, stream);
 }
 
-template <typename T>
+template <typename T, bool kDiff = false>
 int zu_tail(const void* x_new, void* x, void* z, void* u, const void* lam,
             const void* rho, void* state, void* hist, int64_t ld, int64_t N,
             double perr_abs, double derr_abs, double reltol, int flags, void* scratch,
@@ -350,12 +508,19 @@ int zu_tail(const void* x_new, void* x, void* z, void* u, const void* lam,
   a.derr_abs = static_cast<T>(derr_abs);
   a.reltol = static_cast<T>(reltol);
   a.flags = flags;
-  a.cluster = cluster && blocks <= kMaxCluster;
+  a.cluster = !kDiff && cluster && blocks <= kMaxCluster;
   a.ticket = static_cast<unsigned*>(scratch);
   a.partial = reinterpret_cast<T*>(static_cast<char*>(scratch) + 16);
   a.n = n;
   a.vec = aligned16(x_new) && aligned16(x) && aligned16(z) && aligned16(u);
-  return launch<T, true>(a, blocks, stream);
+  if constexpr (kDiff) {
+    // Whole tiles a block, and no block without an element.
+    const int64_t tile = static_cast<int64_t>(kThreads) * (16 / sizeof(T));
+    const int64_t tiles = (n + tile - 1) / tile;
+    const int64_t per = (tiles + blocks - 1) / blocks;
+    blocks = static_cast<int>((tiles + per - 1) / per);
+  }
+  return launch<T, true, kDiff>(a, blocks, stream);
 }
 
 }  // namespace
@@ -378,15 +543,22 @@ extern "C" int admm_zu(int f64, const void* x, const void* u, const void* t, voi
 // K1b, the tail mode: one step's tail from x_new (n); x, z, u (n) and
 // state (3 int64) updated in place; hist (rows of ld = N + 1) written at
 // one column; lam and rho 0-d; flags of kDomaxiters, kNodualerror,
-// kNanguard; cluster: reduce in one cluster when blocks <= kMaxCluster
-// (else through the ticket); scratch: a zeroed 4-byte ticket, then from
-// byte 16 kSums x blocks partials of 8 bytes.
+// kNanguard and kDiffOp (A = D, the difference-operator mode); cluster:
+// reduce in one cluster when blocks <= kMaxCluster (else through the
+// ticket; the difference-operator mode always takes the ticket); scratch:
+// a zeroed 4-byte ticket, then from byte 16 kSums (kSums + kEdges with
+// kDiffOp) x blocks slots of 8 bytes.
 extern "C" int admm_zu_tail(int f64, const void* x_new, void* x, void* z, void* u,
                             const void* lam, const void* rho, void* state, void* hist,
                             int64_t ld, int64_t N, double perr_abs, double derr_abs,
                             double reltol, int flags, void* scratch, int64_t n,
                             int blocks, int cluster, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (flags & kDiffOp)
+    return f64 ? zu_tail<double, true>(x_new, x, z, u, lam, rho, state, hist, ld, N, perr_abs,
+                                       derr_abs, reltol, flags, scratch, n, blocks, cluster, s)
+               : zu_tail<float, true>(x_new, x, z, u, lam, rho, state, hist, ld, N, perr_abs,
+                                      derr_abs, reltol, flags, scratch, n, blocks, cluster, s);
   return f64 ? zu_tail<double>(x_new, x, z, u, lam, rho, state, hist, ld, N, perr_abs,
                                derr_abs, reltol, flags, scratch, n, blocks, cluster, s)
              : zu_tail<float>(x_new, x, z, u, lam, rho, state, hist, ld, N, perr_abs,

@@ -39,6 +39,11 @@ When the ``fused_zu`` hook is the soft-threshold pass
 the options ask for nothing beyond the standard stop, a step is ``prox_f``
 plus one ``ops/kernels.fused_zu_tail``: the z/u pass, norms, Boyd errors,
 flags, history write and freeze select in one launch of K1b on the card.
+Likewise, when ``prox_g`` is marked as soft(u + A x, lam / rho)
+(``ops/kernels.soft_threshold_prox``, 1-D TV's) with A the engine's
+``linop.DiffOp``, B = -1, c = 0, one instance and nothing that autograd or
+``torch.func`` follows, a step is ``prox_f`` plus one
+``ops/kernels.fused_diff_tail``, K1b's difference-operator mode.
 That path keeps k, done and diverged in one int64 device tensor,
 freezes inside the kernel and updates its x, z and u in place: the engine
 copies x0, z0 and u0 once at the start, so a caller's tensors are never
@@ -70,9 +75,9 @@ from . import graphs
 from .anderson import AndersonWindow
 from .config import ADMMConfig, matmul_precision, resolve_unroll
 from .device import resolve_device
-from .linop import ScaledIdentityOp, as_linop
+from .linop import DiffOp, ScaledIdentityOp, as_linop
 from .ops._cuda import _traced
-from .ops.kernels import fused_zu_tail, zu_tail_scratch
+from .ops.kernels import fused_diff_tail, fused_zu_tail, zu_tail_scratch
 from .results import ADMMResults
 from .utils.profiling import span
 
@@ -365,15 +370,15 @@ def _as_tensor(v):
     return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
 
 
+def _is_scaled_identity(op, val):
+    return isinstance(op, ScaledIdentityOp) and float(op.alpha) == val
+
+
 def _check_fused_splitting(A, B, c):
     """hooks.fused_zu assumes the plain splitting A = I, B = -I, c = 0 —
     its dual update is u + x - z.  Any other A/B/c would make it silently
     wrong, so refuse up front."""
-
-    def _is(op, val):
-        return isinstance(op, ScaledIdentityOp) and float(op.alpha) == val
-
-    if not (_is(A, 1.0) and _is(B, -1.0)):
+    if not (_is_scaled_identity(A, 1.0) and _is_scaled_identity(B, -1.0)):
         raise ValueError(
             "hooks.fused_zu requires the A=1, B=-1 splitting; got "
             f"A={A!r}, B={B!r} — use the standard prox_g path instead"
@@ -503,6 +508,27 @@ def run_steps(xupdate, tail, state, bufs, data, N, K, *, data_dims=None, agree=N
     _run_chunks(one, flags, N, K, (lambda: cur[1]["hist"]) if table else None,
                 lane_k=(lambda: cur[0]["k"]) if lanes and table else None, graph=graph)
     return cur
+
+
+def _diff_tail_applies(prox_g, data, x0, z0, u0, c, A, B) -> bool:
+    """Whether ``fused_diff_tail`` computes the z-update and dual update of
+    a step that the generic tail would run with ``prox_g``: the prox is
+    marked as soft(u + A x, lam / rho) with its operator a ``DiffOp`` of
+    the engine's A, B = -1, x, z and u are 1-D f32 or f64 vectors, nothing
+    that autograd or ``torch.func`` follows (the kernel has no derivative
+    rules), and c = 0 (one read of the device at set-up, as
+    ``_check_fused_splitting`` makes for K1b)."""
+    op_of = getattr(prox_g, "soft_threshold_op", None)
+    if op_of is None or type(A) is not DiffOp or not _is_scaled_identity(B, -1.0):
+        return False
+    op = op_of(data)
+    if type(op) is not DiffOp or op.n != A.n or not x0.shape == z0.shape == u0.shape == (A.n,):
+        return False
+    if x0.dtype not in (torch.float32, torch.float64):
+        return False
+    if _followed(data, x0, z0, u0, c, A, B):
+        return False
+    return not bool(torch.any(c != 0))
 
 
 def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
@@ -749,7 +775,15 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
             done=done, diverged=s["diverged"] | diverged_i, stalled=s["stalled"] | stall_i,
         ), bufs
 
-    lam_of = getattr(hooks.fused_zu, "soft_threshold_lam", None) if use_fused else None
+    # The whole tail in one launch: K1b for the marked fused_zu hook, its
+    # difference-operator mode for a marked TV prox_g on one instance.
+    lam_of, tail_fn = None, fused_zu_tail
+    if use_fused:
+        lam_of = getattr(hooks.fused_zu, "soft_threshold_lam", None)
+    elif (not lanes and alg == 0 and not use_relax and hooks.altu is None
+          and _tail_computes(cfg, hooks)
+          and _diff_tail_applies(prox_g, data, x0, z0, u0, c, A, B)):
+        lam_of, tail_fn = prox_g.soft_threshold_lam, fused_diff_tail
     # The callables a sub-step runs.  The chunks run as replays of a CUDA
     # graph of one sub-step (graphs.py) when the device takes one, nothing
     # but the flags is read between chunks, each callable and operator is
@@ -763,8 +797,8 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
                and not _followed(data, x0, z0, u0, c, A, B))
     kind = (lanes,) + fns
     if lam_of is not None and _tail_computes(cfg, hooks):
-        # The soft-threshold pass: the whole tail in one fused_zu_tail,
-        # its freeze select included.
+        # The soft-threshold pass: the whole tail in one fused_zu_tail (or
+        # fused_diff_tail), its freeze select included.
         obj_fn = _bound(hooks.obj, data)
         lam = lam_of(data)
         pf = _bound(prox_f, data)
@@ -775,7 +809,8 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
         tail_kw = dict(perr_abs=perr_abs, derr_abs=math.sqrt(float(z.numel())) * cfg.abstol,
                        reltol=cfg.reltol, domaxiters=cfg.domaxiters,
                        nodualerror=cfg.nodualerror, nanguard=cfg.nanguard,
-                       scratch=zu_tail_scratch(x.numel(), rdtype, device))
+                       scratch=zu_tail_scratch(x.numel(), rdtype, device,
+                                               diff=tail_fn is fused_diff_tail))
 
         def tail_step():
             with span("admm_tpu_torch.step.xupdate"):
@@ -783,14 +818,14 @@ def _run(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, data,
             with span("admm_tpu_torch.step.tail"):
                 if record_obj:
                     slot = torch.where((st[1] != 0) | (st[0] >= N), n_spare, st[0])
-                fused_zu_tail(x_new, x, z, u, lam, rho0, st, hist, **tail_kw)
+                tail_fn(x_new, x, z, u, lam, rho0, st, hist, **tail_kw)
                 if record_obj:
                     # x and z now hold this step's values unless it was frozen,
                     # and then the write goes to the spare slot.
                     hist[4].index_copy_(0, slot.reshape(1), obj_fn(x, z).reshape(1))
 
         _run_chunks(tail_step, lambda: st[:2], N, K, None if cfg.quiet else (lambda: hist),
-                    graph=graphs.ChunkGraph(device, kind) if capture else None)
+                    graph=graphs.ChunkGraph(device, kind + (tail_fn,)) if capture else None)
         steps, rho, diverged, stalled = st[0], rho0, st[2] != 0, no
     else:
         full = lambda v: torch.full(lead, v, dtype=rdtype, device=device)

@@ -70,8 +70,8 @@ def _counted():
     """The kernel wrappers whose ``.launches`` count their kernels."""
     from .ops import gemv_pair, kernels, tridiag
 
-    return (kernels.fused_soft_threshold_dual, kernels.fused_zu_tail, tridiag.cr_solve,
-            gemv_pair.gemv_pair, gemv_pair.resident_lasso)
+    return (kernels.fused_soft_threshold_dual, kernels.fused_zu_tail, kernels.fused_diff_tail,
+            tridiag.cr_solve, gemv_pair.gemv_pair, gemv_pair.resident_lasso)
 
 
 # device -> [side stream, newest graph], kept for the process.

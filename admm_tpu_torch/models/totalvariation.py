@@ -14,7 +14,10 @@ x-update:  (I + rho D^T D)^{-1} (s + rho D^T (z - u)), by a dense inverse
            the fixed tridiagonal system ('cr', 'cr_masked'; on a CUDA
            device through the kernel of ``ops/tridiag.cr_solve``; 'cr_packed'
            in plain PyTorch on every device).
-z-update:  soft_threshold(u + D x, lambda / rho)
+z-update:  soft_threshold(u + D x, lambda / rho); with the standard stop on
+           one signal the engine runs it, the dual update, the norms and
+           the stop in one ``ops/kernels.fused_diff_tail`` (on a CUDA
+           device one launch of the kernel of ``csrc/zu_tail.cu``).
 
 D and D^T apply matrix-free in O(n) (``linop.DiffOp``).
 """
@@ -31,6 +34,7 @@ from ..device import resolve_device
 from ..engine import Hooks, admm
 from ..graphs import capture_safe
 from ..linop import DiffOp
+from ..ops.kernels import soft_threshold_prox
 from ..ops.prox import soft_threshold
 from ..ops.tridiag import CyclicReductionSolver, PackedCyclicReductionSolver
 from ..results import ADMMResults
@@ -62,9 +66,11 @@ def _prox_f_adaptive(x, z, u, rho, d):
 
 
 @capture_safe
+@soft_threshold_prox(lambda d: d["lam"], lambda d: d["D"])
 def _prox_g(x, z, u, rho, d):
     # The engine passes raw x; the reference z-prox applies D itself
-    # (getProxOps.m case :145-199).
+    # (getProxOps.m case :145-199).  The mark lets the engine run the whole
+    # step tail in one fused_diff_tail.
     return soft_threshold(u + d["D"].mv(x), d["lam"] / rho)
 
 

@@ -225,9 +225,11 @@ def zu_tail(x_new, x, z, u, lam, rho, state, hist, perr_abs, derr_abs, reltol, f
     stream: one step's tail from ``x_new``, with ``x``, ``z``, ``u`` and
     ``state`` (3 int64) updated in place and one column of ``hist``
     ``(rows, N + 1)`` written, on ``blocks`` blocks that reduce in one
-    cluster when ``cluster`` is set (``ops/kernels.zu_tail_plan``).
-    ``scratch`` is ``ops/kernels.zu_tail_scratch``'s.  Float tensors of one
-    dtype, all contiguous on one CUDA device."""
+    cluster when ``cluster`` is set (``ops/kernels.zu_tail_plan``); the
+    ``DIFFOP`` bit of ``flags`` picks its difference-operator mode, which
+    always reduces through the ticket.  ``scratch`` is
+    ``ops/kernels.zu_tail_scratch``'s.  Float tensors of one dtype, all
+    contiguous on one CUDA device."""
     lib = library()
     err = lib.admm_zu_tail(
         int(x.dtype == torch.float64), x_new.data_ptr(), x.data_ptr(), z.data_ptr(),

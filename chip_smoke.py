@@ -22,6 +22,12 @@ through the functions a user calls and checks what comes out:
      equal, the cases built away from pnorm = perr ties; only that slot
      written; the same bits from two launches), and its time per call at
      n = 5000 f32 against the plain version's;
+  2c. K1b-D: the tail mode's difference-operator mode (``fused_diff_tail``,
+     1-D TV's tail: A = D) against ``_fused_zu_tail_torch(...,
+     op=DiffOp(n))`` with 2b's cases and bars at n in {1, 2, 257, 4097,
+     65536, 65537} (the block and tile edges, and TV (f)'s length), f32
+     and f64, and its time per call at n = 65536 in f32 and f64 against
+     the plain version's;
   3. K4: the CUDA C++ cyclic-reduction kernel (``cr_solve``) against
      ``_cr_solve_torch`` in f32 and f64 on the TV system and on a random
      diagonally dominant one, pure masked and with the hybrid dense tail
@@ -47,9 +53,9 @@ through the functions a user calls and checks what comes out:
      (e) iter/s of (a) and (b), best of 3 each, taken in turns;
   5. the TV slice (1-D staircase signal + 0.5 noise, lambda 0.5, float32):
      (f) n = 65536, solver 'auto' (the hybrid cyclic reduction),
-         maxiters 2000, standard stop: K4 launched at least once per
-         step, finite xopt of shape (65536,), steps equal within one to
-         a NumPy float64 run of the same update sequence;
+         maxiters 2000, standard stop: K4 and K1b-D launched at least
+         once per step, finite xopt of shape (65536,), steps equal within
+         one to a NumPy float64 run of the same update sequence;
      (g) the same run with the b-phase in the plain PyTorch version on
          the card: equal steps, max|xopt_f - xopt_g| <= 1e-6 ||xopt||_inf;
      (h) n = 8192, pure masked cyclic reduction: as (f) and (g), with
@@ -355,8 +361,9 @@ through the functions a user calls and checks what comes out:
          within 1e-5 of the serial gradient, one K4 launch of all lanes
          per J^T application of the backward;
      (z19d) ``totalvariation(solver='cr_packed')`` at n = 65536 in f32 and
-         f64 against the hybrid (f64: its steps, 1e-9; f32: 1e-4), and one
-         packed solve's device time beside K4's;
+         f64 against the hybrid (f64: its steps, 1e-9; f32: 1e-4), K1b-D
+         launched once per sub-step and no other kernel, and one packed
+         solve's device time beside K4's;
      (z19e) NumPy's inverse of a 2048-square matrix in this process and in
          a rank with one thread: how many f32 entries differ (why (z18b)
          makes the sliced solve's inputs on the card).
@@ -406,6 +413,7 @@ TV_MAXITERS = 2000
 TV_TIMED_STEPS = 2000
 TV_LAM = 0.5
 K1B_SIZES = (1, 7, 1000, 5000, 70000)
+K1B_D_SIZES = (1, 2, 257, 4097, 65536, 65537)  # 2c: block and tile edges, TV (f)'s n
 K1B_N = 12  # maxiters of K1b's test state
 K2_SHAPES = ((1, 1), (7, 33), (48, 160), (1500, 5000), (5000, 1500))
 K2_DEEP = 64
@@ -648,79 +656,95 @@ def k1b_inputs(dev, dtype, n, k, done, abstol, nan, seed=0):
     return [*vecs, lam, rho, state, hist], tol
 
 
-def k1b_phase(dev):
-    """K1b, the tail mode of ``csrc/zu_tail.cu``, against its plain version;
-    returns (max_abs_err over x, z, u and the norms, ms, plain_ms,
-    (bound_ms, bound_by)), the times at n = 5000 f32."""
+def k1b_phase(dev, diff=False):
+    """K1b, the tail mode of ``csrc/zu_tail.cu`` (``diff``: its
+    difference-operator mode K1b-D, ``fused_diff_tail``), against its plain
+    version; returns (max_abs_err over x, z, u and the norms, [(ms,
+    plain_ms, (bound_ms, bound_by))]), the times at n = 5000 f32 (K1b-D:
+    at n = 65536, f32 then f64)."""
     import torch
 
     from admm_tpu_torch.benchmarks.timing import graph_ms
-    from admm_tpu_torch.ops.kernels import _fused_zu_tail_torch, fused_zu_tail, zu_tail_scratch
+    from admm_tpu_torch.linop import DiffOp
+    from admm_tpu_torch.ops.kernels import (_fused_zu_tail_torch, fused_diff_tail,
+                                            fused_zu_tail, zu_tail_scratch)
 
-    print("kernel: fused_zu_tail (CUDA C++, tail mode K1b) vs _fused_zu_tail_torch")
+    tag, fused = ("K1b-D", fused_diff_tail) if diff else ("K1b", fused_zu_tail)
+
+    def twin(*ops, **kw):
+        _fused_zu_tail_torch(*ops, op=DiffOp(ops[0].numel()) if diff else None, **kw)
+
+    print(f"kernel: {fused.__name__} (CUDA C++, tail mode {tag}) vs _fused_zu_tail_torch"
+          f"{' with op=DiffOp(n)' if diff else ''}")
     worst = 0.0
+    sizes = K1B_D_SIZES if diff else K1B_SIZES
     for dtype in (torch.float32, torch.float64):
         rtol = 1e-5 if dtype == torch.float32 else 1e-12
         bits = torch.int32 if dtype == torch.float32 else torch.int64
         worst_rel = 0.0
-        for n in K1B_SIZES:
+        for n in sizes:
             for case, (k, done, abstol, flags, nan) in K1B_CASES.items():
                 ops, tol = k1b_inputs(dev, dtype, n, k, done, abstol, nan)
                 kw = dict(tol, domaxiters=False, nodualerror=False, nanguard=True)
                 kw.update(flags)
                 plain, kern, again = ([t.clone() for t in ops] for _ in range(3))
-                _fused_zu_tail_torch(*plain, **kw)
-                fused_zu_tail(*kern, **kw)
-                fused_zu_tail(*again, **kw)
+                twin(*plain, **kw)
+                fused(*kern, **kw)
+                fused(*again, **kw)
                 torch.cuda.synchronize()
                 what = f"({dtype}, n={n}, {case})"
                 check(all(_same(a, b) for a, b in zip(kern[1:4], plain[1:4]))
                       and torch.equal(kern[6], plain[6]),
-                      f"K1b x, z, u and state == plain bit for bit {what}")
+                      f"{tag} x, z, u and state == plain bit for bit {what}")
                 # The norms: the written column within rtol, NaN where the
                 # plain version has NaN, so every other column untouched.
                 hk, hp = kern[7], plain[7]
                 nan_p = torch.isnan(hp)
-                diff = torch.abs(hk - hp)[~nan_p]
-                rel = diff / torch.abs(hp)[~nan_p]
+                diff_ = torch.abs(hk - hp)[~nan_p]
+                rel = diff_ / torch.abs(hp)[~nan_p]
                 worst_rel = max(worst_rel, float(rel.max()) if rel.numel() else 0.0)
-                worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+                worst = max(worst, float(diff_.max()) if diff_.numel() else 0.0)
                 check(torch.equal(torch.isnan(hk), nan_p) and bool(torch.all(rel <= rtol)),
-                      f"K1b norms within {rtol} of plain, same slot {what}")
+                      f"{tag} norms within {rtol} of plain, same slot {what}")
                 check(all(torch.equal(a.view(bits), b.view(bits))
                           for a, b in zip(kern[1:4] + kern[7:], again[1:4] + again[7:]))
-                      and torch.equal(kern[6], again[6]), f"K1b same bits on two launches {what}")
+                      and torch.equal(kern[6], again[6]), f"{tag} same bits on two launches {what}")
                 if not nan:
                     # Away from ties: pnorm and perr (dnorm and derr) lie far
                     # more than rtol apart, so the values decide the flags.
                     col = hp[:, ~nan_p.all(0)].double().cpu().numpy()[:, 0]
                     check(abs(col[0] - col[2]) > 1e3 * rtol * col[2]
                           and (np.isnan(col[1]) or abs(col[1] - col[3]) > 1e3 * rtol * col[3]),
-                          f"K1b case away from a stop tie {what}")
+                          f"{tag} case away from a stop tie {what}")
         print(f"  {dtype}: max relative norm error {worst_rel:.3e} over "
-              f"{len(K1B_SIZES) * len(K1B_CASES)} cases")
+              f"{len(sizes) * len(K1B_CASES)} cases")
 
-    # Time per call at the headline's n, f32, under domaxiters on a history
-    # long enough that no call of the timing freezes.
-    n = 5000
-    ops, tol = k1b_inputs(dev, torch.float32, n, 0, 0, 1e-4, False)
-    ops[7] = torch.full((4, 10**6 + 1), float("nan"), device=dev)
-    tol.update(domaxiters=True, nodualerror=False, nanguard=True)
-    scratch = zu_tail_scratch(n, torch.float32, dev)
-    kernel = lambda: fused_zu_tail(*ops, scratch=scratch, **tol)  # noqa: E731
-    plain = lambda: _fused_zu_tail_torch(*ops, **tol)  # noqa: E731
-    dev_t = [graph_ms(f, 2000) for f in (kernel, plain, plain, kernel)]
-    host = time_ms(kernel, 2000)
-    k, done, _ = ops[6].tolist()
-    check(done == 0 and 2000 <= k < 10**6, f"K1b timing state never froze (k = {k})")
-    # x_new, z, u read (the freeze keeps x by not writing it); x, z, u
-    # written; ~20 operations an element.
-    bound_ms = bound(6 * n * 4, 20 * n)
-    print(f"  n=5000 f32 per call, device (graph replay): kernel {dev_t[0]:.6f} / "
-          f"{dev_t[3]:.6f} ms, plain {dev_t[1]:.6f} / {dev_t[2]:.6f} ms; host-issued kernel "
-          f"{host:.5f} ms (CUDA events, 2000 calls each); bound {bound_ms[0]:.6f} ms "
-          f"({bound_ms[1]})")
-    return worst, min(dev_t[0], dev_t[3]), min(dev_t[1], dev_t[2]), bound_ms
+    # Time per call at the headline's n in f32 (K1b-D: TV's n, f32 and
+    # f64), under domaxiters on a history long enough that no call of the
+    # timing freezes.
+    rows = []
+    for n, dtype in ((65536, torch.float32), (65536, torch.float64)) if diff else (
+            (5000, torch.float32),):
+        ops, tol = k1b_inputs(dev, dtype, n, 0, 0, 1e-4, False)
+        ops[7] = torch.full((4, 10**6 + 1), float("nan"), dtype=dtype, device=dev)
+        tol.update(domaxiters=True, nodualerror=False, nanguard=True)
+        scratch = zu_tail_scratch(n, dtype, dev, diff=diff)
+        kernel = lambda: fused(*ops, scratch=scratch, **tol)  # noqa: E731
+        plain = lambda: twin(*ops, **tol)  # noqa: E731
+        dev_t = [graph_ms(f, 2000) for f in (kernel, plain, plain, kernel)]
+        host = time_ms(kernel, 2000)
+        k, done, _ = ops[6].tolist()
+        check(done == 0 and 2000 <= k < 10**6, f"{tag} timing state never froze (k = {k})")
+        # x_new, z, u read (the freeze keeps x by not writing it); x, z, u
+        # written; ~20 operations an element (~30 with K1b-D's stencils).
+        bound_ms = bound(6 * n * dtype.itemsize, (30 if diff else 20) * n)
+        dn = str(dtype).split(".")[-1]
+        print(f"  n={n} {dn} per call, device (graph replay): kernel {dev_t[0]:.6f} / "
+              f"{dev_t[3]:.6f} ms, plain {dev_t[1]:.6f} / {dev_t[2]:.6f} ms; host-issued kernel "
+              f"{host:.5f} ms (CUDA events, 2000 calls each); bound {bound_ms[0]:.6f} ms "
+              f"({bound_ms[1]})")
+        rows.append((min(dev_t[0], dev_t[3]), min(dev_t[1], dev_t[2]), bound_ms))
+    return worst, rows
 
 
 def slice_phase(dev):
@@ -1494,11 +1518,12 @@ def numpy_tv_steps(sig, lam, cfg):
 
 
 def tv_phase(dev):
-    """The TV main path; returns K4's launch count in run (f)."""
+    """The TV main path; returns K4's and K1b-D's launch counts in run (f)."""
     import torch
 
     from admm_tpu_torch import ADMMConfig, totalvariation, totalvariation2d
     from admm_tpu_torch.models.totalvariation import make_prox_ops
+    from admm_tpu_torch.ops.kernels import fused_diff_tail
     from admm_tpu_torch.ops.tridiag import cr_solve
 
     cfg = ADMMConfig(maxiters=TV_MAXITERS, unroll="auto")
@@ -1514,15 +1539,16 @@ def tv_phase(dev):
         check(hybrid == (n > 16384), f"{tag} auto resolves to the "
               f"{'hybrid' if n > 16384 else 'pure masked'} cyclic reduction")
 
-        cr_solve.launches = 0
+        cr_solve.launches = fused_diff_tail.launches = 0
         k = totalvariation(sig, TV_LAM, cfg, device=dev)
         torch.cuda.synchronize()
-        count = cr_solve.launches
+        count, tails = cr_solve.launches, fused_diff_tail.launches
         if launches is None:
-            launches = count  # run (f): the main path
-        print(f"  {tag} kernel: steps={k.steps} launches={count} runtime={k.runtime:.4f}s "
-              f"iter/s {k.steps / k.runtime:.1f}")
+            launches = count, tails  # run (f): the main path
+        print(f"  {tag} kernel: steps={k.steps} launches K4 {count}, K1b-D {tails}, "
+              f"runtime={k.runtime:.4f}s iter/s {k.steps / k.runtime:.1f}")
         check(count >= k.steps, f"{tag} K4 launches {count} >= steps {k.steps}")
+        check(tails >= k.steps, f"{tag} K1b-D launches {tails} >= steps {k.steps}")
         check(k.xopt.device.type == "cuda" and tuple(k.xopt.shape) == (n,),
               f"{tag} xopt on the card with shape ({n},)")
         check(bool(torch.isfinite(k.xopt).all()) and not k.diverged, f"{tag} xopt finite")
@@ -1610,12 +1636,12 @@ def family_objective(family, D, s, x, tau=0.8, C=1.0):
     return 0.5 * np.sum(x * x) + C * np.sum(loss)
 
 
-def main_path(tag, solve, eigh=False, reads="eigh", k4=False, tally=None):
+def main_path(tag, solve, eigh=False, reads="eigh", once=None, tally=None):
     """Run ``solve`` with every kernel's count (K1-K4) at 0 just before it
     and read just after (added into ``tally`` where given), its
     synchronising calls counted, and check that
-    none launched (``k4``: that K4 launched exactly once per sub-step and
-    nothing else), that its xopt is finite on the card and that no
+    none launched (``once``, a kernel's name: that it launched exactly once
+    per sub-step and nothing else), that its xopt is finite on the card and that no
     synchronising call ran inside a sub-step (``eigh``: the calls of
     ``torch.linalg.eigh`` or, as ``reads`` names them, of
     ``torch.linalg.svd``, which read cuSOLVER's info back every call, are
@@ -1651,9 +1677,9 @@ def main_path(tag, solve, eigh=False, reads="eigh", k4=False, tally=None):
           f"the loop")
     check(r.xopt.device.type == "cuda" and bool(torch.isfinite(r.xopt).all())
           and not diverged, f"({tag}) xopt finite on the card")
-    if k4:
-        check(launches["K4"] == sy["substeps"] and sum(launches.values()) == launches["K4"],
-              f"({tag}) K4 launched once per sub-step ({launches['K4']} for "
+    if once:
+        check(launches[once] == sy["substeps"] and sum(launches.values()) == launches[once],
+              f"({tag}) {once} launched once per sub-step ({launches[once]} for "
               f"{sy['substeps']}), no other kernel")
     else:
         check(not any(launches.values()), f"({tag}) no K1-K4 launch")
@@ -2353,7 +2379,7 @@ def batch_phase(dev):
         every = slice(None)
         timed = ADMMConfig(maxiters=steps, domaxiters=True)
         r = main_path(f"z14 {tag}", lambda: batch(o32, timed, every), reads is not None,
-                      reads, k4=tag == "tv_batch")
+                      reads, once="K4" if tag == "tv_batch" else None)
         check(int(r.steps.min()) == steps, f"(z14 {tag}) every lane ran {steps} steps")
         lanes = r.steps.numel()
         if tag == "tv_batch":
@@ -2385,7 +2411,7 @@ def batch_phase(dev):
             # The whole batch converging, with K4 and with the plain b-phase.
             conv = ADMMConfig(maxiters=CHECK_MAXITERS)
             k_run = main_path("z14 tv_batch converging", lambda: batch(o32, conv, every),
-                              k4=True)
+                              once="K4")
             p_run = T.tv_batch(o32[0], 1.0, conv, solver="cr", _plain_cr=True)
             diff = float((k_run.xopt - p_run.xopt).abs().max())
             xinf = float(k_run.xopt.abs().max())
@@ -2424,11 +2450,11 @@ def syncs_in():
 def kernel_counts():
     """Every kernel wrapper's launch count (K1-K4), as a dict."""
     from admm_tpu_torch.ops.gemv_pair import gemv_pair, resident_lasso
-    from admm_tpu_torch.ops.kernels import fused_soft_threshold_dual, fused_zu_tail
+    from admm_tpu_torch.ops.kernels import fused_diff_tail, fused_soft_threshold_dual, fused_zu_tail
     from admm_tpu_torch.ops.tridiag import cr_solve
 
-    return {"K1": fused_soft_threshold_dual, "K1b": fused_zu_tail, "K2": gemv_pair,
-            "K3": resident_lasso, "K4": cr_solve}
+    return {"K1": fused_soft_threshold_dual, "K1b": fused_zu_tail, "K1b-D": fused_diff_tail,
+            "K2": gemv_pair, "K3": resident_lasso, "K4": cr_solve}
 
 
 def reset_counts():
@@ -2684,7 +2710,7 @@ def hypergradient_phase(dev):
 
 def slice11b_phase(dev):
     """Slice 11b, (z16a)-(z16e), through the CLI and the examples a user
-    calls; returns the launches of K1b, K2 and K4 on their paths."""
+    calls; returns the launches of K1b, K1b-D, K2 and K4 on their paths."""
     import torch
 
     from admm_tpu_torch.__main__ import main as cli
@@ -2782,7 +2808,7 @@ def slice11b_phase(dev):
         print(f"  (z16e) {name}: {time.perf_counter() - t1:.1f}s")
         EXAMPLE_CHECKS[name](got)
     print(f"  (z16) took {time.perf_counter() - t0:.1f}s")
-    return {k: counts[k] for k in ("K1b", "K2", "K4")}
+    return {k: counts[k] for k in ("K1b", "K1b-D", "K2", "K4")}
 
 
 def cuda_kernels(solve):
@@ -3736,7 +3762,8 @@ def slice10c_phase(dev):
         dn = str(dtype).split(".")[-1]
         x = sig.astype(np.float64) if dtype == torch.float64 else sig
         rp = mp(f"z19d cr_packed {dn}", lambda: totalvariation(x, TV_LAM, cfg,
-                                                               solver="cr_packed", device=dev))
+                                                               solver="cr_packed", device=dev),
+                once="K1b-D")
         reset_counts()
         rh = totalvariation(x, TV_LAM, cfg, solver="cr", device=dev)
         torch.cuda.synchronize()
@@ -3842,13 +3869,14 @@ def main():
     _cuda.library()
     print(f"nvcc build/load of {', '.join(_cuda.SOURCES)}: {time.perf_counter() - t0:.1f}s")
     k1_err, k1_ms, k1_plain_ms, k1_bound = kernel_phase(dev)
-    k1b_err, k1b_ms, k1b_plain_ms, k1b_bound = k1b_phase(dev)
+    k1b_err, ((k1b_ms, k1b_plain_ms, k1b_bound),) = k1b_phase(dev)
+    k1bd_err, k1bd_rows = k1b_phase(dev, diff=True)
     k4_err, k4_ms, k4_plain_ms, k4_bound = k4_phase(dev)
     k2_err, k2_ms, k2_plain_ms, k2_library_ms, k2_bound, k2_backward = k2_phase(dev)
     k1b_launches, k1_launches, a, d_plain = slice_phase(dev)
     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound = k3_phase(dev, a)
     k2_launches = bf16_phase(dev, a)
-    k4_launches = tv_phase(dev)
+    k4_launches, k1bd_launches = tv_phase(dev)
     variants = variants_phase(dev, d_plain)
     families_phase(dev)
     programs_phase(dev)
@@ -3879,7 +3907,9 @@ def main():
     # lasso's fused hook (the main path (a) takes K1b); K2's those of the
     # bf16 paths (k) and (p), (z15c)'s forward and backward (its transposed
     # pair, whose times at (1500, 5000) bf16 are the row's "backward"), and
-    # (z16)'s; K1b's and K4's (z16)'s beside their own paths.
+    # (z16)'s; K1b's and K4's (z16)'s beside their own paths.  K1b-D
+    # replaces the step's tail of the JAX engine for 1-D TV: its launches
+    # are TV (f)'s and (z16)'s and (z19d)'s, and its row carries f64 times.
     print(json.dumps({"kernels": [
         row("fused_soft_threshold_dual", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
             "admm_tpu/ops/kernels.py:48", {"d": k1_launches, **variants["k1"], "z17": z17["K1"],
@@ -3891,6 +3921,13 @@ def main():
                                             "z17": z17["K1b"], "z18": z18["K1b"],
                                             "z19": z19["K1b"]}, k1b_err,
             k1b_ms, k1b_plain_ms, k1b_bound, None),
+        dict(row("fused_diff_tail", "cuda", "admm_tpu_torch/csrc/zu_tail.cu",
+                 "admm_tpu/engine.py:575", {"f": k1bd_launches, "z16": z16["K1b-D"],
+                                            "z17": z17["K1b-D"], "z18": z18["K1b-D"],
+                                            "z19": z19["K1b-D"]}, k1bd_err,
+                 *k1bd_rows[0], None),
+             f64={"ms": k1bd_rows[1][0], "plain_ms": k1bd_rows[1][1],
+                  "bound_ms": k1bd_rows[1][2][0], "bound_by": k1bd_rows[1][2][1]}),
         row("cr_solve", "cuda", "admm_tpu_torch/csrc/cr_solve.cu",
             "experiments/pallas_cr_kernel.py:103",
             {"f": k4_launches, "z14": k4_batch_launches, **hg_launches["K4"], "z16": z16["K4"],

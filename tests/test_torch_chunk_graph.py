@@ -325,6 +325,7 @@ def test_captured_chunk_on_the_card_equals_the_eager_one(cuda, monkeypatch, case
     solve = _card_solves(cuda)[case]
     solve()  # the process's first solve of its kind: its first chunk runs eagerly
     tail, k4 = kernels.fused_zu_tail.launches, tridiag.cr_solve.launches
+    diff = kernels.fused_diff_tail.launches
     captured, replays = _replays(solve)
     eager = _eager(monkeypatch, solve)
     steps = int(torch.as_tensor(captured.steps).max())
@@ -337,6 +338,7 @@ def test_captured_chunk_on_the_card_equals_the_eager_one(cuda, monkeypatch, case
     assert kernels.fused_zu_tail.launches - tail == (
         2 * K * replays if case in ("lasso_fused", "first_chunk_stop") else 0)
     assert tridiag.cr_solve.launches - k4 == (2 * K * replays if case == "tv" else 0)
+    assert kernels.fused_diff_tail.launches - diff == (2 * K * replays if case == "tv" else 0)
 
 
 @pytest.mark.gpu

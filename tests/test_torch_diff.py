@@ -613,7 +613,7 @@ def _meta(*shape, grad=False):
 
 
 @pytest.mark.parametrize("name", ["fused_soft_threshold_dual", "fused_zu_tail", "gemv_pair",
-                                  "resident_lasso"])
+                                  "resident_lasso", "fused_diff_tail"])
 @pytest.mark.parametrize("how", ["requires_grad", "torch.func.grad", "forward_ad"])
 def test_ctypes_wrappers_refuse_autograd_before_launching(monkeypatch, name, how):
     # Off the CPU a ctypes launch would come back without a grad_fn; each
@@ -629,6 +629,10 @@ def test_ctypes_wrappers_refuse_autograd_before_launching(monkeypatch, name, how
         "fused_soft_threshold_dual": lambda x: kernels.fused_soft_threshold_dual(
             x, _meta(n), _meta()),
         "fused_zu_tail": lambda x: kernels.fused_zu_tail(
+            x, _meta(n), _meta(n), _meta(n), _meta(), _meta(), torch.zeros(3, dtype=torch.int64,
+                                                                           device="meta"),
+            _meta(4, 11), perr_abs=0.0, derr_abs=0.0, reltol=0.0),
+        "fused_diff_tail": lambda x: kernels.fused_diff_tail(
             x, _meta(n), _meta(n), _meta(n), _meta(), _meta(), torch.zeros(3, dtype=torch.int64,
                                                                            device="meta"),
             _meta(4, 11), perr_abs=0.0, derr_abs=0.0, reltol=0.0),

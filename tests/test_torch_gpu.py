@@ -1,5 +1,7 @@
-"""The port on a CUDA device: the CUDA C++ z/u kernel in both its modes
-(K1, the z/u pass; K1b, the pass with the whole engine tail) and the
+"""The port on a CUDA device: the CUDA C++ z/u kernel in its modes (K1,
+the z/u pass; K1b, the pass with the whole engine tail; K1b's
+difference-operator mode, 1-D TV's whole tail, at stencil, warp, block and
+tile edges, and a TV solve through it against the generic tail) and the
 cyclic-reduction, GEMV-pair and resident-LASSO kernels against their
 plain PyTorch versions, the cyclic-reduction precompute built on the card
 against the CPU build, the LASSO, group-lasso and TV slices going
@@ -49,8 +51,10 @@ from admm_tpu_torch.models.sdp import random_sdp_instance
 from admm_tpu_torch.models.totalvariation import tv_system
 from admm_tpu_torch.ops.gemv_pair import (
     _gemv_pair_torch, _resident_lasso_torch, aligned_rows, gemv_pair, resident_lasso)
+from admm_tpu_torch.linop import DiffOp
 from admm_tpu_torch.ops.kernels import (
-    _fused_torch, _fused_zu_tail_torch, fused_soft_threshold_dual, fused_zu_tail)
+    _fused_torch, _fused_zu_tail_torch, fused_diff_tail, fused_soft_threshold_dual,
+    fused_zu_tail, zu_tail_scratch)
 from admm_tpu_torch.ops.solve import FatShiftSolver
 from admm_tpu_torch.ops.tridiag import (
     CyclicReductionSolver, _cr_solve_torch, compact_stacks, cr_solve)
@@ -77,6 +81,12 @@ def launches(monkeypatch):
 def tail_launches(monkeypatch):
     monkeypatch.setattr(fused_zu_tail, "launches", 0)
     return lambda: fused_zu_tail.launches
+
+
+@pytest.fixture
+def diff_launches(monkeypatch):
+    monkeypatch.setattr(fused_diff_tail, "launches", 0)
+    return lambda: fused_diff_tail.launches
 
 
 def _vectors(n, dev, dtype, seed=2):
@@ -209,15 +219,36 @@ def _same_bits(a, b):
 @pytest.mark.parametrize("n", [1, 7, 1000, 5000, 70000])
 @pytest.mark.parametrize("case", list(_TAIL_CASES))
 def test_tail_mode_matches_plain(cuda, tail_launches, n, dtype, case):
+    _check_tail_call(cuda, n, dtype, case, fused_zu_tail, None)
+    assert tail_launches() == 2
+
+
+# The difference-operator mode at one element, the stencils' ends, warp,
+# block and tile edges (a tile is 256 chunks of 16 bytes: 1024 elements in
+# f32, 512 in f64; a block holds whole tiles), the TV cell's n and past it.
+_DIFF_NS = [1, 2, 3, 255, 256, 257, 513, 1024, 1025, 4097, 65536, 65537]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", _DIFF_NS)
+@pytest.mark.parametrize("case", list(_TAIL_CASES))
+def test_diff_tail_mode_matches_plain(cuda, diff_launches, n, dtype, case):
+    _check_tail_call(cuda, n, dtype, case, fused_diff_tail, DiffOp(n))
+    assert diff_launches() == 2
+
+
+def _check_tail_call(cuda, n, dtype, case, kernel, op):
+    """One call of ``kernel`` (K1b, or its difference-operator mode with
+    ``op``) on ``_TAIL_CASES[case]``'s operands, twice, against the plain
+    version."""
     k, done, abstol, flags, nan = _TAIL_CASES[case]
     ops, kw = _tail_operands(cuda, dtype, n, k, done, abstol, nan)
     kw.update(flags)
     before, plain, kern, again = ([t.clone() for t in ops] for _ in range(4))
-    _fused_zu_tail_torch(*plain, **kw)
-    fused_zu_tail(*kern, **kw)
-    fused_zu_tail(*again, **kw)
+    _fused_zu_tail_torch(*plain, op=op, **kw)
+    kernel(*kern, **kw)
+    kernel(*again, **kw)
     torch.cuda.synchronize()
-    assert tail_launches() == 2
     # x, z, u and the state bit for bit; the same bits from both launches.
     for i in (1, 2, 3, 6):
         assert _same_bits(kern[i], plain[i]) and _same_bits(kern[i], again[i])
@@ -241,6 +272,53 @@ def test_tail_mode_matches_plain(cuda, tail_launches, n, dtype, case):
         col = hp[:4, slot].double().numpy()
         assert abs(col[0] - col[2]) > 1e3 * rtol * col[2]
         assert np.isnan(col[1]) or abs(col[1] - col[3]) > 1e3 * rtol * col[3]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [7, 1001, 4099])
+def test_diff_tail_mode_off_16_byte_boundaries(cuda, dtype, n):
+    # Vectors one element past a 16-byte boundary take the scalar loads.
+    ops, kw = _tail_operands(cuda, dtype, n, 3, 0, 1e-4, False)
+    plain = [t.clone() for t in ops]
+    kern = [torch.empty(n + 1, dtype=dtype, device=cuda)[1:].copy_(t) for t in ops[:4]]
+    kern += [t.clone() for t in ops[4:]]
+    assert all(t.data_ptr() % 16 for t in kern[:4])
+    _fused_zu_tail_torch(*plain, op=DiffOp(n), **kw)
+    fused_diff_tail(*kern, **kw)
+    for i in (1, 2, 3, 6):
+        assert _same_bits(kern[i], plain[i])
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(kern[7][:4, 3], plain[7][:4, 3], rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 1_100_003), (torch.float64, 600_001)])
+def test_diff_tail_mode_many_tiles_a_block(cuda, diff_launches, dtype, n):
+    # Past 1024 blocks of one tile each a block takes several tiles in
+    # order (here two): the carry between tiles, and every launch the same
+    # bits, history included.
+    ops, kw = _tail_operands(cuda, dtype, n, 3, 0, 1e-4, False)
+    plain = [t.clone() for t in ops]
+    _fused_zu_tail_torch(*plain, op=DiffOp(n), **kw)
+    runs = [[t.clone() for t in ops] for _ in range(3)]
+    for kern in runs:
+        fused_diff_tail(*kern, **kw)
+    torch.cuda.synchronize()
+    assert diff_launches() == 3
+    for i in (1, 2, 3, 6):
+        assert _same_bits(runs[0][i], plain[i])
+    for kern in runs[1:]:
+        for i in (1, 2, 3, 6, 7):
+            assert _same_bits(kern[i], runs[0][i])
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(runs[0][7][:4, 3], plain[7][:4, 3], rtol=rtol, atol=0)
+
+
+def test_diff_tail_wrapper_refuses_a_short_scratch(cuda):
+    # K1b's scratch has no room for the edge values.
+    ops, kw = _tail_operands(cuda, torch.float32, 5000, 3, 0, 1e-4, False)
+    with pytest.raises(ValueError, match="scratch"):
+        fused_diff_tail(*ops, scratch=zu_tail_scratch(5000, torch.float32, cuda), **kw)
+    fused_diff_tail(*ops, scratch=zu_tail_scratch(5000, torch.float32, cuda, diff=True), **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -358,22 +436,45 @@ def test_cr_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("n,solver", [(3000, "cr_masked"), (20000, "cr")])
-def test_totalvariation_on_gpu_goes_through_the_kernel(cuda, cr_launches, n, solver):
+def test_totalvariation_on_gpu_goes_through_the_kernel(cuda, cr_launches, diff_launches, n,
+                                                       solver):
     rng = np.random.default_rng(3)
     sig = np.repeat(rng.standard_normal(n // 64 + 1), 64)[:n] + 0.5 * rng.standard_normal(n)
     cfg = ADMMConfig(maxiters=41, domaxiters=True, unroll=4)
     res = totalvariation(sig, 0.5, cfg, solver=solver, device=cuda)
     assert res.steps == 41 and res.xopt.device.type == "cuda"
-    # 11 chunks of 4 sub-steps: frozen sub-steps solve too.
-    assert cr_launches() == 44
+    # 11 chunks of 4 sub-steps: frozen sub-steps solve too, and each
+    # sub-step's tail is one launch of the difference-operator mode.
+    assert cr_launches() == 44 and diff_launches() == 44
     plain = totalvariation(sig, 0.5, cfg, solver=solver, device=cuda, _plain_cr=True)
-    assert cr_launches() == 44
+    assert cr_launches() == 44 and diff_launches() == 88
     assert torch.equal(res.xopt, plain.xopt)
     cpu = totalvariation(sig, 0.5, cfg, solver=solver, device="cpu")
     # f64 on both devices; the elementwise steps round alike, the norms
     # and the dense tail sum in other orders.
     np.testing.assert_allclose(res.xopt.cpu().numpy(), cpu.xopt.numpy(),
                                rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_converging_tv_on_gpu_stops_with_the_plain_tail(cuda, monkeypatch, diff_launches,
+                                                       dtype):
+    # The TV cell's size and options: the tail in one launch a sub-step
+    # against the generic tail, whose sums run in torch's order.
+    rng = np.random.default_rng(12)
+    n = 65536
+    sig = np.repeat(rng.integers(1, 10, 8).astype(float), n // 8) + rng.standard_normal(n)
+    sig = torch.from_numpy(sig).to(cuda, dtype)
+    cfg = ADMMConfig(abstol=1e-5, reltol=1e-3, unroll="auto")
+    res = totalvariation(sig, 5.0, cfg)
+    assert diff_launches() >= res.steps and not res.diverged
+    monkeypatch.setattr(engine_mod, "_diff_tail_applies", lambda *a: False)
+    generic = totalvariation(sig, 5.0, cfg)
+    assert diff_launches() < 2 * res.steps
+    assert abs(res.steps - generic.steps) <= 1
+    if res.steps == generic.steps:
+        for name in ("xopt", "zopt", "uopt"):
+            assert torch.equal(getattr(res, name), getattr(generic, name))
 
 
 @pytest.fixture

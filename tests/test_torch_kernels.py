@@ -106,9 +106,11 @@ def test_kernel_source_imports_without_building():
     src = (_cuda.CSRC / "zu_tail.cu").read_text()
     assert f"constexpr int kThreads = {ZU_THREADS};" in src
     assert f"constexpr int kSums = {kernels.ZU_SUMS};" in src
+    assert f"constexpr int kEdges = {kernels.ZU_EDGES};" in src
     assert f"constexpr int kMaxCluster = {kernels.ZU_CLUSTER_BLOCKS};" in src
     assert (f"constexpr int kDomaxiters = {kernels.DOMAXITERS}, kNodualerror = "
-            f"{kernels.NODUALERROR}, kNanguard = {kernels.NANGUARD};") in src
+            f"{kernels.NODUALERROR}, kNanguard = {kernels.NANGUARD}, kDiffOp = "
+            f"{kernels.DIFFOP};") in src
     # One toolchain builds every kernel of the port: nothing imports Triton.
     for path in _cuda.CSRC.parent.rglob("*.py"):
         assert not re.search(r"^\s*(import|from)\s+triton", path.read_text(), re.M), path

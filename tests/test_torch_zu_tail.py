@@ -1,14 +1,18 @@
 """The whole engine tail in one pass (admm_tpu_torch/ops/kernels.py
-``fused_zu_tail``, the CPU side of K1b in csrc/zu_tail.cu).
+``fused_zu_tail`` and ``fused_diff_tail``, the CPU side of K1b in
+csrc/zu_tail.cu and of its difference-operator mode).
 
-On the CPU ``fused_zu_tail`` runs ``_fused_zu_tail_torch``, which must
-equal the engine's generic tail bit for bit; the kernel's own block split
-and summation order is emulated in NumPy and held to the plain version's
-norms; and the fused lasso through the new engine path is held against
-admm_tpu's ``lasso(..., use_fused_kernel=True)``.  The kernel itself runs
-only on a CUDA device (tests/test_torch_gpu.py).
+On the CPU both run ``_fused_zu_tail_torch``, which must equal the
+engine's generic tail bit for bit (the LASSO's A = I, 1-D TV's A = D); the
+kernel's own block split and summation order is emulated in NumPy and held
+to the plain version's norms; the fused lasso and 1-D TV through the new
+engine paths are held against admm_tpu's ``lasso(...,
+use_fused_kernel=True)`` and ``totalvariation``; and TV's path is shown to
+engage for plain 1-D TV alone.  The kernel itself runs only on a CUDA
+device (tests/test_torch_gpu.py).
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -17,11 +21,16 @@ import torch
 
 from admm_tpu import ADMMConfig as JaxConfig
 from admm_tpu import lasso as jax_lasso
-from admm_tpu_torch import ADMMConfig, Hooks, admm, lasso
+from admm_tpu import totalvariation as jax_tv
+from admm_tpu_torch import (ADMMConfig, Hooks, admm, fusedlasso, lasso, totalvariation,
+                            totalvariation2d, tv_batch)
 from admm_tpu_torch.models.lasso import _fused_zu, _prox_g, make_prox_ops
 from admm_tpu_torch.ops import kernels
 from admm_tpu_torch.ops.kernels import (
     ZU_THREADS, _fused_torch, fused_zu_tail, zu_blocks, zu_tail_plan)
+
+engine_mod = importlib.import_module("admm_tpu_torch.engine")
+tv_mod = importlib.import_module("admm_tpu_torch.models.totalvariation")
 
 torch.set_num_threads(1)
 
@@ -87,6 +96,82 @@ def test_plain_tail_equals_engine_generic_tail(dtype, cfg_kw, nan_after):
     assert a.hist.keys() == b.hist.keys()
     for name in a.hist:
         # Whole (N,) buffers: NaN past the last step must match too.
+        np.testing.assert_array_equal(a.hist[name].numpy(), b.hist[name].numpy())
+    if nan_after is not None:
+        assert a.diverged == cfg_kw.get("nanguard", True)
+        assert a.steps == (nan_after + 1 if a.diverged else cfg_kw["maxiters"])
+
+
+def _tv_signal(n, seed=7):
+    rng = np.random.default_rng(seed)
+    steps = np.repeat(rng.integers(1, 10, 8).astype(float), -(-n // 8))[:n]
+    return steps + 0.5 * rng.standard_normal(n)
+
+
+def _tv_solve(dtype, n, cfg_kw, tail, nan_after=None):
+    """1-D TV through ``admm`` with TV's proxes: with ``tail`` the marked
+    prox_g (the engine's fused_diff_tail path), else the same prox unmarked
+    (the generic tail).  ``nan_after``: prox_f returns NaN from that call
+    on.  Returns the result and the plain difference-operator tail's
+    calls."""
+    cfg = ADMMConfig(**cfg_kw)
+    prox_f, prox_g, obj, data, D = tv_mod.make_prox_ops(
+        torch.from_numpy(_tv_signal(n)).to(dtype), 1.0, cfg)
+    assert prox_g is tv_mod._prox_g
+    calls = []
+
+    def pf(x, z, u, rho, d):
+        calls.append(1)
+        x = prox_f(x, z, u, rho, d)
+        return x * float("nan") if nan_after is not None and len(calls) > nan_after else x
+
+    pg = prox_g if tail else (lambda x, z, u, rho, d: prox_g(x, z, u, rho, d))
+    tails = []
+    plain = kernels._fused_zu_tail_torch
+
+    def counted(*a, **kw):
+        tails.append(kw["op"])
+        return plain(*a, **kw)
+
+    kernels._fused_zu_tail_torch = counted
+    try:
+        res = admm(pf, pg, cfg, A=D, B=-1.0, c=0.0, m=n, nA=n, nB=n, data=data, dtype=dtype,
+                   hooks=Hooks(obj=obj), device="cpu")
+    finally:
+        kernels._fused_zu_tail_torch = plain
+    return res, tails
+
+
+_TV_CASES = [
+    (257, dict(maxiters=13, domaxiters=True, unroll=1), None),
+    (257, dict(maxiters=13, domaxiters=True, unroll=4), None),   # frozen at k = N
+    (257, dict(maxiters=2000, unroll=5), None),                  # frozen once done
+    (257, dict(maxiters=2000, unroll=3, nodualerror=True), None),
+    (257, dict(maxiters=2000, unroll=4, objevals=True), None),
+    (257, dict(maxiters=100, unroll=3), 5),                      # NaN under nanguard
+    (257, dict(maxiters=10, unroll=4, nanguard=False), 5),       # NaN without it
+    (1, dict(maxiters=2000, unroll=4), None),
+    (2, dict(maxiters=2000, unroll=4), None),
+    (3, dict(maxiters=2000, unroll=2), None),
+    (65537, dict(maxiters=30, unroll=4), None),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,cfg_kw,nan_after", _TV_CASES)
+def test_diff_tail_equals_engine_generic_tail(dtype, n, cfg_kw, nan_after):
+    a, tails = _tv_solve(dtype, n, cfg_kw, tail=True, nan_after=nan_after)
+    b, none = _tv_solve(dtype, n, cfg_kw, tail=False, nan_after=nan_after)
+    K = cfg_kw["unroll"]
+    # Every sub-step, frozen ones too, went through the plain
+    # difference-operator tail; the unmarked prox never did.
+    assert len(tails) == (a.steps if K == 1 else -(-a.steps // K) * K) and none == []
+    assert all(type(op).__name__ == "DiffOp" and op.n == n for op in tails)
+    assert (a.steps, a.diverged) == (b.steps, b.diverged)
+    for name in ("xopt", "zopt", "uopt"):
+        assert _same(getattr(a, name), getattr(b, name))
+    assert a.hist.keys() == b.hist.keys()
+    for name in a.hist:
         np.testing.assert_array_equal(a.hist[name].numpy(), b.hist[name].numpy())
     if nan_after is not None:
         assert a.diverged == cfg_kw.get("nanguard", True)
@@ -301,3 +386,64 @@ def test_fused_lasso_matches_jax_f64(seed, unroll, monkeypatch):
         ref = jres.trace(name)
         np.testing.assert_allclose(res.trace(name), ref, rtol=0, atol=1e-8 * abs(ref[0]))
     np.testing.assert_allclose(res.objopt, jres.objopt, rtol=1e-10)
+
+
+@pytest.mark.parametrize("unroll", [1, 4, 16])
+def test_tv_diff_tail_matches_jax_f64(unroll, monkeypatch):
+    calls = []
+    plain = kernels._fused_zu_tail_torch
+    monkeypatch.setattr(kernels, "_fused_zu_tail_torch",
+                        lambda *a, **kw: (calls.append(kw["op"]), plain(*a, **kw))[1])
+    sig = _tv_signal(3000, seed=unroll)
+    cfg = dict(maxiters=5000, objevals=True, unroll=unroll)
+    jres = jax_tv(sig, 1.0, JaxConfig(**cfg), solver="cr")
+    res = totalvariation(sig, 1.0, ADMMConfig(**cfg), solver="cr", device="cpu")
+    assert res.steps == jres.steps < 5000
+    assert len(calls) == -(-res.steps // unroll) * unroll and calls[0] is not None
+    for name in ("xopt", "zopt", "uopt"):
+        ref = np.asarray(getattr(jres, name))
+        np.testing.assert_allclose(getattr(res, name).numpy(), ref, rtol=1e-9,
+                                   atol=1e-10 * np.max(np.abs(ref)))
+    for name in ("pnorm", "dnorm", "perr", "derr", "objvals"):
+        ref = jres.trace(name)
+        np.testing.assert_allclose(res.trace(name), ref, rtol=0, atol=1e-8 * abs(ref[0]))
+    np.testing.assert_allclose(res.objopt, jres.objopt, rtol=1e-10)
+
+
+def _tv_case(name):
+    sig = _tv_signal(600)
+    cfg = dict(maxiters=60, unroll=4)
+    if name == "tv_batch":
+        return lambda: tv_batch(np.stack([sig, -sig]), 1.0, ADMMConfig(**cfg), solver="cr",
+                                device="cpu")
+    if name == "fusedlasso":
+        return lambda: fusedlasso(sig, 0.1, 1.0, ADMMConfig(**cfg), device="cpu")
+    if name == "tv2d":
+        return lambda: totalvariation2d(sig[:576].reshape(24, 24), 1.0, ADMMConfig(**cfg),
+                                        device="cpu")
+    if name == "requires_grad":
+        s = torch.from_numpy(sig).requires_grad_()
+        return lambda: totalvariation(s, 1.0, ADMMConfig(**cfg), solver="cr", device="cpu")
+    opts = {"plain": {}, "plain_dense": {}, "relax": dict(relax=1.6),
+            "adaptive": dict(adaptive=True, convtest=True), "rbadaptive": dict(rbadaptive=True),
+            "stallwindow": dict(stallwindow=10), "anderson": dict(anderson=3),
+            "record_iterates": dict(record_iterates=True), "hnorm": dict(stopcond="both")}[name]
+    solver = "dense" if name == "plain_dense" or "adaptive" in name else "cr"
+    return lambda: totalvariation(sig, 1.0, ADMMConfig(**cfg, **opts), solver=solver,
+                                  device="cpu")
+
+
+@pytest.mark.parametrize("name", ["plain", "plain_dense", "tv_batch", "relax", "adaptive",
+                                  "rbadaptive", "stallwindow", "anderson", "record_iterates",
+                                  "hnorm", "fusedlasso", "tv2d", "requires_grad"])
+def test_diff_tail_engages_for_plain_1d_tv_alone(name, monkeypatch):
+    """TV's marked z-prox takes fused_diff_tail for one 1-D signal under
+    the standard stop, whatever its x-update; every option or family the
+    tail does not compute keeps the generic tail."""
+    calls = []
+    real = engine_mod.fused_diff_tail
+    monkeypatch.setattr(engine_mod, "fused_diff_tail",
+                        lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    res = _tv_case(name)()
+    assert res is not None
+    assert (len(calls) > 0) == name.startswith("plain")
